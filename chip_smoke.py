@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (cylon_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out PATH] [--profile]
+
+Phases, each of which fails the run on error:
+
+1. the card's name and power limit, torch and CUDA versions; build every
+   CUDA kernel from the sources in the checkout (one nvcc per source, all
+   started together) and print the build time;
+2. every kernel against its plain PyTorch version on the card, at the
+   main path's sizes and at ragged sizes: exact for integers and min/max,
+   float32 sums within a stated tolerance of a float64 oracle;
+3. the main path at full size: 2^26 rows per side from
+   ``pipeline.make_data(rows, 12345)``, join count -> ``cap_round`` ->
+   ``join_groupby``, checked against a numpy ``bincount`` oracle; the
+   launch counters are zeroed just before that run and read just after;
+   then best-of-5 rows/s (``2*rows/seconds``, as ``bench.py``) and peak
+   device memory;
+4. each kernel's time at the main path's shapes (CUDA events), its bound
+   (bytes over 3.35 TB/s), its plain version's time and, where one
+   PyTorch call computes the same function, that call's time.
+
+It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+limit line, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the package beside it, it exits non-zero and prints no
+result.  ``--out`` also writes every number to a JSON file; ``--profile``
+adds a device-time breakdown of one main-path run by kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+ROWS = 1 << 26  # main-path rows per side: the TPU ladder's top size
+SCAN_SOURCE = "cylon_tpu_torch/cuda/scan.cu"
+KERNELS = {
+    # name -> (TPU kernel it replaces, bytes each element must move)
+    "scan_1d": ("cylon_tpu/ops/pallas_scan.py:222", 8),
+    "segmented_scan": ("cylon_tpu/ops/pallas_scan.py:150", 9),
+}
+F32_SUM_RTOL = 1e-5  # float32 sums: tree-order rounding, the reference's rtol
+F32_SUM_ATOL = 1e-6
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps: int = 10) -> float:
+    """Mean milliseconds of ``fn()`` on the card, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+# -- phase 1 ------------------------------------------------------------------
+
+def phase_build(report: dict) -> None:
+    import torch
+
+    from cylon_tpu_torch.cuda import build
+
+    report["smi"] = smi_line()
+    log(f"[1] card: {report['smi']}")
+    log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    sources = sorted(p for p in os.listdir(os.path.dirname(build.__file__))
+                     if p.endswith(".cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(build.build, sources))
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[1] built {sources} in {report['build_s']:.1f} s")
+    for src in sources:
+        regs = [int(w) for line in build.BUILD_INFO[src][1].splitlines()
+                if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt == "registers,"]
+        log(f"[1]   {src}: {len(regs)} kernels, max {max(regs, default=0)} "
+            f"registers per thread")
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+def _f32_oracle(x, reset):
+    """float64 segmented inclusive sum."""
+    import torch
+
+    cs = torch.cumsum(x.double(), 0)
+    n = x.shape[0]
+    idx = torch.arange(n, device=x.device)
+    start = torch.cummax(torch.where(reset, idx, torch.zeros_like(idx)),
+                         0).values
+    before = torch.where(start > 0, cs[(start - 1).clamp(min=0)],
+                         torch.zeros_like(cs))
+    return cs - before
+
+
+def _compare(name, got, want, exact, oracle=None):
+    """Max abs error of ``got`` against ``want`` (the plain version);
+    exact cases must match bit for bit, float32 sums must lie within the
+    stated tolerance of the float64 oracle."""
+    import torch
+
+    if exact:
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{name}: {bad} elements differ from plain")
+        return 0.0
+    err = float((got.double() - want.double()).abs().max())
+    ref = oracle if oracle is not None else want.double()
+    tol = F32_SUM_RTOL * ref.abs() + F32_SUM_ATOL
+    over = (got.double() - ref).abs() > tol
+    if bool(over.any()):
+        raise AssertionError(f"{name}: {int(over.sum())} elements outside "
+                             f"rtol={F32_SUM_RTOL} atol={F32_SUM_ATOL}")
+    return err
+
+
+def phase_kernels(report: dict) -> None:
+    import torch
+
+    from cylon_tpu_torch.ops import scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {"scan_1d": 0.0, "segmented_scan": 0.0}
+    passed = {"scan_1d": 0, "segmented_scan": 0}
+    checks = []
+
+    def ints(n, hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def plain_case(n, x, op, reverse):
+        got = scan.scan_1d(x, op, reverse)
+        want = scan.scan_1d_plain(x, op, reverse)
+        e = _compare(f"scan_1d {op} rev={reverse} n={n} {x.dtype}", got, want,
+                     exact=x.dtype != torch.float32 or op != "sum")
+        errs["scan_1d"] = max(errs["scan_1d"], e)
+        passed["scan_1d"] += 1
+        checks.append(f"scan_1d {x.dtype} {op} rev={reverse} n={n}")
+
+    def seg_case(n, x, reset, op):
+        got = scan.segmented_scan(x, reset, op)
+        want = scan.segmented_scan_plain(x, reset, op)
+        f32sum = x.dtype == torch.float32 and op == "sum"
+        oracle = _f32_oracle(x, reset) if f32sum else None
+        e = _compare(f"segmented_scan {op} n={n} {x.dtype}", got, want,
+                     exact=not f32sum, oracle=oracle)
+        errs["segmented_scan"] = max(errs["segmented_scan"], e)
+        passed["segmented_scan"] += 1
+        checks.append(f"segmented_scan {x.dtype} {op} n={n} "
+                      f"resets={int(reset.sum())}")
+
+    n = 1 << 27
+    member = ints(n, 2)
+    wide = ints(n, 1 << 30) - (1 << 29)
+    for op in ("sum", "max", "min"):
+        for rev in (False, True):
+            plain_case(n, member if op == "sum" else wide, op, rev)
+    del member, wide
+
+    n = 1 << 26
+    xf = torch.rand(n, generator=gen, device=dev)
+    xi = ints(n, 1000)
+    r1 = torch.rand(n, generator=gen, device=dev) < 0.01
+    r1[0] = True
+    for op in ("sum", "min", "max"):
+        seg_case(n, xf, r1, op)
+    seg_case(n, xi, r1, "sum")
+    for reset in (torch.ones(n, dtype=torch.bool, device=dev),
+                  torch.zeros(n, dtype=torch.bool, device=dev)):
+        seg_case(n, xf, reset, "sum")
+        seg_case(n, xi, reset, "max")
+    del xf, xi, r1
+
+    for n in (1, 1023, 4097):
+        xi = ints(n, 1 << 20) - (1 << 19)
+        xf = torch.rand(n, generator=gen, device=dev)
+        r = torch.rand(n, generator=gen, device=dev) < 0.05
+        for op in ("sum", "min", "max"):
+            for rev in (False, True):
+                plain_case(n, xi, op, rev)
+            plain_case(n, xf, op, False)
+            seg_case(n, xf, r, op)
+            seg_case(n, xi, r, op)
+        # uint32 through its bit pattern: sums wrap like int32, and
+        # unsigned order is the signed order with the top bit flipped
+        xu = xi.view(torch.uint32)
+        got = scan.segmented_scan(xu, r, "sum").view(torch.int32)
+        _compare(f"segmented_scan uint32 sum n={n}", got,
+                 scan.segmented_scan(xi, r, "sum"), exact=True)
+        flip = torch.tensor(-(1 << 31), dtype=torch.int32, device=dev)
+        for op in ("min", "max"):
+            got = scan.scan_1d(xu, op).view(torch.int32) ^ flip
+            _compare(f"scan_1d uint32 {op} n={n}", got,
+                     scan.scan_1d(xi ^ flip, op), exact=True)
+        passed["segmented_scan"] += 1
+        passed["scan_1d"] += 2
+        checks.append(f"uint32 sum/min/max n={n}")
+    torch.cuda.synchronize()
+    report["kernel_checks"] = checks
+    report["checks_passed"] = passed
+    report["max_abs_err"] = errs
+    log(f"[2] {len(checks)} kernel checks passed; max abs err {errs}")
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+def phase_main_path(report: dict, rows: int) -> dict:
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import pipeline
+    from cylon_tpu_torch.ops import scan
+
+    lk, lv, rk, rv = pipeline.make_data(rows, pipeline.SEED)
+    tables = pipeline.tables(lk, lv, rk, rv)  # default device: the card
+
+    torch.cuda.synchronize()
+    scan.reset_launches()
+    t0 = time.perf_counter()
+    m = pipeline.join_count(*tables)
+    out_cap = pipeline.cap_round(m)
+    gcols, g, jm = pipeline.join_groupby(*tables, out_cap)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(scan.LAUNCHES)
+    log(f"[3] rows/side={rows} join_count={m} out_cap={out_cap} "
+        f"first run {first_s:.3f} s launches={launches}")
+    if launches["scan_1d"] < 3 or launches["segmented_scan"] < 2:
+        raise AssertionError(f"main path did not go through the scan "
+                             f"kernels: {launches}")
+
+    # numpy bincount oracle
+    cl = np.bincount(lk, minlength=rows).astype(np.int64)
+    cr = np.bincount(rk, minlength=rows).astype(np.int64)
+    sl = np.bincount(lk, weights=lv.astype(np.float64), minlength=rows)
+    sr = np.bincount(rk, weights=rv.astype(np.float64), minlength=rows)
+    both = (cl > 0) & (cr > 0)
+    jm_o = int((cl * cr).sum())
+    g_o = int(both.sum())
+    g_n, jm_n = int(g), int(jm)
+    if (m, jm_n, g_n) != (jm_o, jm_o, g_o):
+        raise AssertionError(f"counts: join {m}/{jm_n} group {g_n}, oracle "
+                             f"join {jm_o} group {g_o}")
+    keys = gcols[0].data[:g_n].cpu().numpy()
+    if not np.array_equal(keys, np.nonzero(both)[0].astype(np.int32)):
+        raise AssertionError("group keys differ from the oracle")
+    valid = [c.validity.cpu().numpy() for c in gcols]
+    for v in valid:
+        if not (v[:g_n].all() and not v[g_n:].any()):
+            raise AssertionError("group validity is not the live prefix")
+    sums = gcols[1].data[:g_n].cpu().numpy().astype(np.float64)
+    means = gcols[2].data[:g_n].cpu().numpy().astype(np.float64)
+    sum_o = (sl * cr)[both]
+    mean_o = (sr / np.maximum(cr, 1))[both]
+    np.testing.assert_allclose(sums, sum_o, rtol=F32_SUM_RTOL)
+    np.testing.assert_allclose(means, mean_o, rtol=F32_SUM_RTOL)
+    sum_err = float(np.abs(sums - sum_o).max())
+    mean_err = float(np.abs(means - mean_o).max())
+    log(f"[3] oracle: join {jm_o} groups {g_o} exact; SUM max abs err "
+        f"{sum_err:.3g}, MEAN max abs err {mean_err:.3g} (rtol "
+        f"{F32_SUM_RTOL})")
+    del gcols, g, jm
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.join_groupby(*tables, out_cap)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    peak = torch.cuda.max_memory_allocated()
+    report["main_path"] = {
+        "rows_per_side": rows, "join_count": m, "groups": g_o,
+        "out_cap": out_cap, "launches": launches, "first_run_s": first_s,
+        "times_s": times, "rows_per_s": 2 * rows / best,
+        "peak_device_bytes": peak, "sum_max_abs_err": sum_err,
+        "mean_max_abs_err": mean_err}
+    log(f"[3] best-of-5 {best * 1e3:.2f} ms -> {2 * rows / best:.6g} rows/s; "
+        f"times {[round(t * 1e3, 2) for t in times]} ms; peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    return {"tables": tables, "out_cap": out_cap, "launches": launches}
+
+
+def phase_profile(report: dict, main: dict) -> None:
+    """Device time by kernel over one pipeline run (torch.profiler), and
+    the device's busy share of the run's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cylon_tpu_torch import pipeline
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.join_groupby(*main["tables"], main["out_cap"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue  # host-side ops; their kernels are listed themselves
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append({"name": e.key[:90], "calls": e.count,
+                         "device_us": dev_us})
+    rows.sort(key=lambda r: -r["device_us"])
+    busy = sum(r["device_us"] for r in rows)
+    report["profile"] = {"wall_us": wall_us, "device_busy_us": busy,
+                         "kernels": rows}
+    log(f"[p] one pipeline run: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
+    for r in rows[:15]:
+        log(f"[p]   {r['device_us'] / 1e3:8.3f} ms  x{r['calls']:<4} "
+            f"{r['name']}")
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+def _segmented_inputs(tables, out_cap):
+    """The segmented scan's inputs on the main path: the join output's
+    masked SUM column and its group boundaries, built as
+    ``pipeline_groupby`` builds them."""
+    import torch
+
+    from cylon_tpu_torch.config import JoinType
+    from cylon_tpu_torch.ops import join, keys
+
+    joined, jm = join.join_gather(*tables, (0,), (0,),
+                                  JoinType.INNER, out_cap, "sort",
+                                  key_grouped=True, project=(0, 1, 3))
+    ops = [keys.padding_operand(out_cap, jm, jm.device)]
+    ops += keys.column_operands(joined[0])
+    new_group = ~keys.rows_equal_adjacent(keys.pack_operands(ops))
+    live = torch.arange(out_cap, device=jm.device) < jm
+    v = joined[1]
+    x = torch.where(v.validity & live, v.data, torch.zeros_like(v.data))
+    return x.contiguous(), new_group.contiguous()
+
+
+def phase_timings(report: dict, main: dict, rows: int) -> list:
+    import torch
+
+    from cylon_tpu_torch.ops import scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = 2 * rows  # run_extents scans the combined sorted order
+    member = torch.randint(0, 2, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    x, reset = _segmented_inputs(main["tables"], main["out_cap"])
+    launches = main["launches"]
+    seg_err = _compare("segmented_scan main-path input",
+                       scan.segmented_scan(x, reset, "sum"),
+                       scan.segmented_scan_plain(x, reset, "sum"), False,
+                       _f32_oracle(x, reset))
+    errs = dict(report.get("max_abs_err", {}))
+    errs["segmented_scan"] = max(errs.get("segmented_scan", 0.0), seg_err)
+
+    rows_out = []
+    scan_variants = {}
+    for op, rev, lib in (("sum", False, lambda: torch.cumsum(
+                             member, 0, dtype=torch.int32)),
+                         ("max", False, lambda: torch.cummax(member, 0)),
+                         ("min", True, None)):
+        k_ms = cuda_time_ms(lambda: scan.scan_1d(member, op, rev))
+        p_ms = cuda_time_ms(lambda: scan.scan_1d_plain(member, op, rev), 3)
+        l_ms = cuda_time_ms(lib) if lib is not None else None
+        scan_variants[f"{op}{'_rev' if rev else ''}"] = {
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms}
+    head = scan_variants["sum"]
+    rows_out.append(dict(
+        name="scan_1d", route="cuda", source=SCAN_SOURCE,
+        replaces=KERNELS["scan_1d"][0], launches=launches["scan_1d"],
+        max_abs_err=errs.get("scan_1d", 0.0), ms=head["ms"],
+        plain_ms=head["plain_ms"],
+        bound_ms=KERNELS["scan_1d"][1] * n / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=head["library_ms"],
+        checks_passed=report.get("checks_passed", {}).get("scan_1d", 0)))
+
+    m = x.shape[0]
+    s_ms = cuda_time_ms(lambda: scan.segmented_scan(x, reset, "sum"))
+    sp_ms = cuda_time_ms(lambda: scan.segmented_scan_plain(x, reset, "sum"), 3)
+    rows_out.append(dict(
+        name="segmented_scan", route="cuda", source=SCAN_SOURCE,
+        replaces=KERNELS["segmented_scan"][0],
+        launches=launches["segmented_scan"],
+        max_abs_err=errs["segmented_scan"], ms=s_ms, plain_ms=sp_ms,
+        bound_ms=KERNELS["segmented_scan"][1] * m / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None,
+        checks_passed=report.get("checks_passed", {}).get(
+            "segmented_scan", 0) + 1))
+    report["scan_1d_variants"] = scan_variants
+    report["segmented_inputs"] = {"n": m, "resets": int(reset.sum())}
+    for r in rows_out:
+        log(f"[4] {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
+            f"ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']}) "
+            f"launches/run {r['launches']}")
+    log(f"[4] scan_1d variants at n={n}: {json.dumps(scan_variants)}")
+    log(f"[4] segmented_scan at n={m}, resets={int(reset.sum())}")
+    return rows_out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write every number to this JSON file")
+    ap.add_argument("--profile", action="store_true",
+                    help="after phase 3, profile one pipeline run")
+    args = ap.parse_args(argv)
+
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import cylon_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: cylon_tpu_torch not found beside the script: {e}",
+              file=sys.stderr)
+        return 2
+
+    report: dict = {"device": torch.cuda.get_device_name(0)}
+    kernels = []
+    try:
+        phase_build(report)
+        phase_kernels(report)
+        main_state = phase_main_path(report, ROWS)
+        if args.profile:
+            phase_profile(report, main_state)
+        kernels = phase_timings(report, main_state, ROWS)
+        report["kernels"] = kernels
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    finally:
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+
+    print(json.dumps({"kernels": kernels}))
+    print(report["smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
