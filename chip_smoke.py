@@ -11,12 +11,22 @@ Phases, each of which fails the run on error:
 2. every kernel against its plain PyTorch version on the card, at the
    main path's sizes and at ragged sizes: exact for integers and min/max,
    float32 sums within a stated tolerance of a float64 oracle;
-3. the main path at full size: 2^26 rows per side from
+3. the single-chip main path at full size: 2^26 rows per side from
    ``pipeline.make_data(rows, 12345)``, join count -> ``cap_round`` ->
    ``join_groupby``, checked against a numpy ``bincount`` oracle; the
    launch counters are zeroed just before that run and read just after;
    then best-of-5 rows/s (``2*rows/seconds``, as ``bench.py``) and peak
    device memory;
+3b. the distributed path at full size: the same data split into 4 shards
+   of an in-process mesh on the one card, ``pipeline.distributed_tables``
+   -> ``distributed_join_groupby`` (hash shuffle of both sides, per-shard
+   join, two-phase group-by), counters zeroed just before and read just
+   after, checked against the same oracle; best-of-5 rows/s, first-run
+   time, peak device memory.  It is 4 shards on one card, not a
+   multi-card number;
+3c. HashPartition of the 2^26-row left table into 3 partitions: sizes
+   sum to the rows, and every partition's keys re-hash to it under the
+   plain version;
 4. each kernel's time at the main path's shapes (CUDA events), its bound
    (bytes over 3.35 TB/s), its plain version's time and, where one
    PyTorch call computes the same function, that call's time.
@@ -25,7 +35,8 @@ It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit line, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
-adds a device-time breakdown of one main-path run by kernel.
+adds a device-time breakdown by kernel of one run of each main path, and
+a stage breakdown of one distributed run.
 """
 from __future__ import annotations
 
@@ -40,11 +51,15 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 ROWS = 1 << 26  # main-path rows per side: the TPU ladder's top size
+SHARDS = 4  # distributed path: shards of the in-process mesh, one card
 SCAN_SOURCE = "cylon_tpu_torch/cuda/scan.cu"
+HASH_SOURCE = "cylon_tpu_torch/cuda/murmur3.cu"
 KERNELS = {
     # name -> (TPU kernel it replaces, bytes each element must move)
     "scan_1d": ("cylon_tpu/ops/pallas_scan.py:222", 8),
     "segmented_scan": ("cylon_tpu/ops/pallas_scan.py:150", 9),
+    # int32 key + bool validity in, uint32 hash + int32 target out
+    "hash_partition": ("cylon_tpu/ops/pallas_kernels.py:113", 13),
 }
 F32_SUM_RTOL = 1e-5  # float32 sums: tree-order rounding, the reference's rtol
 F32_SUM_ATOL = 1e-6
@@ -149,8 +164,8 @@ def phase_kernels(report: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    errs = {"scan_1d": 0.0, "segmented_scan": 0.0}
-    passed = {"scan_1d": 0, "segmented_scan": 0}
+    errs = {"scan_1d": 0.0, "segmented_scan": 0.0, "hash_partition": 0.0}
+    passed = {"scan_1d": 0, "segmented_scan": 0, "hash_partition": 0}
     checks = []
 
     def ints(n, hi):
@@ -224,6 +239,7 @@ def phase_kernels(report: dict) -> None:
         passed["segmented_scan"] += 1
         passed["scan_1d"] += 2
         checks.append(f"uint32 sum/min/max n={n}")
+    _hash_checks(dev, passed, checks)
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
     report["checks_passed"] = passed
@@ -231,100 +247,331 @@ def phase_kernels(report: dict) -> None:
     log(f"[2] {len(checks)} kernel checks passed; max abs err {errs}")
 
 
-# -- phase 3 ------------------------------------------------------------------
-
-def phase_main_path(report: dict, rows: int) -> dict:
+def _hash_checks(dev, passed, checks) -> None:
+    """The murmur3 hash-partition kernel against its plain version on the
+    card, bit for bit: every key dtype, nulls, 1- and 2-column keys, mask
+    and modulo worlds, ragged sizes, and the main path's 2^26 int32 keys."""
     import numpy as np
     import torch
 
-    from cylon_tpu_torch import pipeline
-    from cylon_tpu_torch.ops import scan
+    from cylon_tpu_torch import column
+    from cylon_tpu_torch.ops import hash_kernels
 
-    lk, lv, rk, rv = pipeline.make_data(rows, pipeline.SEED)
-    tables = pipeline.tables(lk, lv, rk, rv)  # default device: the card
+    rng = np.random.default_rng(13)
 
-    torch.cuda.synchronize()
-    scan.reset_launches()
-    t0 = time.perf_counter()
-    m = pipeline.join_count(*tables)
-    out_cap = pipeline.cap_round(m)
-    gcols, g, jm = pipeline.join_groupby(*tables, out_cap)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = dict(scan.LAUNCHES)
-    log(f"[3] rows/side={rows} join_count={m} out_cap={out_cap} "
-        f"first run {first_s:.3f} s launches={launches}")
-    if launches["scan_1d"] < 3 or launches["segmented_scan"] < 2:
-        raise AssertionError(f"main path did not go through the scan "
-                             f"kernels: {launches}")
+    def case(cols, world, label):
+        h, t = hash_kernels.hash_partition(cols, world)
+        ph, pt = hash_kernels.hash_partition_plain(cols, world)
+        if not (torch.equal(h.view(torch.int32), ph.view(torch.int32))
+                and torch.equal(t, pt)):
+            bad = int((h.view(torch.int32) != ph.view(torch.int32)).sum())
+            raise AssertionError(f"hash_partition {label} world={world}: "
+                                 f"{bad} hashes differ from plain")
+        passed["hash_partition"] += 1
+        checks.append(f"hash_partition {label} world={world}")
 
-    # numpy bincount oracle
+    def col(dtype, n):
+        if dtype == np.bool_:
+            v = rng.random(n) > 0.5
+        else:
+            v = rng.integers(-(1 << 62), 1 << 62, n).astype(dtype)
+        return column.from_numpy(v, validity=rng.random(n) > 0.1,
+                                 capacity=n + 3, device=dev)
+
+    dtypes = (np.int8, np.int16, np.int32, np.int64, np.uint32, np.float32,
+              np.float64, np.bool_)
+    for n in (1, 255, 257, 4097, (1 << 20) + 3):
+        cols = {np.dtype(d).name: col(d, n) for d in dtypes}
+        for name, c in cols.items():
+            for world in (4, 6):
+                case([c], world, f"{name} n={n}")
+        for world in (4, 6):
+            case([cols["int32"], cols["float64"]], world,
+                 f"int32+float64 n={n}")
+    n = ROWS
+    keys = column.Column(
+        torch.randint(0, n, (n,), generator=torch.Generator(device=dev)
+                      .manual_seed(17), device=dev, dtype=torch.int32),
+        torch.ones(n, dtype=torch.bool, device=dev), None,
+        column.dtypes.int32)
+    for world in (4, 6):
+        case([keys], world, f"int32 keys n={n}")
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+def _oracle(data, rows: int) -> dict:
+    """numpy bincount oracle of the join -> SUM/MEAN group-by on
+    ``pipeline.make_data`` tables: join count, group keys (ascending),
+    float64 SUM(lv) and MEAN(rv) per group."""
+    import numpy as np
+
+    lk, lv, rk, rv = data
     cl = np.bincount(lk, minlength=rows).astype(np.int64)
     cr = np.bincount(rk, minlength=rows).astype(np.int64)
     sl = np.bincount(lk, weights=lv.astype(np.float64), minlength=rows)
     sr = np.bincount(rk, weights=rv.astype(np.float64), minlength=rows)
     both = (cl > 0) & (cr > 0)
-    jm_o = int((cl * cr).sum())
-    g_o = int(both.sum())
-    g_n, jm_n = int(g), int(jm)
-    if (m, jm_n, g_n) != (jm_o, jm_o, g_o):
-        raise AssertionError(f"counts: join {m}/{jm_n} group {g_n}, oracle "
-                             f"join {jm_o} group {g_o}")
-    keys = gcols[0].data[:g_n].cpu().numpy()
-    if not np.array_equal(keys, np.nonzero(both)[0].astype(np.int32)):
-        raise AssertionError("group keys differ from the oracle")
-    valid = [c.validity.cpu().numpy() for c in gcols]
-    for v in valid:
-        if not (v[:g_n].all() and not v[g_n:].any()):
-            raise AssertionError("group validity is not the live prefix")
-    sums = gcols[1].data[:g_n].cpu().numpy().astype(np.float64)
-    means = gcols[2].data[:g_n].cpu().numpy().astype(np.float64)
-    sum_o = (sl * cr)[both]
-    mean_o = (sr / np.maximum(cr, 1))[both]
-    np.testing.assert_allclose(sums, sum_o, rtol=F32_SUM_RTOL)
-    np.testing.assert_allclose(means, mean_o, rtol=F32_SUM_RTOL)
-    sum_err = float(np.abs(sums - sum_o).max())
-    mean_err = float(np.abs(means - mean_o).max())
-    log(f"[3] oracle: join {jm_o} groups {g_o} exact; SUM max abs err "
-        f"{sum_err:.3g}, MEAN max abs err {mean_err:.3g} (rtol "
-        f"{F32_SUM_RTOL})")
-    del gcols, g, jm
+    return {"join": int((cl * cr).sum()), "groups": int(both.sum()),
+            "keys": np.nonzero(both)[0].astype(np.int32),
+            "sum": (sl * cr)[both], "mean": (sr / np.maximum(cr, 1))[both]}
+
+
+def _check_groups(oracle: dict, keys, sums, means, label: str):
+    """Group keys exact, SUM and MEAN within rtol of the float64 oracle;
+    returns their max abs errors."""
+    import numpy as np
+
+    if not np.array_equal(keys, oracle["keys"]):
+        raise AssertionError(f"{label}: group keys differ from the oracle")
+    sums = np.asarray(sums, np.float64)
+    means = np.asarray(means, np.float64)
+    np.testing.assert_allclose(sums, oracle["sum"], rtol=F32_SUM_RTOL)
+    np.testing.assert_allclose(means, oracle["mean"], rtol=F32_SUM_RTOL)
+    return (float(np.abs(sums - oracle["sum"]).max(initial=0.0)),
+            float(np.abs(means - oracle["mean"]).max(initial=0.0)))
+
+
+def _launch_counts() -> dict:
+    from cylon_tpu_torch.ops import hash_kernels, scan
+
+    return {**scan.LAUNCHES, **hash_kernels.LAUNCHES}
+
+
+def _reset_launches() -> None:
+    from cylon_tpu_torch.ops import hash_kernels, scan
+
+    scan.reset_launches()
+    hash_kernels.reset_launches()
+
+
+def _best_of_5(fn, rows: int):
+    """(times, rows/s of the best, peak device bytes) of five synchronised
+    runs of ``fn``; the peak is over those runs, resident inputs included."""
+    import torch
 
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipeline.join_groupby(*tables, out_cap)
+        fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    best = min(times)
-    peak = torch.cuda.max_memory_allocated()
-    report["main_path"] = {
-        "rows_per_side": rows, "join_count": m, "groups": g_o,
-        "out_cap": out_cap, "launches": launches, "first_run_s": first_s,
-        "times_s": times, "rows_per_s": 2 * rows / best,
-        "peak_device_bytes": peak, "sum_max_abs_err": sum_err,
-        "mean_max_abs_err": mean_err}
-    log(f"[3] best-of-5 {best * 1e3:.2f} ms -> {2 * rows / best:.6g} rows/s; "
-        f"times {[round(t * 1e3, 2) for t in times]} ms; peak device "
-        f"memory {peak / 2**30:.2f} GiB")
-    return {"tables": tables, "out_cap": out_cap, "launches": launches}
+    return times, 2 * rows / min(times), torch.cuda.max_memory_allocated()
 
 
-def phase_profile(report: dict, main: dict) -> None:
-    """Device time by kernel over one pipeline run (torch.profiler), and
-    the device's busy share of the run's wall time."""
+def phase_main_path(report: dict, rows: int) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cylon_tpu_torch import pipeline
+
+    data = pipeline.make_data(rows, pipeline.SEED)
+    tables = pipeline.tables(*data)  # default device: the card
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    m = pipeline.join_count(*tables)
+    out_cap = pipeline.cap_round(m)
+    gcols, g, jm = pipeline.join_groupby(*tables, out_cap)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    log(f"[3] rows/side={rows} join_count={m} out_cap={out_cap} "
+        f"first run {first_s:.3f} s launches={launches}")
+    if launches["scan_1d"] < 3 or launches["segmented_scan"] < 2:
+        raise AssertionError(f"main path did not go through the scan "
+                             f"kernels: {launches}")
+
+    oracle = _oracle(data, rows)
+    g_n, jm_n = int(g), int(jm)
+    if (m, jm_n, g_n) != (oracle["join"], oracle["join"], oracle["groups"]):
+        raise AssertionError(f"counts: join {m}/{jm_n} group {g_n}, oracle "
+                             f"join {oracle['join']} group "
+                             f"{oracle['groups']}")
+    valid = [c.validity.cpu().numpy() for c in gcols]
+    for v in valid:
+        if not (v[:g_n].all() and not v[g_n:].any()):
+            raise AssertionError("group validity is not the live prefix")
+    sum_err, mean_err = _check_groups(
+        oracle, gcols[0].data[:g_n].cpu().numpy(),
+        gcols[1].data[:g_n].cpu().numpy(), gcols[2].data[:g_n].cpu().numpy(),
+        "single chip")
+    log(f"[3] oracle: join {oracle['join']} groups {oracle['groups']} exact; "
+        f"SUM max abs err {sum_err:.3g}, MEAN max abs err {mean_err:.3g} "
+        f"(rtol {F32_SUM_RTOL})")
+    del gcols, g, jm
+
+    times, rate, peak = _best_of_5(
+        lambda: pipeline.join_groupby(*tables, out_cap), rows)
+    report["main_path"] = {
+        "rows_per_side": rows, "join_count": m, "groups": oracle["groups"],
+        "out_cap": out_cap, "launches": launches, "first_run_s": first_s,
+        "times_s": times, "rows_per_s": rate,
+        "peak_device_bytes": peak, "sum_max_abs_err": sum_err,
+        "mean_max_abs_err": mean_err}
+    log(f"[3] best-of-5 {min(times) * 1e3:.2f} ms -> {rate:.6g} rows/s; "
+        f"times {[round(t * 1e3, 2) for t in times]} ms; peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    return {"tables": tables, "out_cap": out_cap, "launches": launches,
+            "data": data, "oracle": oracle}
+
+
+def phase_distributed(report: dict, main: dict, rows: int) -> dict:
+    """The distributed path, 2^26 rows per side in SHARDS shards on the
+    one card."""
+    import torch
+
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+
+    ctx = CylonContext.InitDistributed(MeshConfig(world_size=SHARDS))
+    left, right = pipeline.distributed_tables(ctx, *main["data"])
+    oracle = main["oracle"]
+
+    ctx.Barrier()
+    _reset_launches()
+    t0 = time.perf_counter()
+    groups, joined = pipeline.distributed_join_groupby(left, right)
+    ctx.Barrier()
+    first_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    log(f"[3b] {SHARDS} shards on {sorted({str(d) for d in ctx.devices})}: "
+        f"first run {first_s:.3f} s launches={launches}")
+    if launches["hash_partition"] < 3 * SHARDS or launches["scan_1d"] < 1 \
+            or launches["segmented_scan"] < 1:
+        raise AssertionError(f"distributed path did not go through the "
+                             f"kernels: {launches}")
+
+    jm, g = joined.row_count, groups.row_count
+    if (jm, g) != (oracle["join"], oracle["groups"]):
+        raise AssertionError(f"distributed counts: join {jm} group {g}, "
+                             f"oracle join {oracle['join']} group "
+                             f"{oracle['groups']}")
+    out = groups.to_numpy()
+    for name, v in out.items():
+        if v.dtype == object:
+            raise AssertionError(f"distributed output {name} has nulls")
+    order = out["l_k"].argsort()
+    sum_err, mean_err = _check_groups(oracle, out["l_k"][order],
+                                      out["sum_lv"][order],
+                                      out["mean_rv"][order], "distributed")
+    log(f"[3b] oracle: join {jm} groups {g} exact; SUM max abs err "
+        f"{sum_err:.3g}, MEAN max abs err {mean_err:.3g} (rtol "
+        f"{F32_SUM_RTOL}); join rows per shard "
+        f"{joined.row_counts.tolist()}, capacity {joined.shard_capacity}")
+    shard_caps = {"join": joined.shard_capacity,
+                  "groups": groups.shard_capacity}
+    del groups, joined, out
+
+    resident = torch.cuda.memory_allocated()
+    times, rate, peak = _best_of_5(
+        lambda: pipeline.distributed_join_groupby(left, right), rows)
+    report["distributed_path"] = {
+        "shards": SHARDS, "devices": [str(d) for d in ctx.devices],
+        "rows_per_side": rows, "join_count": jm, "groups": g,
+        "launches": launches, "first_run_s": first_s, "times_s": times,
+        "rows_per_s": rate, "peak_device_bytes": peak,
+        "resident_bytes_before": resident, "shard_capacities": shard_caps,
+        "sum_max_abs_err": sum_err, "mean_max_abs_err": mean_err}
+    log(f"[3b] best-of-5 {min(times) * 1e3:.2f} ms -> {rate:.6g} rows/s "
+        f"({SHARDS} shards on one card); times "
+        f"{[round(t * 1e3, 2) for t in times]} ms; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
+        f"before the runs)")
+    return {"ctx": ctx, "left": left, "right": right, "launches": launches}
+
+
+def phase_hash_partition(report: dict, dist: dict, rows: int) -> None:
+    """HashPartition of the left table into 3 partitions (the modulo
+    branch): sizes sum to the rows, and each partition's keys re-hash to
+    it under the plain version."""
+    import torch
+
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.ops import hash_kernels
+
+    left, parts_n = dist["left"], 3
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    parts = left.hash_partition("k", parts_n)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    sizes = {p: t.row_count for p, t in parts.items()}
+    if sum(sizes.values()) != rows:
+        raise AssertionError(f"partition sizes {sizes} do not sum to {rows}")
+    if launches["hash_partition"] != left.num_shards:
+        raise AssertionError(f"HashPartition launches {launches}")
+    per_shard = [0] * left.num_shards
+    for p, t in parts.items():
+        for s, (cols, n) in enumerate(zip(t.shards, t.row_counts)):
+            n = int(n)
+            per_shard[s] += n
+            k = cols[0]
+            live = Column(k.data[:n], k.validity[:n], None, k.dtype)
+            _, tgt = hash_kernels.hash_partition_plain([live], parts_n)
+            if not bool((tgt == p).all()):
+                raise AssertionError(f"partition {p} shard {s} holds rows "
+                                     "of another partition")
+    if per_shard != left.row_counts.tolist():
+        raise AssertionError(f"rows per shard {per_shard} != "
+                             f"{left.row_counts.tolist()}")
+    report["hash_partition"] = {"partitions": parts_n, "sizes": sizes,
+                                "launches": launches, "first_run_s": first_s,
+                                "capacities": {p: t.shard_capacity
+                                               for p, t in parts.items()}}
+    log(f"[3c] HashPartition of {rows} rows into {parts_n}: sizes {sizes}, "
+        f"every key re-hashes to its partition; {first_s * 1e3:.2f} ms "
+        f"first run; launches={launches}")
+
+
+# kernel family -> substrings of the profiler's kernel names (first match
+# wins; anything else is "other elementwise")
+FAMILIES = (
+    ("CUDA hash kernel (cuda/murmur3.cu)", ("hash_partition_kernel",)),
+    ("CUDA scan kernels (cuda/scan.cu)", ("tile_scan_kernel",
+                                          "fixup_kernel")),
+    ("radix sorts (CUB)", ("DeviceRadixSort",)),
+    ("torch.bincount", ("kernelHistogram1D",)),
+    ("gathers and scatters", ("gpu_index_kernel", "indexFuncLargeIndex",
+                              "scatter")),
+    ("dtype copies (.to)", ("direct_copy_kernel",)),
+    ("arange", ("arange_cuda_out",)),
+    ("cat, fills, cumsum, memcpy, memset", (
+        "CatArrayBatchedCopy", "FillFunctor", "DeviceScan",
+        "fill_reverse_indices", "Memcpy", "Memset")),
+)
+
+
+def kernel_families(rows: list) -> list:
+    """Profile rows summed by kernel family: name, launches, device us,
+    most first."""
+    acc: dict = {}
+    for r in rows:
+        fam = next((f for f, keys in FAMILIES
+                    if any(k in r["name"] for k in keys)),
+                   "other elementwise")
+        calls, us = acc.get(fam, (0, 0.0))
+        acc[fam] = (calls + r["calls"], us + r["device_us"])
+    return sorted(({"family": f, "calls": c, "device_us": us}
+                   for f, (c, us) in acc.items()),
+                  key=lambda r: -r["device_us"])
+
+
+def phase_profile(report: dict, key: str, fn) -> None:
+    """Device time by kernel and by kernel family over one run of ``fn``
+    (torch.profiler), and the device's busy share of the run's wall
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipeline.join_groupby(*main["tables"], main["out_cap"])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -339,13 +586,51 @@ def phase_profile(report: dict, main: dict) -> None:
                          "device_us": dev_us})
     rows.sort(key=lambda r: -r["device_us"])
     busy = sum(r["device_us"] for r in rows)
-    report["profile"] = {"wall_us": wall_us, "device_busy_us": busy,
-                         "kernels": rows}
-    log(f"[p] one pipeline run: wall {wall_us / 1e3:.2f} ms, device busy "
+    families = kernel_families(rows)
+    report.setdefault("profile", {})[key] = {
+        "wall_us": wall_us, "device_busy_us": busy, "kernels": rows,
+        "families": families}
+    log(f"[p] one {key} run: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
+    for r in families:
+        log(f"[p]   {r['device_us'] / 1e3:8.3f} ms  x{r['calls']:<5} "
+            f"{100 * r['device_us'] / busy:5.1f}%  {r['family']}")
     for r in rows[:15]:
         log(f"[p]   {r['device_us'] / 1e3:8.3f} ms  x{r['calls']:<4} "
             f"{r['name']}")
+
+
+def phase_stages(report: dict, dist: dict) -> None:
+    """Wall time of each stage of one distributed run, each synchronised:
+    the two input shuffles (hash, grouping by target, exchange), the
+    per-shard join, the two-phase group-by (partial, shuffle, combine)."""
+    import torch
+
+    from cylon_tpu_torch import table as table_mod
+    from cylon_tpu_torch.parallel import ops as par_ops
+
+    left, right = dist["left"], dist["right"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    cfg = table_mod._join_config(left, right, None, "k", None, None,
+                                 "inner", "sort")
+    lsh, l_ms = timed(lambda: par_ops.shuffle(left, cfg.left_on))
+    rsh, r_ms = timed(lambda: par_ops.shuffle(right, cfg.right_on))
+    joined, j_ms = timed(lambda: table_mod._local_join(lsh, rsh, cfg))
+    del lsh, rsh
+    _, g_ms = timed(lambda: joined.groupby("l_k", {"lv": "sum",
+                                                   "rv": "mean"}))
+    stages = {"shuffle_left_ms": l_ms, "shuffle_right_ms": r_ms,
+              "local_join_ms": j_ms, "groupby_ms": g_ms}
+    report["distributed_stages"] = stages
+    log(f"[p] distributed stages: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()))
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -371,7 +656,38 @@ def _segmented_inputs(tables, out_cap):
     return x.contiguous(), new_group.contiguous()
 
 
-def phase_timings(report: dict, main: dict, rows: int) -> list:
+def _hash_timing_row(report: dict, main: dict, dist: dict) -> dict:
+    """The hash kernel at the distributed path's shape (one shard's int32
+    key with validity, 2^24 rows) and at the whole table's (2^26)."""
+    from cylon_tpu_torch.ops import hash_kernels
+
+    per_size = {}
+    for label, col in (("shard", dist["left"].shards[0][0]),
+                       ("table", main["tables"][0][0])):
+        n = col.capacity
+        per_size[label] = {
+            "n": n,
+            "ms": cuda_time_ms(lambda: hash_kernels.hash_partition([col],
+                                                                   SHARDS)),
+            "plain_ms": cuda_time_ms(
+                lambda: hash_kernels.hash_partition_plain([col], SHARDS), 3),
+            "bound_ms": KERNELS["hash_partition"][1] * n / HBM_BYTES_PER_S
+            * 1e3}
+    report["hash_partition_sizes"] = per_size
+    log(f"[4] hash_partition sizes: {json.dumps(per_size)}")
+    head = per_size["shard"]
+    return dict(
+        name="hash_partition", route="cuda", source=HASH_SOURCE,
+        replaces=KERNELS["hash_partition"][0],
+        launches=dist["launches"]["hash_partition"],
+        max_abs_err=report.get("max_abs_err", {}).get("hash_partition", 0.0),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        checks_passed=report.get("checks_passed", {}).get("hash_partition",
+                                                          0))
+
+
+def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     import torch
 
     from cylon_tpu_torch.ops import scan
@@ -423,6 +739,7 @@ def phase_timings(report: dict, main: dict, rows: int) -> list:
         bound_by="bytes", library_ms=None,
         checks_passed=report.get("checks_passed", {}).get(
             "segmented_scan", 0) + 1))
+    rows_out.append(_hash_timing_row(report, main, dist))
     report["scan_1d_variants"] = scan_variants
     report["segmented_inputs"] = {"n": m, "resets": int(reset.sum())}
     for r in rows_out:
@@ -438,7 +755,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 3, profile one pipeline run")
+                    help="profile one run of each main path, and time the "
+                         "stages of one distributed run")
     args = ap.parse_args(argv)
 
     try:
@@ -452,7 +770,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        import cylon_tpu_torch  # noqa: F401
+        from cylon_tpu_torch import pipeline
     except ImportError as e:
         print(f"chip_smoke: cylon_tpu_torch not found beside the script: {e}",
               file=sys.stderr)
@@ -465,8 +783,16 @@ def main(argv=None) -> int:
         phase_kernels(report)
         main_state = phase_main_path(report, ROWS)
         if args.profile:
-            phase_profile(report, main_state)
-        kernels = phase_timings(report, main_state, ROWS)
+            phase_profile(report, "single_chip", lambda: pipeline.join_groupby(
+                *main_state["tables"], main_state["out_cap"]))
+        dist = phase_distributed(report, main_state, ROWS)
+        if args.profile:
+            phase_profile(report, "distributed",
+                          lambda: pipeline.distributed_join_groupby(
+                              dist["left"], dist["right"]))
+            phase_stages(report, dist)
+        phase_hash_partition(report, dist, ROWS)
+        kernels = phase_timings(report, main_state, dist, ROWS)
         report["kernels"] = kernels
     except Exception:
         traceback.print_exc()

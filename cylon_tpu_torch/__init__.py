@@ -6,15 +6,21 @@ on the CUDA card unless the caller passes ``device="cpu"``; without a card
 they raise.  Relational kernels run wherever their input tensors live.
 The JAX package's Pallas TPU kernels become hand-written CUDA kernels
 (``cuda/``), built with ``nvcc`` at first use; each has a plain PyTorch
-version beside it that CPU tensors take.
+version beside it that CPU tensors take.  A ``CylonContext`` holds an
+in-process mesh of shards (``context.py``), over which a ``Table`` runs the
+distributed rung (``parallel/``).
 """
 from __future__ import annotations
 
-from . import column, config, dtypes, interop, pipeline, precision, status
+from . import (column, config, context, dtypes, interop, pipeline, precision,
+               status, table)
 from .column import Column, default_device
-from .config import JoinType
+from .config import JoinConfig, JoinType
+from .context import CylonContext, MeshConfig
 from .status import Code, CylonError
+from .table import Table
 
-__all__ = ["Code", "Column", "CylonError", "JoinType", "column", "config",
+__all__ = ["Code", "Column", "CylonContext", "CylonError", "JoinConfig",
+           "JoinType", "MeshConfig", "Table", "column", "config", "context",
            "default_device", "dtypes", "interop", "pipeline", "precision",
-           "status"]
+           "status", "table"]

@@ -1,7 +1,8 @@
-"""Join types and the environment-knob registry.
+"""Join types and configs, and the environment-knob registry.
 
-``JoinType`` mirrors the JAX package's ``cylon_tpu/config.py:29`` (reference:
-join/join_config.hpp).  ``KNOBS`` is the one place this package reads a
+``JoinType`` and ``JoinConfig`` mirror the JAX package's
+``cylon_tpu/config.py:29`` and ``:67`` (reference: join/join_config.hpp).
+``KNOBS`` is the one place this package reads a
 ``CYLON_TPU_*`` environment variable; ``knob()`` is its only accessor, as in
 ``cylon_tpu/config.py:649``.  It holds only the knobs the ported modules
 read.
@@ -21,6 +22,42 @@ class JoinType(enum.IntEnum):
     LEFT = 1
     RIGHT = 2
     FULL_OUTER = 3
+
+
+_JOIN_TYPE_OF = {
+    "inner": JoinType.INNER, "left": JoinType.LEFT, "right": JoinType.RIGHT,
+    "fullouter": JoinType.FULL_OUTER, "full_outer": JoinType.FULL_OUTER,
+    "outer": JoinType.FULL_OUTER,
+}
+
+
+@dataclass(frozen=True)
+class JoinConfig:
+    """Join type x algorithm x key columns x output-name prefixes
+    (``cylon_tpu/config.py:67``; reference: join/join_config.hpp:29-89).
+    The algorithm is ``"sort"`` or ``"hash"``."""
+
+    join_type: JoinType = JoinType.INNER
+    algorithm: str = "sort"
+    left_on: Tuple = ()
+    right_on: Tuple = ()
+    left_prefix: str = "l_"
+    right_prefix: str = "r_"
+
+    @staticmethod
+    def of(join_type, algorithm: str = "sort", left_on=(), right_on=(),
+           left_prefix: str = "l_", right_prefix: str = "r_") -> "JoinConfig":
+        if isinstance(join_type, str):
+            join_type = _JOIN_TYPE_OF[join_type.lower().replace("-", "_")]
+        if algorithm not in ("sort", "hash"):
+            raise ValueError(f"join algorithm must be sort/hash, got "
+                             f"{algorithm!r}")
+        return JoinConfig(JoinType(join_type), algorithm, _as_tuple(left_on),
+                          _as_tuple(right_on), left_prefix, right_prefix)
+
+
+def _as_tuple(v) -> Tuple:
+    return tuple(v) if isinstance(v, (list, tuple)) else (v,)
 
 
 @dataclass(frozen=True)

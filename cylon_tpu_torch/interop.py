@@ -2,13 +2,15 @@
 
 ``column_from_arrays`` turns the fields of a JAX-package ``Column`` (taken
 out with ``np.asarray``) into this package's Column, bit for bit;
-``column_to_arrays`` goes back.  Types convert by their ``Type`` number,
-which both packages share, so this module needs nothing of the other
-package.
+``column_to_arrays`` goes back.  ``table_shards_to_arrays`` and
+``table_from_shard_arrays`` do the same for a sharded ``Table``, shard by
+shard, so shard contents compare with the reference's.  Types convert by
+their ``Type`` number, which both packages share, so this module needs
+nothing of the other package.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,3 +51,31 @@ def column_to_arrays(col: Column) -> Tuple[np.ndarray, np.ndarray,
     lengths = None if col.lengths is None else col.lengths.cpu().numpy()
     return (col.data.cpu().numpy(), col.validity.cpu().numpy(), lengths,
             col.dtype)
+
+
+ShardArrays = List[Tuple[np.ndarray, np.ndarray, Optional[np.ndarray],
+                         dtypes.DataType]]
+
+
+def table_shards_to_arrays(t) -> Tuple[Tuple[str, ...], List[ShardArrays],
+                                       np.ndarray]:
+    """(names, per shard the ``column_to_arrays`` of every column, per-shard
+    row counts) of a ``Table``, on the host, padding included."""
+    return (t.names, [[column_to_arrays(c) for c in cols]
+                      for cols in t.shards], t.row_counts)
+
+
+def table_from_shard_arrays(names: Sequence[str],
+                            shards: Sequence[ShardArrays], counts, ctx):
+    """The inverse of ``table_shards_to_arrays``: shard ``i`` on
+    ``ctx.devices[i]``, holding exactly the given buffers."""
+    from .table import Table
+
+    if len(shards) != ctx.GetWorldSize():
+        raise CylonError(Code.Invalid, f"{len(shards)} shards for a "
+                         f"{ctx.GetWorldSize()}-shard context")
+    cols = tuple(tuple(column_from_arrays(*arrs, device=dev) for arrs in shard)
+                 for shard, dev in zip(shards, ctx.devices))
+    cnts = tuple(torch.tensor(int(n), dtype=torch.int32, device=dev)
+                 for n, dev in zip(counts, ctx.devices))
+    return Table(cols, cnts, tuple(names), ctx)

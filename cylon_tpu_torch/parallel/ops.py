@@ -1,0 +1,186 @@
+"""Distributed operators over the in-process mesh: hash shuffle, local
+HashPartition, two-phase group-by.
+
+The port of ``cylon_tpu/parallel/ops.py``: ``_shuffled:378`` (hash mode),
+``shuffle:486``, ``hash_partition:501``, ``groupby_partial_plan:601``,
+``finalize_groupby_columns:621`` and ``distributed_groupby:662`` (steps
+1-5).  Each keeps the reference's partition -> exchange -> local kernel
+shape; where the reference runs one ``shard_map`` program per phase, the
+port runs the phase for every shard in turn.  Range partitioning
+(``distributed_sort``), ``broadcast_gather``, NUNIQUE, salted,
+pre-partitioned and pipeline group-bys are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from .. import dtypes, precision
+from ..column import Column
+from ..ops import compact
+from ..ops import groupby as groupby_mod
+from ..ops.groupby import AggOp
+from ..status import Code, CylonError
+from . import partition, shuffle as shuffle_mod
+
+
+def _not_ported(what: str) -> CylonError:
+    return CylonError(Code.NotImplemented, f"{what} is not ported yet")
+
+
+def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash"):
+    """partition -> exchange; returns the shuffled Table."""
+    if mode != "hash":
+        raise _not_ported(f"{mode} partitioning")
+    world = t.num_shards
+    targets = [partition.hash_targets(cols, n, key_idx, world)
+               for cols, n in zip(t.shards, t.counts)]
+    cm = shuffle_mod.count_matrix([shuffle_mod.target_counts(tg, world)
+                                   for tg in targets])
+    out_cap = shuffle_mod.plan_shuffle(cm)
+    shards, totals = shuffle_mod.shuffle_shard_ragged(
+        t.shards, targets, cm, world, out_cap, t.ctx.devices)
+    return t._like(shards, totals)
+
+
+def shuffle(t, key_idx: Tuple[int, ...]):
+    """Hash-repartition rows so equal keys land on the same shard."""
+    return _shuffled(t, tuple(key_idx), "hash")
+
+
+def hash_partition(t, key_idx: Tuple[int, ...], num_partitions: int):
+    """Public HashPartition: split rows into ``num_partitions`` tables by
+    key hash, shard-locally (no exchange).  Partition ``p``'s table holds,
+    on every shard, that shard's rows hashing to ``p``, front-packed, at
+    capacity ``min(pow2ceil(max count), shard capacity)``.  Returns
+    ``{partition_id: Table}``."""
+    key_idx = tuple(key_idx)
+    targets = [partition.hash_targets(cols, n, key_idx, num_partitions)
+               for cols, n in zip(t.shards, t.counts)]
+    cm = shuffle_mod.count_matrix([shuffle_mod.target_counts(tg,
+                                                             num_partitions)
+                                   for tg in targets])
+    caps = [min(shuffle_mod.pow2ceil(c), t.shard_capacity)
+            for c in cm.max(axis=0)]
+    parts: Dict[int, object] = {}
+    for p in range(num_partitions):
+        shards, counts = [], []
+        for cols, tgt in zip(t.shards, targets):
+            perm, m = compact.compact_indices(tgt == p)
+            idx = perm[:caps[p]]
+            valid = compact.live_mask(caps[p], m, tgt.device)
+            shards.append(tuple(c.take(idx, valid_mask=valid) for c in cols))
+            counts.append(m.to(torch.int32))
+        parts[p] = t._like(shards, counts)
+    return parts
+
+
+def broadcast_gather(t):
+    raise _not_ported("broadcast_gather")
+
+
+def distributed_sort(t, by_idx, opts=None, asc=None):
+    raise _not_ported("distributed_sort")
+
+
+def groupby_partial_plan(aggs):
+    """(partial_list, partial_index): the deduped ``(src_col, partial_op)``
+    list the requested aggs expand into, and each one's position."""
+    partial_list: list = []
+    partial_index: Dict[tuple, int] = {}
+    for ci, op in aggs:
+        for pop in groupby_mod.partial_ops(op):
+            k = (ci, pop)
+            if k not in partial_index:
+                partial_index[k] = len(partial_list)
+                partial_list.append(k)
+    return partial_list, partial_index
+
+
+def finalize_groupby_columns(fcols, nkeys: int, aggs, partial_index,
+                             ddof: int):
+    """One shard's combined partials -> the requested agg columns:
+    pass-through for SUM/MIN/MAX/COUNT, derived math for MEAN/VAR/STDDEV."""
+    out_cols = list(fcols[:nkeys])
+    dev = fcols[0].device
+    facc = precision.float_acc(dev)
+    fdt = dtypes.float_ if precision.narrow(dev) else dtypes.double
+    for ci, op in aggs:
+        def pcol(pop, _ci=ci):
+            return fcols[nkeys + partial_index[(_ci, pop)]]
+
+        if op in (AggOp.SUM, AggOp.MIN, AggOp.MAX, AggOp.COUNT,
+                  AggOp.SUMSQ, AggOp.COUNTSUM):
+            out_cols.append(pcol(op))
+            continue
+        s, c = pcol(AggOp.SUM), pcol(AggOp.COUNT)
+        n = c.data.clamp(min=1).to(facc)
+        if op == AggOp.MEAN:
+            v = s.data.to(facc) / n
+            valid = s.validity & (c.data > 0)
+        elif op in (AggOp.VAR, AggOp.STDDEV):
+            s2 = pcol(AggOp.SUMSQ)
+            v = (s2.data - s.data.to(facc) ** 2 / n) / (n - ddof).clamp(
+                min=1.0)
+            v = v.clamp(min=0.0)
+            if op == AggOp.STDDEV:
+                v = torch.sqrt(v)
+            valid = s.validity & ((c.data - ddof) > 0)
+        else:
+            raise NotImplementedError(op)
+        zero = torch.zeros((), dtype=v.dtype, device=dev)
+        out_cols.append(Column(torch.where(valid, v, zero), valid, None, fdt))
+    return out_cols
+
+
+def distributed_groupby(t, by_idx: Tuple[int, ...],
+                        aggs: Tuple[Tuple[int, AggOp], ...], ddof: int,
+                        pipeline: bool = False, pre_partitioned: bool = False,
+                        salt: int = 0):
+    """Two-phase distributed group-by (reference: DistributedHashGroupBy,
+    groupby/groupby.cpp:23-73): local partial aggregate, shuffle of the
+    partials on the keys, final combine, derived outputs."""
+    from ..table import _groupby_output_names
+
+    if pipeline:
+        raise _not_ported("the distributed pipeline group-by")
+    if pre_partitioned:
+        raise _not_ported("the pre-partitioned group-by")
+    if int(salt) > 1:
+        raise _not_ported("the salted group-by")
+    if any(op == AggOp.NUNIQUE for _, op in aggs):
+        raise _not_ported("distributed NUNIQUE")
+    names_out = _groupby_output_names(t, by_idx, aggs)
+    nkeys = len(by_idx)
+
+    # 1. requested aggs -> deduped partial ops
+    partial_list, partial_index = groupby_partial_plan(aggs)
+
+    # 2. local partial aggregate, per shard
+    shards, counts = [], []
+    for cols, n in zip(t.shards, t.counts):
+        pcols, m = groupby_mod.hash_groupby(cols, n, tuple(by_idx),
+                                            tuple(partial_list), ddof)
+        shards.append(pcols)
+        counts.append(m)
+    pnames = tuple(f"k{i}" for i in range(nkeys)) + tuple(
+        f"p{i}" for i in range(len(partial_list)))
+    partial = t._like(shards, counts, pnames)
+
+    # 3. shuffle the partials on the key columns
+    shuffled = shuffle(partial, tuple(range(nkeys)))
+
+    # 4. final combine: SUM of sums/counts/sumsqs, MIN of mins, MAX of maxes
+    final_aggs = tuple((nkeys + i, groupby_mod.combine_op(pop))
+                       for i, (_, pop) in enumerate(partial_list))
+    key_range = tuple(range(nkeys))
+    shards, counts = [], []
+    for cols, n in zip(shuffled.shards, shuffled.counts):
+        fcols, m = groupby_mod.hash_groupby(cols, n, key_range, final_aggs,
+                                            ddof)
+        # 5. derived outputs (MEAN/VAR/STDDEV) from the combined partials
+        shards.append(finalize_groupby_columns(fcols, nkeys, aggs,
+                                               partial_index, ddof))
+        counts.append(m)
+    return t._like(shards, counts, names_out)

@@ -1,0 +1,104 @@
+"""The all-to-all table shuffle, in its exact-traffic form.
+
+The port of ``cylon_tpu/parallel/shuffle.py``'s ragged shuffle
+(``shuffle_shard_ragged:255``, its per-buffer branch ``:320-343``), with
+``target_counts:63``, ``_remap_oob_targets:90``, ``_perm_by_target:99``
+and ``plan_shuffle:226``; ``ragged_plan:239``'s offsets are computed by
+``collectives.all_to_all``.  The reference's shard body
+calls the collective in its middle; a single controller cannot stop one
+shard's function halfway, so the body is split around the exchange:
+
+1. before it, for every shard: counts per target and the stable grouping
+   of rows by target (``target_counts``, ``_perm_by_target``), each
+   buffer gathered into that order;
+2. one exchange per buffer across the list of shards
+   (``collectives.all_to_all``), which lands every shard's rows
+   front-packed in source-rank order.
+
+A shard receives into zeroed buffers of ``plan_shuffle``'s capacity, so
+rows past its count hold zero data and validity False: slot for slot what
+the reference's bucketed ``shuffle_shard`` gives on its CPU mesh, where
+null rows hold zero data too.  The packed plane (``plane.py``) and its
+compression are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..column import Column
+from . import collectives
+
+
+def pow2ceil(n: int, min_size: int = 8) -> int:
+    """Smallest power of two >= n (>= 1), floored at ``min_size``
+    (``cylon_tpu/utils/__init__.py:39``)."""
+    return max(min_size, 1 << (max(1, int(n)) - 1).bit_length())
+
+
+def _remap_oob_targets(targets: torch.Tensor, world: int) -> torch.Tensor:
+    """Out-of-range targets, negative included, become padding (== world),
+    so a producer bug drops rows instead of sending them to shard 0."""
+    bad = (targets < 0) | (targets > world)
+    return torch.where(bad, torch.full((), world, dtype=targets.dtype,
+                                       device=targets.device), targets)
+
+
+def target_counts(targets: torch.Tensor, world: int) -> torch.Tensor:
+    """int32[world]: rows this shard sends to each target (padding rows
+    carry target == world and fall off the end)."""
+    t = _remap_oob_targets(targets, world)
+    return torch.bincount(t, minlength=world + 1)[:world].to(torch.int32)
+
+
+def _perm_by_target(targets: torch.Tensor, world: int) -> torch.Tensor:
+    """Stable permutation grouping rows by target, padding (== world)
+    last."""
+    return torch.sort(_remap_oob_targets(targets, world), stable=True).indices
+
+
+def plan_shuffle(cm: np.ndarray) -> int:
+    """Host-side sizing from the [world, world] count matrix: every
+    shard's receive capacity, the power of two holding the most incoming
+    rows.  (The reference also returns the bucketed shuffle's per-pair
+    bucket, which the exact-traffic shuffle does not use.)"""
+    cm = np.asarray(cm)
+    return pow2ceil(int(cm.sum(axis=0).max()) if cm.size else 0)
+
+
+def count_matrix(counts: Sequence[torch.Tensor]) -> np.ndarray:
+    """The [world, world] count matrix on the host, from every shard's
+    ``target_counts`` (the reference all-gathers it; one host copy here)."""
+    dev = counts[0].device
+    return torch.stack([c.to(dev) for c in counts]).cpu().numpy()
+
+
+def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
+                         targets: Sequence[torch.Tensor], cm: np.ndarray,
+                         world: int, out_capacity: int,
+                         devices: Sequence[torch.device]
+                         ) -> Tuple[List[Tuple[Column, ...]], List[int]]:
+    """Shuffle every shard's rows to their targets: per-shard columns of
+    capacity ``out_capacity``, rows front-packed in source-rank order, and
+    each shard's received row count.  ``cm`` is the count matrix of these
+    ``targets``."""
+    perms = [_perm_by_target(t, world) for t in targets]
+    totals = [int(n) for n in np.asarray(cm).sum(axis=0)]
+    ncols = len(shards[0])
+    recv: List[List[Column]] = [[] for _ in range(world)]
+    for j in range(ncols):
+        proto = shards[0][j]
+        data_out = [torch.zeros(out_capacity, dtype=proto.data.dtype,
+                                device=dev) for dev in devices]
+        valid_out = [torch.zeros(out_capacity, dtype=torch.bool, device=dev)
+                     for dev in devices]
+        collectives.all_to_all([s[j].data[p] for s, p in zip(shards, perms)],
+                               cm, data_out)
+        collectives.all_to_all([s[j].validity[p]
+                                for s, p in zip(shards, perms)], cm, valid_out)
+        for d in range(world):
+            recv[d].append(Column(data_out[d], valid_out[d], None,
+                                  proto.dtype))
+    return [tuple(cols) for cols in recv], totals

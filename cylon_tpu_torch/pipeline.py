@@ -1,11 +1,15 @@
-"""The single-chip main path: key-grouped inner join -> pipeline group-by.
+"""The main paths on ``bench.py:118 _make_data`` tables.
 
-The twin of the JAX package's benchmark program (``bench.py:134
-make_bench_pipeline``): an inner sort-merge join with ``key_grouped=True``
-and ``project=(0, 1, 3)`` feeding a boundary-scan group-by with SUM of the
-left value and MEAN of the right value, on ``bench.py:118 _make_data``
-tables, sized by the exact join count rounded by ``cap_round`` (the copy
-of ``cylon_tpu/table.py:1238 _cap_round``).
+- Single chip (``tables``, ``join_count``, ``join_groupby``): the twin of
+  the JAX package's benchmark program (``bench.py:134
+  make_bench_pipeline``), an inner sort-merge join with
+  ``key_grouped=True`` and ``project=(0, 1, 3)`` feeding a boundary-scan
+  group-by with SUM of the left value and MEAN of the right value, sized by
+  the exact join count rounded by ``cap_round`` (the copy of
+  ``cylon_tpu/table.py:1238 _cap_round``).
+- Distributed (``distributed_tables``, ``distributed_join_groupby``): the
+  repo's end-to-end drive on a mesh of shards, ``Table.distributed_join``
+  on the key then the two-phase ``groupby`` with the same SUM and MEAN.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from . import column
 from .column import Column
 from .config import JoinType
 from .ops import groupby, join
+from .table import Table, cap_round  # noqa: F401  (cap_round re-exported)
 
 SEED = 12345
 
@@ -32,15 +37,6 @@ def make_data(rows: int, seed: int = SEED):
     rk = rng.integers(0, rows, rows).astype(np.int32)
     rv = rng.random(rows).astype(np.float32)
     return lk, lv, rk, rv
-
-
-def cap_round(n: int) -> int:
-    """Round a row count up to a 3-bit-mantissa capacity (at most 8 sizes
-    per octave)."""
-    if n <= 16:
-        return 16
-    g = 1 << ((n - 1).bit_length() - 3)
-    return -(-n // g) * g
 
 
 def tables(lk, lv, rk, rv, device=None):
@@ -73,3 +69,20 @@ def join_groupby(cols_l, cnt_l, cols_r, cnt_r, out_cap: int
         joined, jm, (0,), ((1, groupby.AggOp.SUM), (2, groupby.AggOp.MEAN)),
         0)
     return gcols, g, jm
+
+
+def distributed_tables(ctx, lk, lv, rk, rv) -> Tuple[Table, Table]:
+    """The two tables ``(k, lv)`` and ``(k, rv)``, split over ``ctx``'s
+    shards."""
+    return (Table.from_numpy(["k", "lv"], [lk, lv], ctx=ctx),
+            Table.from_numpy(["k", "rv"], [rk, rv], ctx=ctx))
+
+
+def distributed_join_groupby(left: Table, right: Table
+                             ) -> Tuple[Table, Table]:
+    """(groups, joined): ``left.distributed_join(right, on="k")``, then
+    its group-by on the left key with SUM(lv) and MEAN(rv); the groups'
+    columns are ``l_k``, ``sum_lv``, ``mean_rv``."""
+    joined = left.distributed_join(right, on="k")
+    groups = joined.groupby("l_k", {"lv": "sum", "rv": "mean"})
+    return groups, joined

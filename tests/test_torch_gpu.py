@@ -1,4 +1,5 @@
-"""The CUDA scan kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels (scan family, murmur3 hash partition) against their
+plain PyTorch versions on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card: a CUDA
 kernel has no CPU mode.  This file imports neither jax nor cylon_tpu, so
@@ -6,12 +7,14 @@ it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: exact for integers and min/max; float32 sums rtol=1e-5 against
-a float64 oracle (tree-order rounding)."""
+Tolerances: exact for integers, min/max and hashes; float32 sums rtol=1e-5
+against a float64 oracle (tree-order rounding)."""
+import numpy as np
 import pytest
 import torch
 
-from cylon_tpu_torch.ops import scan
+from cylon_tpu_torch import column
+from cylon_tpu_torch.ops import hash_kernels, scan
 
 # across one tile (4096), its edges, and three recursion levels
 SIZES = (1, 4095, 4096, 4097, 3 * 4096 * 4096 + 5)
@@ -67,3 +70,55 @@ def test_float_sums_uint32_and_launch_counts(gen):
                            scan.scan_1d_plain(xu, op).view(torch.int32))
     with pytest.raises(ValueError, match="contiguous"):
         scan.scan_1d(x[::2], "sum")
+
+
+HASH_DTYPES = (np.int8, np.int16, np.int32, np.int64, np.uint32, np.float32,
+               np.float64, np.bool_)
+# below, at and past one block of 256 threads, and past one grid of
+# 132*16 blocks (the grid-stride loop)
+HASH_SIZES = (1, 255, 256, 257, 3 * 2**20 + 5)
+
+
+def _hash_column(rng, dtype, n):
+    if dtype == np.bool_:
+        v = rng.random(n) > 0.5
+    else:
+        v = rng.integers(-(1 << 62), 1 << 62, n).astype(dtype)
+    valid = rng.random(n) > 0.1
+    return column.from_numpy(v, validity=valid, capacity=n + 3,
+                             device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HASH_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_hash_partition_kernel_matches_plain(gen, dtype):
+    rng = np.random.default_rng(3)
+    for n in HASH_SIZES:
+        col = _hash_column(rng, dtype, n)
+        for world in (1, 3, 4, 6, 8):
+            h, t = hash_kernels.hash_partition([col], world)
+            ph, pt = hash_kernels.hash_partition_plain([col], world)
+            # exact: compared as bit patterns
+            assert torch.equal(h.view(torch.int32), ph.view(torch.int32))
+            assert torch.equal(t, pt)
+
+
+@pytest.mark.gpu
+def test_hash_partition_multi_column_and_launch_count(gen):
+    rng = np.random.default_rng(5)
+    n = 3 * 2**20 + 5
+    cols = [_hash_column(rng, d, n) for d in (np.int32, np.float64, np.bool_,
+                                              np.int16)]
+    hash_kernels.reset_launches()
+    for k in (2, 4):
+        for world in (4, 6):
+            h, t = hash_kernels.hash_partition(cols[:k], world)
+            ph, pt = hash_kernels.hash_partition_plain(cols[:k], world)
+            assert torch.equal(h.view(torch.int32), ph.view(torch.int32))
+            assert torch.equal(t, pt)
+    assert hash_kernels.LAUNCHES == {"hash_partition": 4}
+    empty = column.from_numpy(np.zeros(0, np.int32), capacity=0,
+                              device="cuda")
+    h, t = hash_kernels.hash_partition([empty], 4)
+    assert h.shape == (0,) and t.shape == (0,)
+    assert hash_kernels.LAUNCHES == {"hash_partition": 4}

@@ -5,12 +5,16 @@ from __future__ import annotations
 
 import contextlib
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from cylon_tpu import column as rcol
 from cylon_tpu import precision as rprec
+from cylon_tpu.ops import compact as rcompact
+from cylon_tpu.ops import pallas_kernels
 from cylon_tpu.ops import segments as rseg
+from cylon_tpu.parallel import partition as rpartition
 from cylon_tpu_torch import interop
 from cylon_tpu_torch import precision as pprec
 
@@ -72,4 +76,67 @@ def assert_columns_equal(port_cols, ref_cols, float_rtol=None):
         if float_rtol is not None and rd.dtype.kind == "f":
             np.testing.assert_allclose(pd_, rd, rtol=float_rtol)
         else:
+            np.testing.assert_array_equal(pd_, rd)
+
+
+def _murmur3_hash_targets(cols, count, key_idx, world):
+    """The TPU branch of ``cylon_tpu/parallel/partition.py:50-59
+    hash_targets``: the Pallas murmur3 kernel (interpret mode here), then
+    padding rows set to ``world``."""
+    _, t = pallas_kernels.hash_partition([cols[i] for i in key_idx], world,
+                                         interpret=True)
+    live = rcompact.live_mask(cols[0].data.shape[0], count)
+    return jnp.where(live, t, jnp.int32(world))
+
+
+@contextlib.contextmanager
+def murmur3_reference(world: int):
+    """A FRESH reference context of ``world`` shards whose
+    ``hash_targets`` takes its TPU (murmur3) branch, as the port does on
+    every device; restored on exit.
+
+    On the CPU the reference places rows with its jnp hash, so only under
+    this patch do its shards hold the port's rows.  The context must be
+    new: the reference caches shard programs per context, keyed by op and
+    shapes but not by the hash function, so a shared context (the
+    ``ctx4`` fixture of ``tests/conftest.py``) could serve a program
+    traced with the jnp hash."""
+    from cylon_tpu.context import CylonContext, TPUConfig
+
+    orig = rpartition.hash_targets
+    rpartition.hash_targets = _murmur3_hash_targets
+    try:
+        yield CylonContext.InitDistributed(TPUConfig(world_size=world))
+    finally:
+        rpartition.hash_targets = orig
+
+
+def ref_table_shards(t):
+    """(per shard the (data, validity) of every column, per-shard row
+    counts) of a reference Table, on the host: the layout
+    ``interop.table_shards_to_arrays`` gives for the port's."""
+    from cylon_tpu.table import _host_row_counts, _host_shard_pieces
+
+    cap = t.shard_capacity
+    pieces = [(_host_shard_pieces(c.data, cap),
+               _host_shard_pieces(c.validity, cap)) for c in t.columns]
+    shards = [[(d[s], v[s]) for d, v in pieces]
+              for s in range(t.num_shards)]
+    return shards, _host_row_counts(t)
+
+
+def assert_shards_equal(port_table, ref_table):
+    """Slot for slot: per-shard counts, capacity, data and validity over
+    the whole shard capacity (exact)."""
+    names, p_shards, p_counts = interop.table_shards_to_arrays(port_table)
+    r_shards, r_counts = ref_table_shards(ref_table)
+    assert tuple(names) == tuple(ref_table.names)
+    np.testing.assert_array_equal(p_counts, r_counts)
+    assert len(p_shards) == len(r_shards)
+    for p_cols, r_cols in zip(p_shards, r_shards):
+        for (pd_, pv, _, pdt), (rd, rv), rc in zip(p_cols, r_cols,
+                                                   ref_table.columns):
+            assert int(pdt.type) == int(rc.dtype.type)
+            np.testing.assert_array_equal(pv, rv)
+            assert pd_.dtype == rd.dtype, (pd_.dtype, rd.dtype)
             np.testing.assert_array_equal(pd_, rd)
