@@ -10,7 +10,9 @@ Phases, each of which fails the run on error:
    started together) and print the build time;
 2. every kernel against its plain PyTorch version on the card, at the
    main path's sizes and at ragged sizes: exact for integers and min/max,
-   float32 sums within a stated tolerance of a float64 oracle;
+   float32 sums within a stated tolerance of a float64 oracle; for
+   ``scan_1d`` also its tile edges, every ``n % 4`` in both directions,
+   misaligned views, 2^27 + 3 elements, and 20 repeated calls;
 3. the single-chip main path at full size: 2^26 rows per side from
    ``pipeline.make_data(rows, 12345)``, join count -> ``cap_round`` ->
    ``join_groupby``, checked against a numpy ``bincount`` oracle; the
@@ -29,7 +31,9 @@ Phases, each of which fails the run on error:
    plain version;
 4. each kernel's time at the main path's shapes (CUDA events), its bound
    (bytes over 3.35 TB/s), its plain version's time and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time; ``scan_1d``
+   in all three of ``run_extents``' variants (sum, max, reversed min) at
+   both the single-chip and the per-shard shape.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit line, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -136,6 +140,15 @@ def _f32_oracle(x, reset):
     return cs - before
 
 
+def _f32_oracle_1d(x, reverse):
+    """float64 inclusive sum, right to left if ``reverse``."""
+    import torch
+
+    xd = x.double().flip(0) if reverse else x.double()
+    cs = torch.cumsum(xd, 0)
+    return cs.flip(0) if reverse else cs
+
+
 def _compare(name, got, want, exact, oracle=None):
     """Max abs error of ``got`` against ``want`` (the plain version);
     exact cases must match bit for bit, float32 sums must lie within the
@@ -172,14 +185,16 @@ def phase_kernels(report: dict) -> None:
         return torch.randint(0, hi, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
 
-    def plain_case(n, x, op, reverse):
+    def plain_case(n, x, op, reverse, label=""):
         got = scan.scan_1d(x, op, reverse)
         want = scan.scan_1d_plain(x, op, reverse)
-        e = _compare(f"scan_1d {op} rev={reverse} n={n} {x.dtype}", got, want,
-                     exact=x.dtype != torch.float32 or op != "sum")
+        f32sum = x.dtype == torch.float32 and op == "sum"
+        oracle = _f32_oracle_1d(x, reverse) if f32sum else None
+        e = _compare(f"scan_1d {op} rev={reverse} n={n}{label} {x.dtype}",
+                     got, want, exact=not f32sum, oracle=oracle)
         errs["scan_1d"] = max(errs["scan_1d"], e)
         passed["scan_1d"] += 1
-        checks.append(f"scan_1d {x.dtype} {op} rev={reverse} n={n}")
+        checks.append(f"scan_1d {x.dtype} {op} rev={reverse} n={n}{label}")
 
     def seg_case(n, x, reset, op):
         got = scan.segmented_scan(x, reset, op)
@@ -239,12 +254,51 @@ def phase_kernels(report: dict) -> None:
         passed["segmented_scan"] += 1
         passed["scan_1d"] += 2
         checks.append(f"uint32 sum/min/max n={n}")
+    _lookback_checks(dev, gen, plain_case, passed, checks)
     _hash_checks(dev, passed, checks)
     torch.cuda.synchronize()
     report["kernel_checks"] = checks
     report["checks_passed"] = passed
     report["max_abs_err"] = errs
     log(f"[2] {len(checks)} kernel checks passed; max abs err {errs}")
+
+
+def _lookback_checks(dev, gen, plain_case, passed, checks) -> None:
+    """scan_1d's look-back kernel at its edges, exact against the plain
+    version: the tile size -1, +0, +1 and +2, n % 4 in 0-3 over 40 tiles
+    (past one 32-tile look-back window) and at 2^27 + 3, both directions
+    (vector and element-wise paths), views 4, 8 and 12 bytes past a 16-byte
+    boundary; then 20 calls on one input, all equal."""
+    import torch
+
+    from cylon_tpu_torch.ops import scan
+
+    def ints(n, hi, off=0):
+        return (torch.randint(0, hi, (n + off,), generator=gen, device=dev,
+                              dtype=torch.int32) - hi // 2)[off:]
+
+    tile = scan.SCAN_1D_TILE
+    sizes = [(tile + d, 0) for d in (-1, 0, 1, 2)]
+    sizes += [(40 * tile + r, 0) for r in range(4)]
+    sizes += [(40 * tile + 1, off) for off in (1, 2, 3)]
+    for n, off in sizes:
+        x = ints(n, 1 << 20, off)
+        for op in ("sum", "min", "max"):
+            for rev in (False, True):
+                plain_case(n, x, op, rev, f" offset={off}" if off else "")
+    n = (1 << 27) + 3
+    x = ints(n, 1 << 31)  # sums wrap
+    for op in ("sum", "min", "max"):
+        for rev in (False, True):
+            plain_case(n, x, op, rev)
+    del x
+    member = ints(1 << 27, 2) + 1
+    first = scan.scan_1d(member, "sum")
+    for _ in range(19):
+        if not torch.equal(scan.scan_1d(member, "sum"), first):
+            raise AssertionError("scan_1d: repeated int32 sums differ")
+    passed["scan_1d"] += 1
+    checks.append(f"scan_1d int32 sum n={1 << 27}: 20 calls equal")
 
 
 def _hash_checks(dev, passed, checks) -> None:
@@ -531,7 +585,8 @@ def phase_hash_partition(report: dict, dist: dict, rows: int) -> None:
 # wins; anything else is "other elementwise")
 FAMILIES = (
     ("CUDA hash kernel (cuda/murmur3.cu)", ("hash_partition_kernel",)),
-    ("CUDA scan kernels (cuda/scan.cu)", ("tile_scan_kernel",
+    ("CUDA scan kernels (cuda/scan.cu)", ("lookback_scan_kernel",
+                                          "tile_scan_kernel",
                                           "fixup_kernel")),
     ("radix sorts (CUB)", ("DeviceRadixSort",)),
     ("torch.bincount", ("kernelHistogram1D",)),
@@ -694,9 +749,6 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    n = 2 * rows  # run_extents scans the combined sorted order
-    member = torch.randint(0, 2, (n,), generator=gen, device=dev,
-                           dtype=torch.int32)
     x, reset = _segmented_inputs(main["tables"], main["out_cap"])
     launches = main["launches"]
     seg_err = _compare("segmented_scan main-path input",
@@ -706,24 +758,35 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     errs = dict(report.get("max_abs_err", {}))
     errs["segmented_scan"] = max(errs.get("segmented_scan", 0.0), seg_err)
 
+    # run_extents' three scans over the combined sorted order of both
+    # sides, at both main-path shapes: single chip, 2 * rows; one shard of
+    # the distributed path, 2 * 2 * rows / SHARDS (each shard's capacity
+    # after the shuffle is the pow2ceil of just over rows / SHARDS rows)
     rows_out = []
     scan_variants = {}
-    for op, rev, lib in (("sum", False, lambda: torch.cumsum(
-                             member, 0, dtype=torch.int32)),
-                         ("max", False, lambda: torch.cummax(member, 0)),
-                         ("min", True, None)):
-        k_ms = cuda_time_ms(lambda: scan.scan_1d(member, op, rev))
-        p_ms = cuda_time_ms(lambda: scan.scan_1d_plain(member, op, rev), 3)
-        l_ms = cuda_time_ms(lib) if lib is not None else None
-        scan_variants[f"{op}{'_rev' if rev else ''}"] = {
-            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms}
-    head = scan_variants["sum"]
+    for n_s in (2 * rows, 4 * rows // SHARDS):
+        member = torch.randint(0, 2, (n_s,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        for op, rev, lib, reps in (
+                ("sum", False, lambda: torch.cumsum(member, 0,
+                                                    dtype=torch.int32), 10),
+                ("max", False, lambda: torch.cummax(member, 0), 3),
+                ("min", True, None, 0)):
+            scan_variants[f"{op}{'_rev' if rev else ''}@{n_s}"] = {
+                "n": n_s,
+                "ms": cuda_time_ms(lambda: scan.scan_1d(member, op, rev)),
+                "plain_ms": cuda_time_ms(
+                    lambda: scan.scan_1d_plain(member, op, rev), 3),
+                "library_ms": cuda_time_ms(lib, reps) if lib else None,
+                "bound_ms": KERNELS["scan_1d"][1] * n_s / HBM_BYTES_PER_S
+                * 1e3}
+        del member
+    head = scan_variants[f"sum@{2 * rows}"]
     rows_out.append(dict(
         name="scan_1d", route="cuda", source=SCAN_SOURCE,
         replaces=KERNELS["scan_1d"][0], launches=launches["scan_1d"],
         max_abs_err=errs.get("scan_1d", 0.0), ms=head["ms"],
-        plain_ms=head["plain_ms"],
-        bound_ms=KERNELS["scan_1d"][1] * n / HBM_BYTES_PER_S * 1e3,
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by="bytes", library_ms=head["library_ms"],
         checks_passed=report.get("checks_passed", {}).get("scan_1d", 0)))
 
@@ -746,7 +809,10 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
         log(f"[4] {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
             f"ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']}) "
             f"launches/run {r['launches']}")
-    log(f"[4] scan_1d variants at n={n}: {json.dumps(scan_variants)}")
+    for name, v in scan_variants.items():
+        log(f"[4] scan_1d {name}: {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}"
+            f" ms, {v['ms'] / v['bound_ms']:.2f}x; plain {v['plain_ms']:.3f}"
+            f" ms, library {v['library_ms']})")
     log(f"[4] segmented_scan at n={m}, resets={int(reset.sum())}")
     return rows_out
 

@@ -14,18 +14,28 @@ Replaces the JAX package's Pallas TPU scans:
 
 Bound on an H100 (3.35 TB/s): memory.  The plain scan must move 8 B per
 element (4 B in, 4 B out), the segmented scan 9 B (4 B value + 1 B flag in,
-4 B out).  The kernel scans each 4096-element tile in one block (registers,
+4 B out).
+
+``scan_1d`` is one pass with decoupled look-back (Merrill & Garland,
+NVIDIA 2016): one launch after a memset of its status words, 8 B per
+element.  Each block takes a 4096-element tile from an atomic counter; its
+data warps load the tile with 16-byte vector loads, scan it in registers
+and publish its aggregate, while one more warp folds the predecessors'
+aggregates and prefixes until it meets an inclusive prefix.  It replaces a
+tile scan, a recursive scan of the tile totals and a fix-up over every
+element (16 B per element, five launches at 2^27).
+
+``segmented_scan`` scans each 4096-element tile in one block (registers,
 warp shuffles, shared memory), scans the tile totals recursively with the
 same kernel, and folds each tile's carry into its elements before the
-tile's first reset: 16 B per element for the plain scan (the fold touches
-the whole tile) and about 9 B for the segmented scan (the fold stops at
-the first reset).  Padding is the op's neutral element, as in
-``pallas_scan.py:58-64``.
+tile's first reset: about 9 B per element.  Padding is the op's neutral
+element, as in ``pallas_scan.py:58-64``.
 
 Results are exact for integers and for min/max.  A float32 sum rounds in
-the kernel's tree order, so it agrees with the plain version and with the
-JAX package to a tolerance, as the Pallas kernel's own contract says
-(``pallas_scan.py:26-31``).
+the kernel's tree order, and in ``scan_1d`` also in the order the look-back
+happens to find, so two calls may differ in rounding; it agrees with the
+plain version and with the JAX package to a tolerance, as the Pallas
+kernel's own contract says (``pallas_scan.py:26-31``).
 
 A wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts the
@@ -40,6 +50,7 @@ import torch
 OPS = ("sum", "min", "max")
 _OP_CODE = {"sum": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1, torch.uint32: 2}
+SCAN_1D_TILE = 4096  # kLbTile in cuda/scan.cu
 
 LAUNCHES = {"scan_1d": 0, "segmented_scan": 0}
 
@@ -104,12 +115,21 @@ def scan_1d_plain(x: torch.Tensor, op: str,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.cts_tile_scan.argtypes = [i, i, i, vp, vp, vp, vp, vp, vp, ll, i, vp]
+    lib.cts_scan_1d.argtypes = [i, i, vp, vp, vp, ll, i, vp]
+    lib.cts_scan_1d.restype = i
+    lib.cts_scan_1d_tile.argtypes = []
+    lib.cts_scan_1d_tile.restype = i
+    lib.cts_scan_1d_scratch_words.argtypes = [ll]
+    lib.cts_scan_1d_scratch_words.restype = ll
+    lib.cts_tile_scan.argtypes = [i, i, vp, vp, vp, vp, vp, vp, ll, vp]
     lib.cts_tile_scan.restype = i
-    lib.cts_fixup.argtypes = [i, i, vp, vp, vp, ll, i, vp]
+    lib.cts_fixup.argtypes = [i, i, vp, vp, vp, ll, vp]
     lib.cts_fixup.restype = i
     lib.cts_tile_size.argtypes = []
     lib.cts_tile_size.restype = i
+    if lib.cts_scan_1d_tile() != SCAN_1D_TILE:
+        raise RuntimeError("scan.cu and ops/scan.py disagree on scan_1d's "
+                           "tile size")
 
 
 def _lib() -> ctypes.CDLL:
@@ -123,32 +143,44 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
-def _launch(x: torch.Tensor, flags, out: torch.Tensor, op: str,
-            reverse: bool) -> None:
+def _launch_1d(x: torch.Tensor, out: torch.Tensor, op: str,
+               reverse: bool) -> None:
+    """The look-back scan of ``x`` into ``out``: one memset of the scratch
+    words (a status word per tile, then the tile counter), one launch."""
+    lib = _lib()
+    n = x.shape[0]
+    scratch = torch.empty(lib.cts_scan_1d_scratch_words(n),
+                          dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib.cts_scan_1d(_DTYPE_CODE[x.dtype], _OP_CODE[op],
+                               x.data_ptr(), out.data_ptr(),
+                               scratch.data_ptr(), n, int(reverse), stream),
+               "scan_1d")
+
+
+def _launch_segmented(x: torch.Tensor, flags: torch.Tensor,
+                      out: torch.Tensor, op: str) -> None:
     """tile_scan over ``x`` into ``out``; if more than one tile, scan the
     tile totals (recursively) and fix the tiles up with the carries."""
     lib = _lib()
     n = x.shape[0]
     tile = lib.cts_tile_size()
     tiles = -(-n // tile)
-    seg = flags is not None
     agg_v = torch.empty(tiles, dtype=x.dtype, device=x.device)
-    agg_f = torch.empty(tiles, dtype=torch.uint8, device=x.device) \
-        if seg else None
+    agg_f = torch.empty(tiles, dtype=torch.uint8, device=x.device)
     first = torch.empty(tiles, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     dt, oc = _DTYPE_CODE[x.dtype], _OP_CODE[op]
-    _check(lib.cts_tile_scan(dt, oc, int(seg), x.data_ptr(),
-                             flags.data_ptr() if seg else None,
+    _check(lib.cts_tile_scan(dt, oc, x.data_ptr(), flags.data_ptr(),
                              out.data_ptr(), agg_v.data_ptr(),
-                             agg_f.data_ptr() if seg else None,
-                             first.data_ptr(), n, int(reverse), stream),
+                             agg_f.data_ptr(), first.data_ptr(), n, stream),
            "tile_scan")
     if tiles > 1:
         carry = torch.empty_like(agg_v)
-        _launch(agg_v, agg_f, carry, op, False)
+        _launch_segmented(agg_v, agg_f, carry, op)
         _check(lib.cts_fixup(dt, oc, out.data_ptr(), carry.data_ptr(),
-                             first.data_ptr(), n, int(reverse), stream),
+                             first.data_ptr(), n, stream),
                "fixup")
 
 
@@ -173,7 +205,7 @@ def scan_1d(x: torch.Tensor, op: str, reverse: bool = False) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("scan_1d: contiguous input required")
     out = torch.empty_like(x)
-    _launch(x, None, out, op, reverse)
+    _launch_1d(x, out, op, reverse)
     LAUNCHES["scan_1d"] += 1
     return out
 
@@ -194,6 +226,6 @@ def segmented_scan(x: torch.Tensor, reset: torch.Tensor,
     if not (x.is_contiguous() and reset.is_contiguous()):
         raise ValueError("segmented_scan: contiguous inputs required")
     out = torch.empty_like(x)
-    _launch(x, reset.view(torch.uint8), out, op, False)
+    _launch_segmented(x, reset.view(torch.uint8), out, op)
     LAUNCHES["segmented_scan"] += 1
     return out

@@ -16,8 +16,10 @@ import torch
 from cylon_tpu_torch import column
 from cylon_tpu_torch.ops import hash_kernels, scan
 
-# across one tile (4096), its edges, and three recursion levels
+# across one tile (4096) and its edges, and past 4096^2: three levels of
+# the segmented scan's recursion over tile totals, 12,289 look-back tiles
 SIZES = (1, 4095, 4096, 4097, 3 * 4096 * 4096 + 5)
+TILE = scan.SCAN_1D_TILE
 
 
 @pytest.fixture
@@ -36,6 +38,56 @@ def test_scan_1d_kernel_matches_plain(gen, op):
         for rev in (False, True):
             assert torch.equal(scan.scan_1d(x, op, rev),
                                scan.scan_1d_plain(x, op, rev))  # exact
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", scan.OPS)
+def test_scan_1d_tile_edges_and_alignment(gen, op):
+    """The look-back kernel's vector and element-wise paths: one tile and
+    its edges, n % 4 in 0-3 over 40 tiles (past one 32-tile look-back
+    window), in both directions, and views at 4, 8 and 12 bytes past a
+    16-byte boundary."""
+    sizes = (TILE - 1, TILE, TILE + 1, TILE + 2) + tuple(
+        40 * TILE + r for r in range(4))
+    for n in sizes:
+        for off in (0, 1, 2, 3):
+            x = torch.randint(-1000, 1000, (n + off,), generator=gen,
+                              device="cuda", dtype=torch.int32)[off:]
+            for rev in (False, True):
+                assert torch.equal(scan.scan_1d(x, op, rev),
+                                   scan.scan_1d_plain(x, op, rev))  # exact
+
+
+@pytest.mark.gpu
+def test_scan_1d_many_tiles_repeatable(gen):
+    """Several thousand tiles, int32 sums that wrap, and 20 calls on one
+    input bit-equal: integer look-back results do not depend on the order
+    blocks run in."""
+    n = 5000 * TILE + 3
+    x = torch.randint(-(1 << 30), 1 << 30, (n,), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    for op in scan.OPS:
+        for rev in (False, True):
+            first = scan.scan_1d(x, op, rev)
+            assert torch.equal(first, scan.scan_1d_plain(x, op, rev))
+            if (op, rev) == ("sum", False):
+                for _ in range(19):
+                    assert torch.equal(scan.scan_1d(x, op, rev), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (TILE + 1, 40 * TILE + 3, 5000 * TILE + 2))
+def test_scan_1d_float_sums_against_float64_oracle(gen, n):
+    """float32 sums within rtol=1e-5, atol=1e-6 of a float64 cumsum, in
+    both directions; the rounding order is not reproducible, so only the
+    tolerance is asserted."""
+    x = torch.rand(n, generator=gen, device="cuda") * 2 - 0.5
+    for rev in (False, True):
+        xd = x.double().flip(0) if rev else x.double()
+        want = torch.cumsum(xd, 0)
+        want = want.flip(0) if rev else want
+        got = scan.scan_1d(x, "sum", rev).double()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.gpu
