@@ -29,6 +29,18 @@ Phases, each of which fails the run on error:
 3c. HashPartition of the 2^26-row left table into 3 partitions: sizes
    sum to the rows, and every partition's keys re-hash to it under the
    plain version;
+3d. the relational operators on the phase-3 tables as one-shard Tables
+   (``pipeline.operator_calls``): sort by one and by two columns, unique
+   (first, last), union / intersect / subtract of the key columns and
+   union of whole rows, select, filter, sum / min / max / count, and the
+   pipeline group-by of the key-sorted left table; each against a numpy
+   oracle, with the counters zeroed just before its first run and read
+   just after (a set op must launch ``scan_1d`` at least 6 times), then
+   best-of-5 ms, rows/s and peak device memory;
+3e. the distributed operators on the phase-3b tables
+   (``pipeline.distributed_operator_calls``): range-partitioned sort,
+   hash-shuffled unique and set ops (each launching the hash kernel at
+   least 8 times), sum and min; the same checks and numbers;
 4. each kernel's time at the main path's shapes (CUDA events), its bound
    (bytes over 3.35 TB/s), its plain version's time and, where one
    PyTorch call computes the same function, that call's time; ``scan_1d``
@@ -39,8 +51,9 @@ It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit line, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
-adds a device-time breakdown by kernel of one run of each main path, and
-a stage breakdown of one distributed run.
+adds a device-time breakdown by kernel of one run of each main path, of
+the set ops and of the distributed sort, and a stage breakdown of one
+distributed run.
 """
 from __future__ import annotations
 
@@ -581,6 +594,312 @@ def phase_hash_partition(report: dict, dist: dict, rows: int) -> None:
         f"first run; launches={launches}")
 
 
+# -- phases 3d and 3e ---------------------------------------------------------
+
+def _time_op(fn, input_rows: int, runs: int = 5) -> dict:
+    """Best-of-``runs`` synchronised wall time of ``fn``, input rows per
+    second of the best, and peak device memory over the runs (resident
+    inputs included)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"best_ms": min(times) * 1e3, "times_ms": [t * 1e3 for t in times],
+            "rows_per_s": input_rows / min(times),
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _first_run(fn):
+    """(result, seconds, launches) of one synchronised run of ``fn`` with
+    every launch counter zeroed just before it and read just after."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _launch_counts()
+
+
+def _cols(t, names=None) -> dict:
+    """A table's live rows on the host, every column, no nulls allowed."""
+    out = t.to_numpy()
+    for name, v in out.items():
+        if v.dtype == object:
+            raise AssertionError(f"column {name} has nulls")
+    return out if names is None else {n: out[n] for n in names}
+
+
+def _expect_equal(label: str, got, want) -> None:
+    import numpy as np
+
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: {got.shape[0]} values differ from "
+                             f"the oracle's {want.shape[0]}")
+
+
+def _expect_zero_tail(label: str, t) -> None:
+    """Every shard's rows past its count are zero and null (the set ops'
+    output over its whole capacity)."""
+    import torch
+
+    for cols, n in zip(t.shards, t.counts):
+        n = int(n)
+        for c in cols:
+            if bool(c.validity[n:].any()) or bool(
+                    (c.data[n:] != 0).any()):
+                raise AssertionError(f"{label}: rows past the count are "
+                                     "not zero and null")
+    torch.cuda.synchronize()
+
+
+def _packed(k, v):
+    """uint64 rows (k, v): k's bits high, v's float bits low; for
+    non-negative v this order is the set ops' (k, v) order."""
+    import numpy as np
+
+    return ((k.astype(np.int64).astype(np.uint64) << np.uint64(32))
+            | v.view(np.uint32).astype(np.uint64))
+
+
+def _stable_order(k):
+    """``np.argsort(k, kind="stable")`` of int32 keys, as one direct sort
+    of (key, row) packed into a uint64: numpy's indirect sorts take
+    minutes at 2^26 rows, a direct sort seconds."""
+    import numpy as np
+
+    bits = max(1, (k.shape[0] - 1).bit_length())
+    packed = ((k.astype(np.int64) - int(k.min())).astype(np.uint64)
+              << np.uint64(bits)) | np.arange(k.shape[0], dtype=np.uint64)
+    packed.sort()
+    return (packed & np.uint64((1 << bits) - 1)).astype(np.int64)
+
+
+def _occurrences(k, order):
+    """(first, last): the row of each key's first and last occurrence, in
+    key order, from ``order = _stable_order(k)``."""
+    import numpy as np
+
+    ks = k[order]
+    start = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    end = np.r_[start[1:] - 1, ks.shape[0] - 1]
+    return order[start], order[end]
+
+
+def _desc_asc(k, v):
+    """(k, v) rows sorted by k descending, then v ascending, for v >= 0:
+    one direct sort of (max - k, v's float bits) packed into a uint64."""
+    import numpy as np
+
+    kmax = int(k.max())
+    packed = (((kmax - k.astype(np.int64)).astype(np.uint64)
+               << np.uint64(32)) | v.view(np.uint32).astype(np.uint64))
+    packed.sort()
+    return ((kmax - (packed >> np.uint64(32)).astype(np.int64))
+            .astype(k.dtype),
+            (packed & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(v.dtype))
+
+
+def _distinct(x):
+    """The distinct values of ``x``, ascending, by one direct sort (numpy
+    2.3's ``np.unique`` family hashes, which takes minutes at 2^27)."""
+    import numpy as np
+
+    x = np.sort(x)
+    return x[np.r_[True, x[1:] != x[:-1]]]
+
+
+def _rows_in_order(idx, n: int):
+    """The row indices ``idx`` in ascending order, by a scatter into a
+    mask rather than a sort."""
+    import numpy as np
+
+    mask = np.zeros(n, bool)
+    mask[idx] = True
+    return np.flatnonzero(mask)
+
+
+def _local_oracle(data, rows: int) -> dict:
+    """numpy answers of ``pipeline.operator_calls`` on ``make_data``.
+    The keys lie in ``[0, rows)``, so key sets are ``bincount`` masks;
+    the orders come from three direct sorts of packed words; no
+    ``np.unique`` family call (see ``_distinct``)."""
+    import numpy as np
+
+    lk, lv, rk, rv = data
+    in_l = np.bincount(lk, minlength=rows) > 0
+    in_r = np.bincount(rk, minlength=rows) > 0
+    order = _stable_order(lk)
+    first_by_key, last_by_key = _occurrences(lk, order)
+    first = _rows_in_order(first_by_key, rows)
+    last = _rows_in_order(last_by_key, rows)
+    dk, dv = _desc_asc(lk, lv)
+    mask = lv > 0.5
+    return {
+        "order": order, "first_by_key": first_by_key,
+        "sort": {"k": lk[order], "lv": lv[order]},
+        "sort_k_desc_lv": {"k": dk, "lv": dv},
+        "unique_first": {"k": lk[first], "lv": lv[first]},
+        "unique_last": {"k": lk[last], "lv": lv[last]},
+        "union": {"k": np.flatnonzero(in_l | in_r)},
+        "intersect": {"k": np.flatnonzero(in_l & in_r)},
+        "subtract": {"k": np.flatnonzero(in_l & ~in_r)},
+        "union_rows": _distinct(np.concatenate([_packed(lk, lv),
+                                                _packed(rk, rv)])),
+        "select": {"k": lk[mask], "lv": lv[mask]},
+        "filter": {"k": lk[mask], "lv": lv[mask]},
+        "sum": float(lv.astype(np.float64).sum()),
+        "min": int(lk.min()), "max": int(lk.max()), "count": rows,
+        "groupby_pipeline": (np.flatnonzero(in_l), np.bincount(
+            lk, weights=lv.astype(np.float64), minlength=rows)),
+    }
+
+
+def _check_local(name: str, out, want) -> float:
+    """Hold one operator's result to its oracle; returns the max abs
+    error of a float sum (0 for exact checks)."""
+    import numpy as np
+
+    if name in ("sum", "min", "max", "count"):
+        got = float(out.double()) if name == "sum" else int(out)
+        if name == "sum":
+            if abs(got - want) > F32_SUM_RTOL * abs(want):
+                raise AssertionError(f"sum {got} vs oracle {want}")
+            return abs(got - want)
+        if got != want:
+            raise AssertionError(f"{name} {got} vs oracle {want}")
+        return 0.0
+    if name == "union_rows":
+        rows = _cols(out)
+        _expect_equal(name, _packed(rows["k"], rows["lv"]), want)
+        _expect_zero_tail(name, out)
+        return 0.0
+    if name == "groupby_pipeline":
+        keys, sums = want
+        got = _cols(out)
+        _expect_equal(f"{name} keys", got["k"], keys)
+        np.testing.assert_allclose(got["sum_lv"].astype(np.float64),
+                                   sums[keys], rtol=F32_SUM_RTOL)
+        return float(np.abs(got["sum_lv"] - sums[keys]).max(initial=0.0))
+    got = _cols(out, list(want))
+    for col, v in want.items():
+        _expect_equal(f"{name} {col}", got[col], v)
+    if name in ("union", "intersect", "subtract"):
+        _expect_zero_tail(name, out)
+    return 0.0
+
+
+def phase_operators(report: dict, main: dict, rows: int) -> dict:
+    """Phase 3d: the relational operators on the phase-3 tables, wrapped
+    as one-shard Tables on the card, each against its numpy oracle."""
+    from cylon_tpu_torch import pipeline
+
+    left, right = pipeline.local_tables(*main["tables"])
+    calls = pipeline.operator_calls(left, right)
+    t0 = time.perf_counter()
+    oracle = _local_oracle(main["data"], rows)
+    log(f"[3d] numpy oracles in {time.perf_counter() - t0:.1f} s")
+    two_sided = {"union", "intersect", "subtract", "union_rows"}
+    results = {}
+    for name, fn in calls.items():
+        out, first_s, launches = _first_run(fn)
+        err = _check_local(name, out, oracle[name])
+        if name in two_sided and launches["scan_1d"] < 6:
+            raise AssertionError(f"{name}: {launches['scan_1d']} scan_1d "
+                                 "launches, expected at least 6")
+        if name == "groupby_pipeline" and launches["segmented_scan"] < 1:
+            raise AssertionError(f"{name}: no segmented_scan launch")
+        del out
+        r = _time_op(fn, 2 * rows if name in two_sided else rows)
+        r.update(first_run_s=first_s, launches=launches, max_abs_err=err)
+        results[name] = r
+        log(f"[3d] {name}: best-of-5 {r['best_ms']:.2f} ms -> "
+            f"{r['rows_per_s']:.6g} rows/s, first run {first_s:.3f} s, "
+            f"peak {r['peak_device_bytes'] / 2**30:.2f} GiB, "
+            f"launches {launches}")
+    report["operators"] = results
+    return {"left": left, "right": right, "results": results,
+            "order": oracle["order"], "first": oracle["first_by_key"],
+            "sets": {op: oracle[op]["k"]
+                     for op in ("union", "intersect", "subtract")}}
+
+
+def phase_distributed_operators(report: dict, main: dict, dist: dict,
+                                ops: dict, rows: int) -> dict:
+    """Phase 3e: the distributed operators on the phase-3b tables (SHARDS
+    shards on the one card), each against numpy (``ops``: phase 3d's
+    stable order of the left keys, each key's first row in key order,
+    and the key sets)."""
+    import numpy as np
+
+    from cylon_tpu_torch import pipeline
+
+    lk, lv, rk, rv = main["data"]
+    order, first = ops["order"], ops["first"]
+    calls = pipeline.distributed_operator_calls(dist["left"], dist["right"])
+    results = {}
+    for name, fn in calls.items():
+        out, first_s, launches = _first_run(fn)
+        info = {}
+        if name == "distributed_sort":
+            shards = [(c[0].data[:int(n)], c[1].data[:int(n)])
+                      for c, n in zip(out.shards, out.counts)]
+            for i, (k, _) in enumerate(shards):
+                if k.numel() > 1 and bool((k[1:] < k[:-1]).any()):
+                    raise AssertionError(f"shard {i} is not sorted")
+            for (a, _), (b, _) in zip(shards, shards[1:]):
+                if a.numel() and b.numel() and int(a.max()) > int(b.min()):
+                    raise AssertionError("shards are not globally ordered")
+            got = _cols(out)
+            _expect_equal(name, got["k"], lk[order])
+            _expect_equal(f"{name} lv", got["lv"], lv[order])
+            info["rows_per_shard"] = out.row_counts.tolist()
+        elif name == "distributed_unique":
+            # a hash shuffle keeps each key's rows in input order, so the
+            # kept row is the key's first occurrence; the keys are
+            # distinct, so sorting the packed (k, lv) rows sorts by key
+            got = _cols(out)
+            _expect_equal(name, np.sort(_packed(got["k"], got["lv"])),
+                          _packed(lk[first], lv[first]))
+        elif name in ("distributed_union", "distributed_intersect",
+                      "distributed_subtract"):
+            _expect_equal(name, np.sort(_cols(out)["k"]),
+                          ops["sets"][name[len("distributed_"):]])
+            _expect_zero_tail(name, out)
+            if launches["hash_partition"] < 2 * SHARDS:
+                raise AssertionError(f"{name}: {launches['hash_partition']} "
+                                     "hash_partition launches, expected "
+                                     f"at least {2 * SHARDS}")
+        elif name == "sum":
+            want = float(lv.astype(np.float64).sum())
+            if abs(float(out.double()) - want) > F32_SUM_RTOL * abs(want):
+                raise AssertionError(f"sum {float(out)} vs oracle {want}")
+            info["max_abs_err"] = abs(float(out.double()) - want)
+        elif name == "min" and int(out) != int(lk.min()):
+            raise AssertionError(f"min {int(out)} vs oracle {lk.min()}")
+        del out
+        two_sided = name in ("distributed_union", "distributed_intersect",
+                             "distributed_subtract")
+        r = _time_op(fn, 2 * rows if two_sided else rows)
+        r.update(first_run_s=first_s, launches=launches, **info)
+        results[name] = r
+        log(f"[3e] {name}: best-of-5 {r['best_ms']:.2f} ms -> "
+            f"{r['rows_per_s']:.6g} rows/s ({SHARDS} shards on one card), "
+            f"first run {first_s:.3f} s, peak "
+            f"{r['peak_device_bytes'] / 2**30:.2f} GiB, launches {launches}"
+            + (f", rows per shard {info['rows_per_shard']}"
+               if "rows_per_shard" in info else ""))
+    report["distributed_operators"] = results
+    return results
+
+
 # kernel family -> substrings of the profiler's kernel names (first match
 # wins; anything else is "other elementwise")
 FAMILIES = (
@@ -588,7 +907,8 @@ FAMILIES = (
     ("CUDA scan kernels (cuda/scan.cu)", ("lookback_scan_kernel",
                                           "tile_scan_kernel",
                                           "fixup_kernel")),
-    ("radix sorts (CUB)", ("DeviceRadixSort",)),
+    ("radix sorts (CUB)", ("DeviceRadixSort", "DeviceSegmentedRadixSort",
+                           "radixSort")),
     ("torch.bincount", ("kernelHistogram1D",)),
     ("gathers and scatters", ("gpu_index_kernel", "indexFuncLargeIndex",
                               "scatter")),
@@ -742,6 +1062,17 @@ def _hash_timing_row(report: dict, main: dict, dist: dict) -> dict:
                                                           0))
 
 
+def operator_launches(report: dict) -> dict:
+    """Per kernel, its launches summed over the first runs of phases 3d
+    and 3e."""
+    total: dict = {}
+    for phase in ("operators", "distributed_operators"):
+        for r in report.get(phase, {}).values():
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+    return total
+
+
 def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     import torch
 
@@ -805,6 +1136,9 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     rows_out.append(_hash_timing_row(report, main, dist))
     report["scan_1d_variants"] = scan_variants
     report["segmented_inputs"] = {"n": m, "resets": int(reset.sum())}
+    op_launches = operator_launches(report)
+    for r in rows_out:
+        r["launches_operators"] = op_launches.get(r["name"], 0)
     for r in rows_out:
         log(f"[4] {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
             f"ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']}) "
@@ -821,7 +1155,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one run of each main path, and time the "
+                    help="profile one run of each main path, of the set "
+                         "ops and of the distributed sort, and time the "
                          "stages of one distributed run")
     args = ap.parse_args(argv)
 
@@ -858,6 +1193,17 @@ def main(argv=None) -> int:
                               dist["left"], dist["right"]))
             phase_stages(report, dist)
         phase_hash_partition(report, dist, ROWS)
+        ops = phase_operators(report, main_state, ROWS)
+        if args.profile:
+            calls = pipeline.operator_calls(ops["left"], ops["right"])
+            phase_profile(report, "set_ops", lambda: [
+                calls[op]() for op in ("union", "intersect", "subtract",
+                                       "union_rows")])
+        phase_distributed_operators(report, main_state, dist, ops, ROWS)
+        if args.profile:
+            phase_profile(report, "distributed_sort",
+                          lambda: dist["left"].distributed_sort("k"))
+        del ops
         kernels = phase_timings(report, main_state, dist, ROWS)
         report["kernels"] = kernels
     except Exception:

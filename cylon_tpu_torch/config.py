@@ -1,7 +1,8 @@
-"""Join types and configs, and the environment-knob registry.
+"""Join types and configs, sort options, and the environment-knob registry.
 
-``JoinType`` and ``JoinConfig`` mirror the JAX package's
-``cylon_tpu/config.py:29`` and ``:67`` (reference: join/join_config.hpp).
+``JoinType``, ``JoinConfig`` and ``SortOptions`` mirror the JAX package's
+``cylon_tpu/config.py:29``, ``:67`` and ``:107`` (reference:
+join/join_config.hpp, table.hpp).
 ``KNOBS`` is the one place this package reads a
 ``CYLON_TPU_*`` environment variable; ``knob()`` is its only accessor, as in
 ``cylon_tpu/config.py:649``.  It holds only the knobs the ported modules
@@ -58,6 +59,18 @@ class JoinConfig:
 
 def _as_tuple(v) -> Tuple:
     return tuple(v) if isinstance(v, (list, tuple)) else (v,)
+
+
+@dataclass(frozen=True)
+class SortOptions:
+    """Options of the distributed sort's sampled-histogram range
+    partitioner (``cylon_tpu/config.py:107``; reference: table.hpp:365-373
+    SortOptions)."""
+
+    ascending: bool = True
+    num_bins: int = 0        # 0 -> 16 * world_size (reference default)
+    num_samples: int = 0     # 0 -> 4096 per shard
+    nulls_first: bool = True
 
 
 @dataclass(frozen=True)

@@ -1,41 +1,64 @@
-"""Distributed operators over the in-process mesh: hash shuffle, local
-HashPartition, two-phase group-by.
+"""Distributed operators over the in-process mesh: hash and range
+shuffles, local HashPartition, distributed sort, two-phase group-by,
+scalar aggregates.
 
-The port of ``cylon_tpu/parallel/ops.py``: ``_shuffled:378`` (hash mode),
-``shuffle:486``, ``hash_partition:501``, ``groupby_partial_plan:601``,
-``finalize_groupby_columns:621`` and ``distributed_groupby:662`` (steps
-1-5).  Each keeps the reference's partition -> exchange -> local kernel
-shape; where the reference runs one ``shard_map`` program per phase, the
-port runs the phase for every shard in turn.  Range partitioning
-(``distributed_sort``), ``broadcast_gather``, NUNIQUE, salted,
-pre-partitioned and pipeline group-bys are not ported yet and raise.
+The port of ``cylon_tpu/parallel/ops.py``: ``_shuffled:378`` with
+``_targets:162`` (hash and range modes), ``shuffle:486``,
+``hash_partition:501``, ``distributed_sort:576``,
+``groupby_partial_plan:601``, ``finalize_groupby_columns:621``,
+``distributed_groupby:662`` (steps 1-5) and
+``distributed_scalar_agg:836``.  Each keeps the reference's partition ->
+exchange -> local kernel shape; where the reference runs one
+``shard_map`` program per phase, the port runs the phase for every shard
+in turn.  ``broadcast_gather``, NUNIQUE, salted, pre-partitioned and
+pipeline group-bys are not ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import dtypes, precision
 from ..column import Column
+from ..config import SortOptions
+from ..ops import aggregates as agg_mod
 from ..ops import compact
 from ..ops import groupby as groupby_mod
+from ..ops import sort as sort_mod
 from ..ops.groupby import AggOp
 from ..status import Code, CylonError
-from . import partition, shuffle as shuffle_mod
+from . import collectives, partition, shuffle as shuffle_mod
 
 
 def _not_ported(what: str) -> CylonError:
     return CylonError(Code.NotImplemented, f"{what} is not ported yet")
 
 
-def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash"):
-    """partition -> exchange; returns the shuffled Table."""
-    if mode != "hash":
-        raise _not_ported(f"{mode} partitioning")
+def _targets(t, key_idx: Tuple[int, ...], mode: str,
+             opts: Optional[SortOptions]):
+    """Every shard's target per row: by hash of the key columns, or by
+    range of the first key column with ``opts``' defaults resolved as the
+    reference resolves them."""
     world = t.num_shards
-    targets = [partition.hash_targets(cols, n, key_idx, world)
-               for cols, n in zip(t.shards, t.counts)]
+    if mode == "hash":
+        return [partition.hash_targets(cols, n, key_idx, world)
+                for cols, n in zip(t.shards, t.counts)]
+    if mode != "range":
+        raise CylonError(Code.Invalid, f"bad partition mode {mode!r}")
+    opts = opts or SortOptions()
+    return partition.range_targets(
+        [cols[key_idx[0]] for cols in t.shards], t.counts, t.ctx.devices,
+        num_bins=opts.num_bins or 16 * world,
+        num_samples=opts.num_samples or 4096,
+        ascending=opts.ascending, nulls_first=opts.nulls_first)
+
+
+def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
+              opts: Optional[SortOptions] = None):
+    """partition -> exchange; returns the shuffled Table."""
+    world = t.num_shards
+    targets = _targets(t, key_idx, mode, opts)
     cm = shuffle_mod.count_matrix([shuffle_mod.target_counts(tg, world)
                                    for tg in targets])
     out_cap = shuffle_mod.plan_shuffle(cm)
@@ -80,8 +103,17 @@ def broadcast_gather(t):
     raise _not_ported("broadcast_gather")
 
 
-def distributed_sort(t, by_idx, opts=None, asc=None):
-    raise _not_ported("distributed_sort")
+def distributed_sort(t, by_idx: Tuple[int, ...], opts: SortOptions,
+                     asc: Optional[Tuple[bool, ...]] = None):
+    """reference: DistributedSort (table.cpp:313-356): range-partition on
+    the first sort column, exchange, then sort every shard locally."""
+    by_idx = tuple(by_idx)
+    shuffled = _shuffled(t, by_idx, "range", opts)
+    if asc is None:
+        asc = tuple([opts.ascending] * len(by_idx))
+    shards = [sort_mod.sort_rows(cols, n, by_idx, asc, opts.nulls_first)[0]
+              for cols, n in zip(shuffled.shards, shuffled.counts)]
+    return shuffled._like(shards, shuffled.counts)
 
 
 def groupby_partial_plan(aggs):
@@ -184,3 +216,23 @@ def distributed_groupby(t, by_idx: Tuple[int, ...],
                                                partial_index, ddof))
         counts.append(m)
     return t._like(shards, counts, names_out)
+
+
+def distributed_scalar_agg(t, col_idx: int, op: agg_mod.ReduceOp):
+    """A local masked reduce on every shard, then one collective combine
+    (reference: compute/aggregates.cpp:30-156, a local reduction and
+    mpi::AllReduce).  Empty shards give the op's neutral element.  PROD
+    has no allreduce: the partials are gathered and multiplied.  Returns
+    the 0-d result on shard 0's device."""
+    op = agg_mod.ReduceOp(op)
+    devices = t.ctx.devices
+    vals = [agg_mod.scalar_agg(cols[col_idx], n, op)[0]
+            for cols, n in zip(t.shards, t.counts)]
+    if op in (agg_mod.ReduceOp.SUM, agg_mod.ReduceOp.COUNT):
+        return collectives.allreduce_sum(vals, devices)[0]
+    if op == agg_mod.ReduceOp.MIN:
+        return collectives.allreduce_min(vals, devices)[0]
+    if op == agg_mod.ReduceOp.MAX:
+        return collectives.allreduce_max(vals, devices)[0]
+    return torch.prod(collectives.allgather([v.reshape(1) for v in vals],
+                                            devices)[0])

@@ -10,10 +10,15 @@
 - Distributed (``distributed_tables``, ``distributed_join_groupby``): the
   repo's end-to-end drive on a mesh of shards, ``Table.distributed_join``
   on the key then the two-phase ``groupby`` with the same SUM and MEAN.
+- Relational operators (``operators`` on ``local_tables``,
+  ``distributed_operators`` on ``distributed_tables``): sort, unique, the
+  set ops, select / filter, scalar aggregates and the pipeline group-by on
+  one shard; range-partitioned sort, hash-shuffled unique and set ops and
+  allreduced aggregates on a mesh.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +26,7 @@ import torch
 from . import column
 from .column import Column
 from .config import JoinType
+from .context import CylonContext
 from .ops import groupby, join
 from .table import Table, cap_round  # noqa: F401  (cap_round re-exported)
 
@@ -86,3 +92,69 @@ def distributed_join_groupby(left: Table, right: Table
     joined = left.distributed_join(right, on="k")
     groups = joined.groupby("l_k", {"lv": "sum", "rv": "mean"})
     return groups, joined
+
+
+def local_tables(cols_l, cnt_l, cols_r, cnt_r) -> Tuple[Table, Table]:
+    """``tables``' columns wrapped as one-shard Tables ``(k, lv)`` and
+    ``(k, rv)`` on their device, with no copy."""
+    ctx = CylonContext.Init(cols_l[0].device)
+    return (Table(((tuple(cols_l)),), (cnt_l,), ("k", "lv"), ctx),
+            Table(((tuple(cols_r)),), (cnt_r,), ("k", "rv"), ctx))
+
+
+def operator_calls(left: Table, right: Table) -> Dict[str, Callable]:
+    """The single-chip relational operators on ``(k, lv)`` / ``(k, rv)``
+    tables, one zero-argument call each, in the order ``operators`` runs
+    them.  ``groupby_pipeline`` groups the left table sorted by ``k``
+    (sorted once, here)."""
+    keys_l, keys_r = left.project("k"), right.project("k")
+    by_key = left.sort("k")
+    return {
+        "sort": lambda: left.sort("k"),
+        "sort_k_desc_lv": lambda: left.sort(["k", "lv"],
+                                            ascending=[False, True]),
+        "unique_first": lambda: left.unique("k", keep="first"),
+        "unique_last": lambda: left.unique("k", keep="last"),
+        "union": lambda: keys_l.union(keys_r),
+        "intersect": lambda: keys_l.intersect(keys_r),
+        "subtract": lambda: keys_l.subtract(keys_r),
+        "union_rows": lambda: left.union(right),
+        "select": lambda: left.select(lambda e: e["lv"] > 0.5),
+        "filter": lambda: left.filter(left["lv"] > 0.5),
+        "sum": lambda: left.sum("lv"),
+        "min": lambda: left.min("k"),
+        "max": lambda: left.max("k"),
+        "count": lambda: left.count("k"),
+        "groupby_pipeline": lambda: by_key.groupby(
+            "k", {"lv": "sum"}, groupby_type="pipeline"),
+    }
+
+
+def operators(left: Table, right: Table) -> Dict[str, object]:
+    """Every operator of ``operator_calls``, run once: name -> its result
+    (a Table, or a 0-d tensor for the scalar aggregates)."""
+    return {name: fn() for name, fn in operator_calls(left, right).items()}
+
+
+def distributed_operator_calls(left: Table, right: Table
+                               ) -> Dict[str, Callable]:
+    """The distributed operators on tables split over a mesh: a range-
+    partitioned sort, a hash-shuffled unique and set ops, and scalar
+    aggregates with an allreduce."""
+    keys_l, keys_r = left.project("k"), right.project("k")
+    return {
+        "distributed_sort": lambda: left.distributed_sort("k"),
+        "distributed_unique": lambda: left.distributed_unique("k"),
+        "distributed_union": lambda: keys_l.distributed_union(keys_r),
+        "distributed_intersect":
+            lambda: keys_l.distributed_intersect(keys_r),
+        "distributed_subtract": lambda: keys_l.distributed_subtract(keys_r),
+        "sum": lambda: left.sum("lv"),
+        "min": lambda: left.min("k"),
+    }
+
+
+def distributed_operators(left: Table, right: Table) -> Dict[str, object]:
+    """Every operator of ``distributed_operator_calls``, run once."""
+    return {name: fn() for name, fn in
+            distributed_operator_calls(left, right).items()}

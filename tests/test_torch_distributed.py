@@ -247,7 +247,9 @@ def test_context_devices_and_unported_paths(pctx, monkeypatch):
         t.distributed_join(t, left_on="k", right_on="w")  # int32 vs int64
     from cylon_tpu_torch.parallel import ops as par_ops
 
+    from cylon_tpu_torch.ops.groupby import AggOp
+
     with pytest.raises(CylonError, match="NotImplemented"):
-        par_ops.distributed_sort(t, (0,))
+        par_ops.distributed_groupby(t, (0,), ((1, AggOp.SUM),), 0, salt=2)
     with pytest.raises(CylonError, match="NotImplemented"):
         par_ops.broadcast_gather(t)

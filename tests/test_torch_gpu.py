@@ -1,5 +1,6 @@
 """The CUDA kernels (scan family, murmur3 hash partition) against their
-plain PyTorch versions on the card.
+plain PyTorch versions on the card, and the relational operators on the
+card against the same operators on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA card: a CUDA
 kernel has no CPU mode.  This file imports neither jax nor cylon_tpu, so
@@ -174,3 +175,93 @@ def test_hash_partition_multi_column_and_launch_count(gen):
     h, t = hash_kernels.hash_partition([empty], 4)
     assert h.shape == (0,) and t.shape == (0,)
     assert hash_kernels.LAUNCHES == {"hash_partition": 4}
+
+
+def _operator_tables(device, rows=5000):
+    from cylon_tpu_torch import pipeline
+
+    data = pipeline.make_data(rows)
+    return pipeline.local_tables(*pipeline.tables(*data, device=device))
+
+
+def _assert_same_table(got, want, float_rtol=None):
+    """Two tables of one layout, got on the card, want on the CPU: names,
+    counts, and every shard's validity and data over the whole capacity,
+    exact unless ``float_rtol`` is given for float data (whose dtype then
+    may differ: narrow on the card, wide on the CPU)."""
+    assert got.names == want.names
+    assert got.row_counts.tolist() == want.row_counts.tolist()
+    for gs, ws in zip(got.shards, want.shards):
+        for g, w in zip(gs, ws):
+            assert torch.equal(g.validity.cpu(), w.validity)
+            if float_rtol is not None and w.data.is_floating_point():
+                torch.testing.assert_close(g.data.cpu().double(),
+                                           w.data.double(), rtol=float_rtol,
+                                           atol=0)
+            else:
+                assert torch.equal(g.data.cpu(), w.data)
+
+
+@pytest.mark.gpu
+def test_operators_on_the_card_equal_the_cpu(gen):
+    """``pipeline.operators`` on the card against the same run on the CPU:
+    tables exact (sort, unique, set ops, select, filter), float sums
+    rtol 1e-5 (float32 on the card, float64 on the CPU)."""
+    from cylon_tpu_torch import pipeline
+
+    got = pipeline.operators(*_operator_tables("cuda"))
+    want = pipeline.operators(*_operator_tables("cpu"))
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g = got[name]
+        if isinstance(w, torch.Tensor):
+            torch.testing.assert_close(g.cpu().double(), w.double(),
+                                       rtol=1e-5, atol=0)
+        else:
+            _assert_same_table(g, w, 1e-5 if name == "groupby_pipeline"
+                               else None)
+
+
+@pytest.mark.gpu
+def test_local_set_op_launches_scan_1d_six_times(gen):
+    """Two run_extents calls of three scans each, all on the kernel."""
+    left, right = _operator_tables("cuda")
+    a, b = left.project("k"), right.project("k")
+    for op in ("union", "intersect", "subtract"):
+        scan.reset_launches()
+        getattr(a, op)(b)
+        assert scan.LAUNCHES["scan_1d"] == 6
+
+
+@pytest.mark.gpu
+def test_distributed_operators_on_the_card_equal_the_cpu(gen):
+    """4 shards on the card against 4 on the CPU: the hash-shuffled
+    unique and set ops shard for shard (murmur3 places rows alike on both),
+    the range-partitioned sort after gathering (its bins are float32 on
+    the card and float64 on the CPU); every distributed set op launches
+    the hash kernel 4 times per table."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+
+    data = pipeline.make_data(6000)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = CylonContext.InitDistributed(MeshConfig(devices=[dev],
+                                                      world_size=4))
+        out[dev] = pipeline.distributed_operators(
+            *pipeline.distributed_tables(ctx, *data))
+    for name in ("distributed_unique", "distributed_union",
+                 "distributed_intersect", "distributed_subtract"):
+        _assert_same_table(out["cuda"][name], out["cpu"][name])
+    for col in ("k", "lv"):
+        np.testing.assert_array_equal(
+            out["cuda"]["distributed_sort"].to_numpy()[col],
+            out["cpu"]["distributed_sort"].to_numpy()[col])
+    torch.testing.assert_close(out["cuda"]["sum"].cpu().double(),
+                               out["cpu"]["sum"].double(), rtol=1e-5, atol=0)
+    assert int(out["cuda"]["min"]) == int(out["cpu"]["min"])
+    ctx = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                  world_size=4))
+    left, right = pipeline.distributed_tables(ctx, *data)
+    hash_kernels.reset_launches()
+    left.project("k").distributed_union(right.project("k"))
+    assert hash_kernels.LAUNCHES == {"hash_partition": 8}

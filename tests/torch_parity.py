@@ -140,3 +140,40 @@ def assert_shards_equal(port_table, ref_table):
             np.testing.assert_array_equal(pv, rv)
             assert pd_.dtype == rd.dtype, (pd_.dtype, rd.dtype)
             np.testing.assert_array_equal(pd_, rd)
+
+
+def local_tables(names, values_list, validity_list=None, capacity=None,
+                 ctx=None):
+    """(reference Table, port Table): one shard each, holding the same
+    columns (``columns``) and live-row count.  ``ctx`` is the reference's
+    context (default: a new local one)."""
+    from cylon_tpu.context import CylonContext as RContext
+    from cylon_tpu.table import Table as RTable
+    from cylon_tpu_torch import CylonContext, Table
+
+    ref, port = columns(values_list, validity_list, capacity)
+    n = len(values_list[0])
+    rt = RTable.from_columns(dict(zip(names, ref)), n,
+                             ctx=ctx or RContext.Init())
+    pt = Table((tuple(port),), (torch.tensor(n, dtype=torch.int32),),
+               tuple(names), CylonContext.Init("cpu"))
+    return rt, pt
+
+
+def port_table_of(rt):
+    """The port's one-shard Table holding exactly a one-shard reference
+    Table's buffers and count."""
+    from cylon_tpu_torch import CylonContext, Table
+
+    return Table((tuple(port_column(c) for c in rt.columns),),
+                 (torch.tensor(int(rt.row_counts[0]), dtype=torch.int32),),
+                 tuple(rt.names), CylonContext.Init("cpu"))
+
+
+def assert_tables_equal(pt, rt, float_rtol=None):
+    """One-shard tables: names, live-row count, and every column's data and
+    validity over the whole capacity (``assert_columns_equal``)."""
+    assert pt.num_shards == 1 and rt.num_shards == 1
+    assert tuple(pt.names) == tuple(rt.names)
+    assert int(pt.counts[0]) == int(rt.row_counts[0])
+    assert_columns_equal(pt.shards[0], rt.columns, float_rtol)
