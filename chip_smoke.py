@@ -41,6 +41,21 @@ Phases, each of which fails the run on error:
    (``pipeline.distributed_operator_calls``): range-partitioned sort,
    hash-shuffled unique and set ops (each launching the hash kernel at
    least 8 times), sum and min; the same checks and numbers;
+3f. string keys on one shard: phase 3's data with each int key rendered
+   as TPC-H's ``c_name`` (``"Customer#%09d"``, 18 bytes in the default
+   32-byte column, byte matrices built with numpy digit arithmetic),
+   ``pipeline.string_join_groupby`` against phase 3's oracle, group keys
+   decoded on the card; counters zeroed around the first run; best-of-5
+   rows/s and peak memory;
+3g. the same in SHARDS shards: the join's and the group-by's shuffles hash
+   the string key with ``ops/hashing.py`` (its device time in one run,
+   bracketed by CUDA events, is printed), then ``distributed_sort`` by the
+   string key, checked as monotone and a permutation of the input;
+3h. TPC-H Q1 at SF10 (60,000,000 lineitem rows drawn as
+   ``examples/tpch_data.py`` draws them, the flags CHAR(1) byte columns)
+   on one shard and on SHARDS shards, against a numpy ``bincount`` oracle
+   over the group codes.  On 3f-3h both scan kernels must launch and the
+   hash kernel must not (every shuffle key is a string);
 4. each kernel's time at the main path's shapes (CUDA events), its bound
    (bytes over 3.35 TB/s), its plain version's time and, where one
    PyTorch call computes the same function, that call's time; ``scan_1d``
@@ -52,8 +67,8 @@ limit line, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
 adds a device-time breakdown by kernel of one run of each main path, of
-the set ops and of the distributed sort, and a stage breakdown of one
-distributed run.
+the set ops, of the distributed sorts, of the string paths and of Q1, and
+a stage breakdown of one distributed run.
 """
 from __future__ import annotations
 
@@ -900,6 +915,309 @@ def phase_distributed_operators(report: dict, main: dict, dist: dict,
     return results
 
 
+# -- phases 3f, 3g and 3h: string keys ----------------------------------------
+
+def _string_launch_check(label: str, launches: dict) -> None:
+    """Both scan kernels ran, and murmur3 did not: every shuffle key on the
+    string paths is a string, which hashes with ``ops/hashing.py``."""
+    if launches["scan_1d"] < 1 or launches["segmented_scan"] < 1:
+        raise AssertionError(f"{label}: the scan kernels did not run: "
+                             f"{launches}")
+    if launches["hash_partition"] != 0:
+        raise AssertionError(f"{label}: murmur3 ran on string keys: "
+                             f"{launches}")
+
+
+def _check_string_groups(label: str, groups, joined, oracle: dict):
+    """Phase 3's oracle on the string-key join -> group-by: join and group
+    counts exact, group keys decoded on the card (prefix, length 18,
+    digits) equal to the oracle's int keys, SUM and MEAN within rtol.
+    Returns (sum, mean) max abs errors."""
+    import numpy as np
+
+    from cylon_tpu_torch import pipeline
+
+    jm, g = joined.row_count, groups.row_count
+    if (jm, g) != (oracle["join"], oracle["groups"]):
+        raise AssertionError(f"{label}: join {jm} groups {g}, oracle join "
+                             f"{oracle['join']} groups {oracle['groups']}")
+    keys, sums, means = [], [], []
+    for cols, n in zip(groups.shards, groups.counts):
+        n = int(n)
+        for c in cols:
+            if not (bool(c.validity[:n].all())
+                    and not bool(c.validity[n:].any())):
+                raise AssertionError(f"{label}: group validity is not the "
+                                     "live prefix")
+        keys.append(pipeline.name_keys(cols[0], n).cpu().numpy())
+        sums.append(cols[1].data[:n].cpu().numpy())
+        means.append(cols[2].data[:n].cpu().numpy())
+    keys = np.concatenate(keys)
+    order = np.argsort(keys, kind="stable")
+    return _check_groups(oracle, keys[order].astype(np.int32),
+                         np.concatenate(sums)[order],
+                         np.concatenate(means)[order], label)
+
+
+def _timed_calls(module, name: str, fn):
+    """(result of ``fn()``, device ms spanned by the calls of
+    ``module.name`` made during it, the number of those calls, device ms
+    spanned by the whole run): CUDA events bracket each call on the
+    stream."""
+    import torch
+
+    orig = getattr(module, name)
+    spans = []
+
+    def wrapped(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kw)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        torch.cuda.synchronize()
+        run0 = torch.cuda.Event(enable_timing=True)
+        run1 = torch.cuda.Event(enable_timing=True)
+        run0.record()
+        out = fn()
+        run1.record()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, orig)
+    return (out, sum(a.elapsed_time(b) for a, b in spans), len(spans),
+            run0.elapsed_time(run1))
+
+
+def phase_string_join(report: dict, main: dict, rows: int,
+                      profile: bool = False) -> None:
+    """Phase 3f: phase 3's data with every int key rendered as TPC-H's
+    ``c_name`` ("Customer#%09d", 18 bytes in a 32-byte column), one-shard
+    Tables on the card, ``string_join_groupby``, phase 3's oracle."""
+    import torch
+
+    from cylon_tpu_torch import CylonContext, pipeline
+
+    t0 = time.perf_counter()
+    left, right = pipeline.string_tables(CylonContext.Init(), *main["data"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    (groups, joined), first_s, launches = _first_run(
+        lambda: pipeline.string_join_groupby(left, right))
+    log(f"[3f] string keys, {rows} rows/side, width "
+        f"{left.shards[0][0].string_width}: tables built in {build_s:.1f} s;"
+        f" first run {first_s:.3f} s launches={launches}")
+    _string_launch_check("3f", launches)
+    sum_err, mean_err = _check_string_groups("3f", groups, joined,
+                                             main["oracle"])
+    out_cap = joined.shard_capacity
+    del groups, joined
+    times, rate, peak = _best_of_5(
+        lambda: pipeline.string_join_groupby(left, right), rows)
+    if profile:
+        phase_profile(report, "strings_single_chip",
+                      lambda: pipeline.string_join_groupby(left, right))
+    report["string_join"] = {
+        "rows_per_side": rows, "width": left.shards[0][0].string_width,
+        "build_s": build_s, "launches": launches, "first_run_s": first_s,
+        "times_s": times, "rows_per_s": rate, "peak_device_bytes": peak,
+        "join_capacity": out_cap, "sum_max_abs_err": sum_err,
+        "mean_max_abs_err": mean_err}
+    log(f"[3f] oracle: join {main['oracle']['join']} groups "
+        f"{main['oracle']['groups']} exact, keys decode; SUM max abs err "
+        f"{sum_err:.3g}, MEAN {mean_err:.3g}; best-of-5 "
+        f"{min(times) * 1e3:.2f} ms -> {rate:.6g} rows/s; times "
+        f"{[round(t * 1e3, 2) for t in times]} ms; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+
+
+def phase_string_distributed(report: dict, main: dict, rows: int,
+                             profile: bool = False) -> None:
+    """Phase 3g: the same string tables in SHARDS shards on the one card:
+    ``string_join_groupby`` (both shuffles hash the string key with
+    ``ops/hashing.py``), then ``distributed_sort`` by the string key (range
+    targets on its 4-byte prefix), checked as monotone and a permutation
+    of the input."""
+    import torch
+
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+    from cylon_tpu_torch.ops import hashing
+
+    lk, lv = main["data"][0], main["data"][1]
+    ctx = CylonContext.InitDistributed(MeshConfig(world_size=SHARDS))
+    left, right = pipeline.string_tables(ctx, *main["data"])
+    (groups, joined), first_s, launches = _first_run(
+        lambda: pipeline.string_join_groupby(left, right))
+    log(f"[3g] string keys in {SHARDS} shards: first run {first_s:.3f} s "
+        f"launches={launches}")
+    _string_launch_check("3g", launches)
+    sum_err, mean_err = _check_string_groups("3g", groups, joined,
+                                             main["oracle"])
+    del groups, joined
+    _, hash_ms, hash_calls, run_ms = _timed_calls(
+        hashing, "hash_columns",
+        lambda: pipeline.string_join_groupby(left, right))
+    times, rate, peak = _best_of_5(
+        lambda: pipeline.string_join_groupby(left, right), rows)
+    if profile:
+        phase_profile(report, "strings_distributed",
+                      lambda: pipeline.string_join_groupby(left, right))
+    log(f"[3g] oracle exact, keys decode; SUM max abs err {sum_err:.3g}, "
+        f"MEAN {mean_err:.3g}; best-of-5 {min(times) * 1e3:.2f} ms -> "
+        f"{rate:.6g} rows/s ({SHARDS} shards on one card); peak "
+        f"{peak / 2**30:.2f} GiB; row hash {hash_ms:.2f} ms of the run's "
+        f"{run_ms:.2f} device ms ({100 * hash_ms / run_ms:.1f}%, "
+        f"{hash_calls} calls)")
+
+    out, sort_first_s, sort_launches = _first_run(
+        lambda: left.distributed_sort("k"))
+    keys = [pipeline.name_keys(c[0], n) for c, n in zip(out.shards,
+                                                        out.counts)]
+    for i, k in enumerate(keys):
+        if k.numel() > 1 and bool((k[1:] < k[:-1]).any()):
+            raise AssertionError(f"3g sort: shard {i} is not sorted")
+    for a, b in zip(keys, keys[1:]):
+        if a.numel() and b.numel() and int(a.max()) > int(b.min()):
+            raise AssertionError("3g sort: shards are not globally ordered")
+    got = torch.cat([k.to("cuda") for k in keys])
+    want = torch.sort(torch.from_numpy(lk).to("cuda").long()).values
+    got_v = torch.cat([c[1].data[:int(n)].to("cuda")
+                       for c, n in zip(out.shards, out.counts)])
+    if not (torch.equal(got, want) and torch.equal(
+            torch.sort(got_v).values,
+            torch.sort(torch.from_numpy(lv).to("cuda")).values)):
+        raise AssertionError("3g sort: not a permutation of the input")
+    per_shard = out.row_counts.tolist()
+    del out, keys, got, want, got_v
+    sort = _time_op(lambda: left.distributed_sort("k"), rows)
+    if profile:
+        phase_profile(report, "strings_distributed_sort",
+                      lambda: left.distributed_sort("k"))
+    sort.update(first_run_s=sort_first_s, launches=sort_launches,
+                rows_per_shard=per_shard)
+    report["string_distributed"] = {
+        "shards": SHARDS, "rows_per_side": rows, "launches": launches,
+        "first_run_s": first_s, "times_s": times, "rows_per_s": rate,
+        "peak_device_bytes": peak, "sum_max_abs_err": sum_err,
+        "mean_max_abs_err": mean_err, "row_hash_device_ms": hash_ms,
+        "row_hash_calls": hash_calls, "run_device_ms": run_ms,
+        "distributed_sort": sort}
+    log(f"[3g] distributed_sort by the string key: monotone, a permutation;"
+        f" rows per shard {per_shard}; best-of-5 {sort['best_ms']:.2f} ms "
+        f"-> {sort['rows_per_s']:.6g} rows/s, first run {sort_first_s:.3f}"
+        f" s, peak {sort['peak_device_bytes'] / 2**30:.2f} GiB, launches "
+        f"{sort_launches}")
+
+
+Q1_SF = 10  # SF100 cut to fit the script's time limit and its host oracle
+
+
+def _q1_oracle(data: dict) -> dict:
+    """numpy bincount oracle of TPC-H Q1 over group codes
+    (returnflag * 2 + linestatus, i.e. key order): float64 sums and means
+    of the float32 inputs, exact counts."""
+    import numpy as np
+
+    from cylon_tpu_torch import pipeline
+
+    m = data["l_shipdate"] <= pipeline.Q1_CUTOFF
+    rf = np.searchsorted(np.frombuffer(pipeline.RETURNFLAGS, np.uint8),
+                         data["l_returnflag"][0][:, 0])
+    ls = np.searchsorted(np.frombuffer(pipeline.LINESTATUSES, np.uint8),
+                         data["l_linestatus"][0][:, 0])
+    code = (rf * 2 + ls)[m]
+    q, ep, d, tax = (data[c][m].astype(np.float64) for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    disc_price = ep * (1 - d)
+    cnt = np.bincount(code, minlength=6)
+
+    def s(w):
+        return np.bincount(code, weights=w, minlength=6)
+
+    out = {"count_l_discount": cnt, "sum_l_quantity": s(q),
+           "mean_l_quantity": s(q) / cnt, "sum_l_extendedprice": s(ep),
+           "mean_l_extendedprice": s(ep) / cnt,
+           "sum_disc_price": s(disc_price),
+           "sum_charge": s(disc_price * (1 + tax)),
+           "mean_l_discount": s(d) / cnt}
+    return {k: v[cnt > 0] for k, v in out.items()} | {
+        "codes": np.flatnonzero(cnt > 0), "rows_selected": int(m.sum())}
+
+
+def _check_q1(label: str, out, oracle: dict) -> float:
+    """Group keys and counts exact, every sum and mean within rtol of the
+    float64 oracle; returns the max relative error."""
+    import numpy as np
+
+    from cylon_tpu_torch import pipeline
+
+    got = out.to_numpy()
+    rf = np.array([pipeline.RETURNFLAGS.index(x.encode())
+                   for x in got["l_returnflag"]])
+    ls = np.array([pipeline.LINESTATUSES.index(x.encode())
+                   for x in got["l_linestatus"]])
+    code = rf * 2 + ls
+    order = np.argsort(code)
+    _expect_equal(f"{label} groups", code[order], oracle["codes"])
+    _expect_equal(f"{label} counts", got["count_l_discount"][order],
+                  oracle["count_l_discount"])
+    worst = 0.0
+    for name, want in oracle.items():
+        if name in ("codes", "rows_selected", "count_l_discount"):
+            continue
+        g = got[name][order].astype(np.float64)
+        np.testing.assert_allclose(g, want, rtol=F32_SUM_RTOL,
+                                   err_msg=f"{label} {name}")
+        worst = max(worst, float(np.max(np.abs(g - want) / np.abs(want))))
+    return worst
+
+
+def phase_tpch_q1(report: dict, profile: bool = False) -> None:
+    """Phase 3h: TPC-H Q1 at SF10 (60,000,000 lineitem rows), on one shard
+    and on SHARDS shards of the one card, against a numpy oracle."""
+    import torch
+
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+
+    t0 = time.perf_counter()
+    data = pipeline.lineitem(Q1_SF, seed=0)
+    oracle = _q1_oracle(data)
+    rows = len(data["l_shipdate"])
+    log(f"[3h] TPC-H Q1 SF{Q1_SF}: {rows} lineitem rows, "
+        f"{oracle['rows_selected']} pass the shipdate filter; data and "
+        f"oracle in {time.perf_counter() - t0:.1f} s")
+    results = {}
+    for shards in (1, SHARDS):
+        ctx = (CylonContext.Init() if shards == 1 else
+               CylonContext.InitDistributed(MeshConfig(world_size=shards)))
+        t = pipeline.lineitem_table(ctx, data)
+        out, first_s, launches = _first_run(lambda: pipeline.tpch_q1(t))
+        _string_launch_check(f"3h {shards} shard(s)", launches)
+        err = _check_q1(f"3h {shards} shard(s)", out, oracle)
+        del out
+        r = _time_op(lambda: pipeline.tpch_q1(t), rows)
+        if profile:
+            phase_profile(report, f"tpch_q1_{shards}",
+                          lambda: pipeline.tpch_q1(t))
+        r.update(first_run_s=first_s, launches=launches,
+                 max_rel_err=err)
+        results[f"{shards}_shard" + ("s" if shards > 1 else "")] = r
+        log(f"[3h] Q1 on {shards} shard(s): groups and counts exact, max "
+            f"rel err {err:.3g} (rtol {F32_SUM_RTOL}); best-of-5 "
+            f"{r['best_ms']:.2f} ms -> {r['rows_per_s']:.6g} rows/s, first "
+            f"run {first_s:.3f} s, peak "
+            f"{r['peak_device_bytes'] / 2**30:.2f} GiB, launches {launches}")
+        del t
+        torch.cuda.empty_cache()
+    report["tpch_q1"] = {"sf": Q1_SF, "rows": rows,
+                         "rows_selected": oracle["rows_selected"],
+                         **results}
+
+
 # kernel family -> substrings of the profiler's kernel names (first match
 # wins; anything else is "other elementwise")
 FAMILIES = (
@@ -1073,6 +1391,21 @@ def operator_launches(report: dict) -> dict:
     return total
 
 
+def string_launches(report: dict) -> dict:
+    """Per kernel, its launches summed over the first runs of phases 3f,
+    3g (join -> group-by and sort) and 3h (both shard counts)."""
+    runs = [report.get("string_join", {}),
+            report.get("string_distributed", {}),
+            report.get("string_distributed", {}).get("distributed_sort", {})]
+    runs += [v for k, v in report.get("tpch_q1", {}).items()
+             if k.endswith(("shard", "shards"))]
+    total: dict = {}
+    for r in runs:
+        for k, n in r.get("launches", {}).items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     import torch
 
@@ -1137,8 +1470,10 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     report["scan_1d_variants"] = scan_variants
     report["segmented_inputs"] = {"n": m, "resets": int(reset.sum())}
     op_launches = operator_launches(report)
+    str_launches = string_launches(report)
     for r in rows_out:
         r["launches_operators"] = op_launches.get(r["name"], 0)
+        r["launches_strings"] = str_launches.get(r["name"], 0)
     for r in rows_out:
         log(f"[4] {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
             f"ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']}) "
@@ -1156,8 +1491,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="profile one run of each main path, of the set "
-                         "ops and of the distributed sort, and time the "
-                         "stages of one distributed run")
+                         "ops, of the distributed sorts, of the string "
+                         "paths and of Q1, and time the stages of one "
+                         "distributed run")
     args = ap.parse_args(argv)
 
     try:
@@ -1204,6 +1540,9 @@ def main(argv=None) -> int:
             phase_profile(report, "distributed_sort",
                           lambda: dist["left"].distributed_sort("k"))
         del ops
+        phase_string_join(report, main_state, ROWS, args.profile)
+        phase_string_distributed(report, main_state, ROWS, args.profile)
+        phase_tpch_q1(report, args.profile)
         kernels = phase_timings(report, main_state, dist, ROWS)
         report["kernels"] = kernels
     except Exception:

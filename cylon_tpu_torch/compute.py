@@ -1,18 +1,20 @@
 """Element-wise compute over Tables: comparison, math and logical ops,
 null handling, membership.
 
-The port of ``cylon_tpu/compute.py`` for fixed-width columns (reference:
+The port of ``cylon_tpu/compute.py`` (reference:
 python/pycylon/data/compute.pyx:29-587, table.pyx:1170-2146).  Every op
 is shard-local and element-wise: it runs on each shard's columns in turn,
-with no exchange.  Padding rows stay zero and null so that downstream
-kernels' invariants hold.
+with no exchange.  Padding rows stay zero and null (a string's bytes and
+length too) so that downstream kernels' invariants hold.
 
 Scalar operands follow the JAX package's promotion (``jax_enable_x64``
 weak types): a Python int keeps an integer column's dtype, a Python float
 keeps a float column's dtype and turns an integer or bool column into
-float64; a numpy scalar promotes as its dtype.  String columns, and the
-reference's string compares (``_string_word_compare``), wait for the
-strings slice and raise ``NotImplemented``.
+float64; a numpy scalar promotes as its dtype.  A string column compares
+with a str scalar over its packed big-endian words
+(``_string_word_compare``), takes a str in ``fillna`` and ``isin``, and
+raises ``Invalid`` for arithmetic, ``neg`` and a compare with a number,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -24,10 +26,10 @@ import torch
 
 from . import dtypes
 from .column import Column
-from .ops import compact
+from .ops import compact, keys
 from .status import Code, CylonError
 
-Scalar = Union[int, float, bool, np.generic]
+Scalar = Union[int, float, bool, str, np.generic]
 
 _CMP_OPS = {
     "eq": operator.eq, "ne": operator.ne, "lt": operator.lt,
@@ -38,12 +40,6 @@ _MATH_OPS = {
     "truediv": operator.truediv,
 }
 _LOGICAL_OPS = {"or": operator.or_, "and": operator.and_, "xor": operator.xor}
-
-
-def _no_strings(col: Column, what: str) -> None:
-    if col.is_string:
-        raise CylonError(Code.NotImplemented,
-                         f"{what}: string columns are not ported yet")
 
 
 def _torch_dtype(np_dtype) -> torch.dtype:
@@ -79,26 +75,72 @@ def _result_col(data: torch.Tensor, validity: torch.Tensor,
     return Column(data, validity, None, dt)
 
 
+_INT64_MIN = -(1 << 63)
+
+
+def _scalar_words(value: str, width: int):
+    """The big-endian words of ``value``'s utf-8 bytes zero-padded to at
+    least ``width``, each as ``word - 2^63``: the signed value whose order
+    is the unsigned word's."""
+    enc = value.encode("utf-8")
+    buf = np.zeros(((max(width, len(enc)) + 7) // 8 * 8,), np.uint8)
+    buf[:len(enc)] = np.frombuffer(enc, np.uint8)
+    return [int.from_bytes(buf[i:i + 8].tobytes(), "big") + _INT64_MIN
+            for i in range(0, len(buf), 8)]
+
+
+def _string_word_compare(col: Column, value: str,
+                         op_name: str) -> torch.Tensor:
+    """bool[capacity]: a string column ``op`` a str scalar, compared
+    lexicographically over the packed words (``cylon_tpu/compute.py:56``).
+    A scalar longer than the column's width compares against zero words
+    past it, so an equal prefix orders less-than."""
+    words = keys.pack_string_words(col.data)
+    swords = _scalar_words(value, col.string_width)
+    lt = torch.zeros(col.capacity, dtype=torch.bool, device=col.device)
+    gt = torch.zeros_like(lt)
+    for i, s in enumerate(swords):
+        # the sign flip turns the signed compare into the unsigned one
+        w = (words[i] ^ _INT64_MIN if i < len(words)
+             else torch.full_like(words[0], _INT64_MIN))
+        undecided = ~(lt | gt)
+        lt = lt | (undecided & (w < s))
+        gt = gt | (undecided & (w > s))
+    eq = ~(lt | gt)
+    return {"eq": eq, "ne": ~eq, "lt": lt, "gt": gt,
+            "le": lt | eq, "ge": gt | eq}[op_name]
+
+
 def _col_compare(col: Column, other, op_name: str,
                  other_col: Optional[Column]) -> Column:
     op = _CMP_OPS[op_name]
-    _no_strings(col, "compare")
     if other_col is not None:
-        _no_strings(other_col, "compare")
+        if col.is_string != other_col.is_string:
+            raise CylonError(Code.Invalid, "cannot compare string and numeric")
+        if col.is_string:
+            raise CylonError(Code.Invalid,
+                             "string column-vs-column compare not supported")
         return _result_col(op(col.data, other_col.data),
                            col.validity & other_col.validity, dtypes.bool_)
     if isinstance(other, str):
-        raise CylonError(Code.Invalid, f"cannot compare {col.dtype} to str")
+        if not col.is_string:
+            raise CylonError(Code.Invalid,
+                             f"cannot compare {col.dtype} to str")
+        return _result_col(_string_word_compare(col, other, op_name),
+                           col.validity, dtypes.bool_)
+    if col.is_string:
+        raise CylonError(Code.Invalid,
+                         "cannot compare string column to number")
     a = col.data.to(_scalar_dtype(col.data.dtype, other))
     return _result_col(op(a, other), col.validity, dtypes.bool_)
 
 
 def _col_math(col: Column, other, op_name: str,
               other_col: Optional[Column]) -> Column:
-    _no_strings(col, "arithmetic")
+    if col.is_string or (other_col is not None and other_col.is_string):
+        raise CylonError(Code.Invalid, "arithmetic on string columns")
     op = _MATH_OPS[op_name]
     if other_col is not None:
-        _no_strings(other_col, "arithmetic")
         validity = col.validity & other_col.validity
         a, b = col.data, other_col.data
         if op_name == "truediv":
@@ -225,7 +267,8 @@ def neg(table):
     shards = []
     for cols in table.shards:
         for c in cols:
-            _no_strings(c, "neg")
+            if c.is_string:
+                raise CylonError(Code.Invalid, "neg on string column")
         shards.append([_result_col(-c.data, c.validity, c.dtype)
                        for c in cols])
     return _with_shards(table, shards)
@@ -242,16 +285,46 @@ def is_null(table):
     return _with_shards(table, shards)
 
 
+def _zero_rows(c: Column, validity: torch.Tensor) -> Column:
+    """``c`` with ``validity``, and the rows it clears zeroed: data, and a
+    string's bytes and length."""
+    zero = torch.zeros((), dtype=c.data.dtype, device=c.device)
+    if c.is_string:
+        return Column(torch.where(validity[:, None], c.data, zero), validity,
+                      torch.where(validity, c.lengths,
+                                  torch.zeros_like(c.lengths)), c.dtype)
+    if c.data.dtype == torch.bool:
+        return Column(c.data & validity, validity, None, c.dtype)
+    return Column(torch.where(validity, c.data, zero), validity, None,
+                  c.dtype)
+
+
 def fillna(table, fill_value: Scalar):
-    """reference: table.pyx:1653-1684.  Only type-compatible (numeric)
-    columns are filled; a string fill value leaves every column as it is."""
+    """reference: table.pyx:1653-1684.  Only type-compatible columns are
+    filled: a str fills string columns, a number the others."""
     shards = []
     for cols in table.shards:
         out = []
         for c in cols:
-            if c.is_string or isinstance(fill_value, str):
-                _no_strings(c, "fillna")
+            if c.is_string != isinstance(fill_value, str):
                 out.append(c)
+                continue
+            if c.is_string:
+                enc = np.frombuffer(fill_value.encode("utf-8"), np.uint8)
+                width = c.string_width
+                if len(enc) > width:
+                    raise CylonError(Code.Invalid, "fill string longer than "
+                                     f"column width {width}")
+                row = np.zeros((width,), np.uint8)
+                row[:len(enc)] = enc
+                data = torch.where(c.validity[:, None], c.data,
+                                   torch.from_numpy(row).to(c.device))
+                lengths = torch.where(c.validity, c.lengths,
+                                      torch.full((), len(enc),
+                                                 dtype=c.lengths.dtype,
+                                                 device=c.device))
+                out.append(Column(data, torch.ones_like(c.validity), lengths,
+                                  c.dtype))
                 continue
             fill = torch.full((), fill_value, dtype=c.data.dtype,
                               device=c.device)
@@ -277,17 +350,18 @@ def where(table, condition, other: Optional[Scalar] = None):
         for c, m in zip(cols, masks):
             if m.dtype.type != dtypes.Type.BOOL:
                 raise CylonError(Code.Invalid, "condition must be boolean")
-            _no_strings(c, "where")
             keep = m.data & m.validity
             if other is None:
-                validity, data = c.validity & keep, c.data
-            else:
-                # mask-False rows take `other`, null rows included
-                validity = c.validity | ~keep
-                data = torch.where(keep, c.data,
-                                   torch.full((), other, dtype=c.data.dtype,
-                                              device=c.device))
-            out.append(_result_col(data, validity, c.dtype))
+                out.append(_zero_rows(c, c.validity & keep))
+                continue
+            if c.is_string:
+                raise CylonError(Code.Invalid,
+                                 "where(other=) on string column")
+            # mask-False rows take `other`, null rows included
+            data = torch.where(keep, c.data,
+                               torch.full((), other, dtype=c.data.dtype,
+                                          device=c.device))
+            out.append(_result_col(data, c.validity | ~keep, c.dtype))
         shards.append(out)
     return _mask_padding(_with_shards(table, shards))
 
@@ -297,12 +371,16 @@ def is_in(table, values: Sequence, skip_null: bool = True):
     vals = list(values)
     null_in_vals = any(v is None for v in vals)
     nums = [v for v in vals if not isinstance(v, str) and v is not None]
+    strs = [v for v in vals if isinstance(v, str)]
     shards = []
     for cols, live in zip(table.shards, _live_masks(table)):
         out = []
         for c in cols:
-            _no_strings(c, "isin")
-            if nums:
+            if c.is_string:
+                hit = torch.zeros_like(c.validity)
+                for v in strs:
+                    hit = hit | _string_word_compare(c, v, "eq")
+            elif nums:
                 # promoted as jnp.isin promotes, so 2.5 never matches int 2
                 arr = np.asarray(nums)
                 dt = torch.promote_types(c.data.dtype, _torch_dtype(arr.dtype))
@@ -350,17 +428,7 @@ def drop_na(table, how: str = "any", axis: int = 0):
 def _mask_padding(table):
     shards = []
     for cols, live in zip(table.shards, _live_masks(table)):
-        out = []
-        for c in cols:
-            validity = c.validity & live
-            if c.data.dtype == torch.bool:
-                data = c.data & validity
-            else:
-                data = torch.where(validity, c.data,
-                                   torch.zeros((), dtype=c.data.dtype,
-                                               device=c.device))
-            out.append(Column(data, validity, None, c.dtype))
-        shards.append(out)
+        shards.append([_zero_rows(c, c.validity & live) for c in cols])
     return _with_shards(table, shards)
 
 

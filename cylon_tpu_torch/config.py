@@ -75,6 +75,9 @@ class SortOptions:
 
 @dataclass(frozen=True)
 class Knob:
+    """An environment knob: one of ``choices``, or an integer when
+    ``choices`` is empty."""
+
     name: str
     default: str
     choices: Tuple[str, ...]
@@ -86,12 +89,21 @@ KNOBS = {k.name: k for k in [
          "Accumulation precision: wide (f64/int64 accumulators), narrow "
          "(f32/int32, scans through the CUDA scan kernels), or auto "
          "(narrow for CUDA tensors, wide for CPU tensors)."),
+    Knob("CYLON_TPU_MAX_STRING_WIDTH", "4096", (),
+         "Widest byte matrix a string column may ingest without an explicit "
+         "string_width= (device memory = capacity x width)."),
 ]}
 
 
-def knob(name: str) -> str:
+def knob(name: str):
     """The knob's value: the environment's when it is set to one of the
-    knob's choices, else the registered default."""
+    knob's choices (or parses as an integer, for an integer knob), else the
+    registered default."""
     k = KNOBS[name]
     raw = os.environ.get(name)
+    if not k.choices:
+        try:
+            return int(raw)
+        except (TypeError, ValueError):
+            return int(k.default)
     return raw if raw in k.choices else k.default

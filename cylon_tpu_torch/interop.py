@@ -1,7 +1,8 @@
 """Carry column state across the two packages as plain numpy arrays.
 
 ``column_from_arrays`` turns the fields of a JAX-package ``Column`` (taken
-out with ``np.asarray``) into this package's Column, bit for bit;
+out with ``np.asarray``) into this package's Column, bit for bit, a string
+column's 2-D byte matrix and lengths included;
 ``column_to_arrays`` goes back.  ``table_shards_to_arrays`` and
 ``table_from_shard_arrays`` do the same for a sharded ``Table``, shard by
 shard, so shard contents compare with the reference's.  Types convert by
@@ -31,17 +32,25 @@ def _as_datatype(dtype) -> dtypes.DataType:
 def column_from_arrays(data: np.ndarray, validity: np.ndarray,
                        lengths: Optional[np.ndarray], dtype,
                        device=None) -> Column:
-    """A Column holding exactly ``data`` and ``validity`` (capacity, padding
-    and null fill included).  ``dtype`` is this package's DataType or any
-    object with the same ``type`` field, such as the JAX package's."""
-    if lengths is not None or np.asarray(data).ndim != 1:
-        raise CylonError(Code.NotImplemented,
-                         "string columns are not ported yet")
+    """A Column holding exactly ``data``, ``validity`` and ``lengths``
+    (capacity, padding and null fill included).  ``dtype`` is this
+    package's DataType or any object with the same ``type`` field, such as
+    the JAX package's.  A string type takes a 2-D uint8 ``data`` and its
+    int32 ``lengths``; a fixed-width one 1-D ``data`` and no lengths."""
+    dt = _as_datatype(dtype)
+    ndim = 2 if dtypes.is_string_like(dt) else 1
+    if np.asarray(data).ndim != ndim or (lengths is None) != (ndim == 1):
+        raise CylonError(Code.Invalid,
+                         f"a {dt} column takes {ndim}-D data and "
+                         f"{'lengths' if ndim == 2 else 'no lengths'}")
     device = resolve_device(device)
-    # copies: the source buffers may be read-only views of device arrays
-    data = torch.from_numpy(np.array(data, copy=True)).to(device)
-    valid = torch.from_numpy(np.array(validity, bool, copy=True)).to(device)
-    return Column(data, valid, None, _as_datatype(dtype))
+
+    def put(x, dtype=None):
+        # copies: the source buffers may be read-only views of device arrays
+        return torch.from_numpy(np.array(x, dtype, copy=True)).to(device)
+
+    return Column(put(data), put(validity, bool),
+                  None if lengths is None else put(lengths, np.int32), dt)
 
 
 def column_to_arrays(col: Column) -> Tuple[np.ndarray, np.ndarray,

@@ -2,7 +2,7 @@
 ``cylon_tpu/ops/common.py``)."""
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -10,13 +10,35 @@ from ..column import Column
 from . import keys
 
 
+def pad_width(c: Column, width: int) -> Column:
+    """A string column's byte matrix zero-padded on the right to
+    ``width`` (zero padding keeps bytewise order); others as they are."""
+    if not c.is_string or c.string_width >= width:
+        return c
+    extra = torch.zeros((c.capacity, width - c.string_width),
+                        dtype=torch.uint8, device=c.device)
+    return Column(torch.cat([c.data, extra], dim=1), c.validity, c.lengths,
+                  c.dtype)
+
+
+def widen_strings(a: Column, b: Column) -> Tuple[Column, Column]:
+    """Two string columns padded to their common width, so they can be
+    concatenated or compared (``cylon_tpu/ops/common.py:13``)."""
+    if not a.is_string:
+        return a, b
+    w = max(a.string_width, b.string_width)
+    return pad_width(a, w), pad_width(b, w)
+
+
 def concat_columns(a: Column, b: Column) -> Column:
-    """Stack two fixed-width columns' buffers (padding and all) into one
-    column of capacity cap_a + cap_b."""
-    if a.is_string or b.is_string:
-        raise NotImplementedError("string columns are not ported yet")
+    """Stack two columns' buffers (padding and all) into one column of
+    capacity cap_a + cap_b; string columns are widened first."""
+    a, b = widen_strings(a, b)
+    lengths = None
+    if a.lengths is not None:
+        lengths = torch.cat([a.lengths, b.lengths])
     return Column(torch.cat([a.data, b.data]),
-                  torch.cat([a.validity, b.validity]), None, a.dtype)
+                  torch.cat([a.validity, b.validity]), lengths, a.dtype)
 
 
 def two_table_padding(cap_a: int, count_a, cap_b: int, count_b,

@@ -9,9 +9,16 @@ hash_groupby.cpp and pipeline_groupby.cpp):
 2. dense group ids are a prefix sum of the boundaries;
 3. each aggregation is a masked segment reduction.  In narrow mode (the
    default for CUDA tensors) float sums, means and 32-bit min/max go
-   through the segmented scan (``ops/scan.py``) and counts through prefix
-   sums; integer sums and every wide-mode reduction are scatters
-   (``index_add_`` / ``scatter_reduce_``), as in the JAX package.
+   through the segmented scan (``ops/scan.py``) and counts through int32
+   prefix sums (``scan_1d``); integer sums and every wide-mode reduction
+   are scatters (``index_add_`` / ``scatter_reduce_``), as in the JAX
+   package.
+
+String key columns group through their packed words
+(``keys.column_operands``) and come out gathered with their lengths.  A
+string value column takes COUNT and NUNIQUE; any other aggregate of one
+raises ``TypeError``, as ``cylon_tpu/ops/groupby.py:246`` does.  The JAX
+package refuses COUNT of a string too; the port counts its non-null rows.
 
 The op set and the partial/final split for a two-phase group-by mirror
 the reference's KernelTraits (compute/aggregate_kernels.hpp:38-200).
@@ -216,14 +223,17 @@ def _aggregate_groups(cols, live, gid, start, end, new_group, group_live,
     out_cols = []
     for col_idx, op in aggs:
         op = AggOp(op)
-        vcol = cols[col_idx] if gather is None else cols[col_idx].take(gather)
+        src = cols[col_idx]
+        if src.is_string and op not in (AggOp.COUNT, AggOp.NUNIQUE):
+            raise TypeError(f"aggregation {op.name} unsupported on strings")
+        if src.is_string and op == AggOp.COUNT:
+            # a count reads validity alone: leave the byte matrix ungathered
+            src = Column(src.validity, src.validity, None, dtypes.bool_)
+        vcol = src if gather is None else src.take(gather)
         vvalid = vcol.validity & live
         if op == AggOp.NUNIQUE:
             vals, cnts = _nunique(vcol, vvalid, gid, cap)
         else:
-            if vcol.is_string:
-                raise TypeError(
-                    f"aggregation {op.name} unsupported on strings")
             vals, cnts = _segment_aggregate(op, vcol.data, vvalid, gid, cap,
                                             ddof, spans=(start, end),
                                             boundaries=new_group)

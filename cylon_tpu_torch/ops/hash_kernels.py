@@ -57,7 +57,8 @@ def _check(cols: Sequence[Column], world: int) -> None:
         raise ValueError("hash_partition: at least one key column required")
     if not supported(cols):
         raise CylonError(Code.NotImplemented,
-                         "string key columns are not ported yet")
+                         "the murmur3 kernel hashes fixed-width keys only; "
+                         "string keys hash with ops/hashing.py")
     if world < 1:
         raise ValueError(f"hash_partition: world must be >= 1, got {world}")
     cap = cols[0].capacity
@@ -90,7 +91,7 @@ def column_words(col: Column) -> List[torch.Tensor]:
     data = col.data
     if col.is_string:
         raise CylonError(Code.NotImplemented,
-                         "string key columns are not ported yet")
+                         "column_words takes fixed-width columns only")
     if data.dtype == torch.bool:
         return [data.to(torch.int32)]
     size = data.dtype.itemsize

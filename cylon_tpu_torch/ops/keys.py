@@ -7,11 +7,18 @@ field, and fields are bit-packed MSB-first into 32-bit words, so that
 lexicographic order and row equality over the words equal those over the
 columns.
 
-Torch on the CPU has no ``<<``, ``>>`` or ``%`` for ``uint32``, so every
-packed word is carried in ``int64``: a field of at most 32 bits as its
-non-negative value, a 64-bit field (int64/float64 data) as the bit
-pattern of its unsigned encoding.  ``_WIDE`` marks the latter; they sort
-with the sign bit flipped.
+A string column's operands are its byte matrix packed into big-endian
+64-bit words (``pack_string_words``): zero padding keeps bytewise order,
+so the word tuple orders as the strings do.
+
+Torch on the CPU has no ``<<``, ``>>`` or ``%`` for ``uint32``, and no
+uint64 arithmetic, so every packed word is carried in ``int64``: a field
+of at most 32 bits as its non-negative value, a 64-bit field (int64 /
+float64 data, a packed string word) as the bit pattern of its unsigned
+encoding.  ``_WIDE`` marks the latter; they sort with the sign bit
+flipped.  A string word enters the operand list as a ``torch.uint64``
+view of that pattern, which tells ``_ordered_unsigned`` it is unsigned
+already.
 """
 from __future__ import annotations
 
@@ -27,16 +34,45 @@ _MASK32 = 0xFFFFFFFF
 _WIDE = 64  # field width of a standalone 64-bit word
 
 
+_BYTE_LANES = (0x00FF00FF00FF00FF, 0x0000FFFF0000FFFF)
+
+
+def _bswap64(x: torch.Tensor) -> torch.Tensor:
+    """Reverse the 8 bytes of each int64.  ``>>`` is arithmetic, so every
+    right shift is masked before the halves combine."""
+    m8, m16 = _BYTE_LANES
+    x = ((x >> 8) & m8) | ((x & m8) << 8)
+    x = ((x >> 16) & m16) | ((x & m16) << 16)
+    return ((x >> 32) & 0xFFFFFFFF) | (x << 32)
+
+
+def pack_string_words(data: torch.Tensor) -> List[torch.Tensor]:
+    """Pack a uint8[n, W] byte matrix into ceil(W/8) int64[n] words, each
+    the bit pattern of the big-endian uint64 of 8 bytes
+    (``cylon_tpu/ops/keys.py:32``); the word tuple's unsigned order is the
+    bytewise order.  The matrix is read as little-endian int64 lanes and
+    byte-swapped, one word at a time: no ``[n, W]`` int64 temporary."""
+    n, width = data.shape
+    pad = (-width) % 8
+    if pad:
+        data = torch.cat([data, torch.zeros((n, pad), dtype=torch.uint8,
+                                            device=data.device)], dim=1)
+    lanes = data.contiguous().view(torch.int64)
+    return [_bswap64(lanes[:, i]) for i in range(lanes.shape[1])]
+
+
 def column_operands(col: Column, *, nulls_first: bool = True,
                     with_validity: bool = True) -> List[torch.Tensor]:
-    """Sortable operands for one fixed-width column, most significant
-    first: the validity flag (nulls first by default), then the data."""
-    if col.is_string:
-        raise NotImplementedError("string key columns are not ported yet")
+    """Sortable operands for one column, most significant first: the
+    validity flag (nulls first by default), then the data, or a string's
+    packed words as ``torch.uint64`` views."""
     ops: List[torch.Tensor] = []
     if with_validity:
         ops.append(col.validity if nulls_first else ~col.validity)
-    ops.append(col.data)
+    if col.is_string:
+        ops.extend(w.view(torch.uint64) for w in pack_string_words(col.data))
+    else:
+        ops.append(col.data)
     return ops
 
 
@@ -64,6 +100,8 @@ def build_operands(cols: Sequence[Column], row_count, capacity: int, *,
 
 def _invert_operand(x: torch.Tensor) -> torch.Tensor:
     """Order-reversing transform for one operand."""
+    if x.dtype == torch.uint64:  # a string word's bit pattern
+        return (~x.view(torch.int64)).view(torch.uint64)
     if x.dtype == torch.bool or not (x.is_floating_point() or x.is_signed()):
         return ~x
     if x.is_floating_point():

@@ -7,13 +7,15 @@ prefix arithmetic over the row order:
 - ``run_extents``: one cumsum, one run-start cummax and one run-end
   reverse cummin;
 - ``segmented_reduce_sorted``: a segmented scan that restarts at run
-  starts, read at each run's last row.
+  starts, read at each run's last row;
+- ``segment_sum_sorted``: prefix-sum differences at the span bounds.
 
-In narrow mode (the default for CUDA tensors) every such scan goes through
-``ops/scan.py``: the CUDA scan kernels on the card, their plain versions on
-the CPU.  In wide mode ``run_extents`` uses torch's own cumsum / cummax /
-cummin, as the JAX package uses XLA's, and segment reductions stay on
-scatters (``ops/groupby.py``).
+In narrow mode (the default for CUDA tensors) every such scan, and every
+int32 prefix sum of ``segment_sum_sorted``, goes through ``ops/scan.py``:
+the CUDA scan kernels on the card, their plain versions on the CPU.  In
+wide mode ``run_extents`` uses torch's own cumsum / cummax / cummin, as
+the JAX package uses XLA's, and segment reductions stay on scatters
+(``ops/groupby.py``).
 """
 from __future__ import annotations
 
@@ -82,7 +84,12 @@ def segment_sum_sorted(x: torch.Tensor, start: torch.Tensor,
             acc_dtype = torch.int32
         else:
             acc_dtype = precision.int_acc()
-    csum = torch.cumsum(x.to(acc_dtype), 0, dtype=acc_dtype)
+    if acc_dtype == torch.int32 and precision.narrow(x.device):
+        # int32 prefix sums (the counts) take the scan kernel: exact in
+        # any order, and faster than torch.cumsum on the card
+        csum = scan.scan_1d(x.to(torch.int32).contiguous(), "sum")
+    else:
+        csum = torch.cumsum(x.to(acc_dtype), 0, dtype=acc_dtype)
     csum0 = torch.cat([torch.zeros(1, dtype=acc_dtype, device=x.device), csum])
     return _span_take(csum0, end) - _span_take(csum0, start)
 

@@ -54,8 +54,13 @@ def set_op(cols_a: Tuple[Column, ...], count_a,
     out = []
     for a, b in zip(cols_a, cols_b):
         c = common.concat_columns(a, b).take(sel)
-        # rows past the count are zeroed (null rows keep their bytes)
-        zero = torch.zeros((), dtype=c.data.dtype, device=dev)
-        out.append(Column(torch.where(out_live, c.data, zero),
-                          c.validity & out_live, None, c.dtype))
+        # rows past the count are zeroed, bytes and lengths included (null
+        # rows keep their bytes), as cylon_tpu/ops/setops.py:64-67
+        rows = out_live[:, None] if c.data.ndim == 2 else out_live
+        lengths = None if c.lengths is None else torch.where(
+            out_live, c.lengths, torch.zeros((), dtype=c.lengths.dtype,
+                                             device=dev))
+        out.append(Column(torch.where(rows, c.data, torch.zeros(
+            (), dtype=c.data.dtype, device=dev)), c.validity & out_live,
+            lengths, c.dtype))
     return tuple(out), m

@@ -48,7 +48,8 @@ def all_to_all(send: Sequence[torch.Tensor], send_sizes: np.ndarray,
                out: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
     """The exact-size exchange (``ragged_all_to_all`` in the reference).
 
-    ``send[s]`` holds shard ``s``'s rows grouped by destination, and
+    ``send[s]`` holds shard ``s``'s rows (``[n]`` or ``[n, width]``)
+    grouped by destination, and
     ``send_sizes[s, d]`` (host integers) counts the rows it sends to ``d``.
     Destination ``d`` receives, in source-rank order, each source's slice
     for ``d``, front-packed into ``out[d]`` (which lies on ``d``'s device

@@ -1,13 +1,17 @@
 """Row -> target-shard assignment: by key hash, or by range.
 
 The port of ``cylon_tpu/parallel/partition.py:40 hash_targets`` and
-``:62 range_targets``.  The reference hashes with the Pallas murmur3
-kernel on a TPU and with a jnp hash elsewhere; the port hashes with
-murmur3 on every device (the CUDA kernel on the card, its plain version
-on the CPU), so it places rows as the reference does on a TPU.  The range
-partitioner takes the same samples, bins and collectives as the
-reference, so its targets agree with the reference's on every device.
-``column_stats`` waits for the packed plane (``plane.py``).
+``:62 range_targets``.  The reference hashes fixed-width keys with the
+Pallas murmur3 kernel on a TPU and with its jnp row hash elsewhere, and
+every key set holding a string with the jnp hash on every device.  The
+port hashes fixed-width keys with murmur3 on every device (the CUDA kernel
+on the card, its plain version on the CPU), so it places those rows as the
+reference does on a TPU; a key set holding a string takes
+``ops/hashing.py``, the jnp hash's copy, so it places those rows as the
+reference does everywhere.  The range partitioner takes the same samples,
+bins and collectives as the reference, so its targets agree with the
+reference's on every device.  ``column_stats`` waits for the packed plane
+(``plane.py``).
 """
 from __future__ import annotations
 
@@ -17,8 +21,7 @@ import torch
 
 from .. import precision
 from ..column import Column
-from ..ops import compact, hash_kernels
-from ..status import Code, CylonError
+from ..ops import compact, hash_kernels, hashing
 from . import collectives
 
 
@@ -26,10 +29,28 @@ def hash_targets(cols: Sequence[Column], count, key_idx: Sequence[int],
                  world: int) -> torch.Tensor:
     """int32[cap] target shard per row; padding rows (``row >= count``) get
     ``world``, a bucket nothing is sent to."""
-    _, t = hash_kernels.hash_partition([cols[i] for i in key_idx], world)
+    key_cols = [cols[i] for i in key_idx]
+    if hash_kernels.supported(key_cols):
+        _, t = hash_kernels.hash_partition(key_cols, world)
+    else:
+        h = hashing.hash_columns(key_cols)
+        t = (h & (world - 1) if world & (world - 1) == 0
+             else h % world).to(torch.int32)
     live = compact.live_mask(t.shape[0], count, t.device)
     return torch.where(live, t, torch.full((), world, dtype=torch.int32,
                                            device=t.device))
+
+
+def string_prefix(col: Column) -> torch.Tensor:
+    """int64[cap]: a string column's first 4 bytes as a big-endian uint32
+    (zero past its width), whose order is the bytewise order of those
+    bytes: the range partitioner's key for a string lead column
+    (``cylon_tpu/parallel/partition.py:80-86``)."""
+    data = col.data[:, :4].to(torch.int64)
+    out = torch.zeros(col.capacity, dtype=torch.int64, device=col.device)
+    for i in range(data.shape[1]):
+        out = out | (data[:, i] << (24 - 8 * i))
+    return out
 
 
 def _clipped_int(x: torch.Tensor, hi: int) -> torch.Tensor:
@@ -54,18 +75,17 @@ def range_targets(cols: Sequence[Column], counts, devices, *, num_bins: int,
     cumulative mass midpoint; descending order flips it, and nulls go to
     shard 0 (``nulls_first``) or ``world - 1``.  The bins are float32 in
     narrow mode and float64 in wide, computed with the same operations
-    in the same order as the reference."""
+    in the same order as the reference.  A string column bins on its
+    first 4 bytes (``string_prefix``): keys sharing them share a bin, which
+    costs balance, never order."""
     world = len(cols)
-    if cols[0].is_string:
-        raise CylonError(Code.NotImplemented, "range partitioning on string "
-                         "columns is not ported yet")
     facc = precision.float_acc(cols[0].device)
     big = torch.finfo(facc).max
     fdatas, lives, lmins, lmaxs = [], [], [], []
     for col, count in zip(cols, counts):
         live = compact.live_mask(col.capacity, count, col.device) \
             & col.validity
-        data = col.data
+        data = string_prefix(col) if col.is_string else col.data
         if data.dtype == torch.bool:
             data = data.to(torch.int32)
         fdata = data.to(facc)

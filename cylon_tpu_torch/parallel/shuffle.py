@@ -13,13 +13,15 @@ shard's function halfway, so the body is split around the exchange:
    buffer gathered into that order;
 2. one exchange per buffer across the list of shards
    (``collectives.all_to_all``), which lands every shard's rows
-   front-packed in source-rank order.
+   front-packed in source-rank order.  A string column moves three
+   buffers: its ``[n, width]`` byte matrix, validity and lengths
+   (``cylon_tpu/parallel/shuffle.py:217-218, 340``).
 
 A shard receives into zeroed buffers of ``plan_shuffle``'s capacity, so
-rows past its count hold zero data and validity False: slot for slot what
-the reference's bucketed ``shuffle_shard`` gives on its CPU mesh, where
-null rows hold zero data too.  The packed plane (``plane.py``) and its
-compression are not ported yet.
+rows past its count hold zero data (bytes and lengths) and validity False:
+slot for slot what the reference's bucketed ``shuffle_shard`` gives on its
+CPU mesh, where null rows hold zero data too.  The packed plane
+(``plane.py``) and its compression are not ported yet.
 """
 from __future__ import annotations
 
@@ -88,17 +90,22 @@ def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
     totals = [int(n) for n in np.asarray(cm).sum(axis=0)]
     ncols = len(shards[0])
     recv: List[List[Column]] = [[] for _ in range(world)]
+
+    def exchange(bufs):
+        """One buffer of every shard, each grouped by target, exchanged
+        into zeroed receive buffers of ``out_capacity`` rows."""
+        out = [torch.zeros((out_capacity,) + tuple(bufs[0].shape[1:]),
+                           dtype=bufs[0].dtype, device=dev)
+               for dev in devices]
+        return collectives.all_to_all(bufs, cm, out)
+
     for j in range(ncols):
-        proto = shards[0][j]
-        data_out = [torch.zeros(out_capacity, dtype=proto.data.dtype,
-                                device=dev) for dev in devices]
-        valid_out = [torch.zeros(out_capacity, dtype=torch.bool, device=dev)
-                     for dev in devices]
-        collectives.all_to_all([s[j].data[p] for s, p in zip(shards, perms)],
-                               cm, data_out)
-        collectives.all_to_all([s[j].validity[p]
-                                for s, p in zip(shards, perms)], cm, valid_out)
+        cols = [s[j] for s in shards]
+        data = exchange([c.data[p] for c, p in zip(cols, perms)])
+        valid = exchange([c.validity[p] for c, p in zip(cols, perms)])
+        lengths = ([None] * world if cols[0].lengths is None else
+                   exchange([c.lengths[p] for c, p in zip(cols, perms)]))
         for d in range(world):
-            recv[d].append(Column(data_out[d], valid_out[d], None,
-                                  proto.dtype))
+            recv[d].append(Column(data[d], valid[d], lengths[d],
+                                  cols[0].dtype))
     return [tuple(cols) for cols in recv], totals

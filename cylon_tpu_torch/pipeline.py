@@ -15,6 +15,15 @@
   set ops, select / filter, scalar aggregates and the pipeline group-by on
   one shard; range-partitioned sort, hash-shuffled unique and set ops and
   allreduced aggregates on a mesh.
+- String keys (``string_tables``, ``string_join_groupby``): the same data
+  with each int key ``k`` rendered as TPC-H's ``c_name``,
+  ``"Customer#%09d" % k`` (``customer_names``), joined on that string and
+  grouped by it, on one shard or a mesh.  Zero-padded digits keep the int
+  keys' order and groups.
+- TPC-H Q1 (``lineitem``, ``lineitem_table``, ``tpch_q1``): the lineitem
+  columns ``examples/tpch_data.py:41`` draws, with ``l_returnflag`` and
+  ``l_linestatus`` as CHAR(1) byte columns, and the query as
+  ``examples/tpch_q1.py:28-39`` writes it.
 """
 from __future__ import annotations
 
@@ -24,13 +33,16 @@ import numpy as np
 import torch
 
 from . import column
-from .column import Column
+from .column import DEFAULT_STRING_WIDTH, Column
 from .config import JoinType
 from .context import CylonContext
 from .ops import groupby, join
-from .table import Table, cap_round  # noqa: F401  (cap_round re-exported)
+from .table import Table, _shard_plan, cap_round  # noqa: F401
 
 SEED = 12345
+NAME_PREFIX = b"Customer#"  # TPC-H c_name: "Customer#" + 9 digits
+NAME_DIGITS = 9
+NAME_LENGTH = len(NAME_PREFIX) + NAME_DIGITS
 
 
 def make_data(rows: int, seed: int = SEED):
@@ -158,3 +170,139 @@ def distributed_operators(left: Table, right: Table) -> Dict[str, object]:
     """Every operator of ``distributed_operator_calls``, run once."""
     return {name: fn() for name, fn in
             distributed_operator_calls(left, right).items()}
+
+
+# -- string keys --------------------------------------------------------------
+
+def customer_names(keys: np.ndarray, width: int = DEFAULT_STRING_WIDTH
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(uint8[n, width] byte matrix, int32[n] lengths) of
+    ``"Customer#%09d" % k`` for every int key in [0, 10^9), zero-padded,
+    built with digit arithmetic: no Python string per row."""
+    n = len(keys)
+    mat = np.zeros((n, width), np.uint8)
+    mat[:, :len(NAME_PREFIX)] = np.frombuffer(NAME_PREFIX, np.uint8)
+    k = keys.astype(np.int64)
+    for i in range(NAME_DIGITS):  # most significant digit first
+        mat[:, len(NAME_PREFIX) + i] = ord("0") + (
+            k // 10 ** (NAME_DIGITS - 1 - i)) % 10
+    return mat, np.full(n, NAME_LENGTH, np.int32)
+
+
+def name_keys(col: Column, count) -> torch.Tensor:
+    """The int keys of a ``customer_names`` column's first ``count`` rows,
+    decoded on the column's device; raises if a row's prefix, length or
+    padding is not what ``customer_names`` writes."""
+    n = int(count)
+    data, lengths = col.data[:n], col.lengths[:n]
+    prefix = torch.frombuffer(bytearray(NAME_PREFIX), dtype=torch.uint8)
+    if not bool((data[:, :len(NAME_PREFIX)] == prefix.to(data.device)).all()):
+        raise AssertionError("a name lacks the 'Customer#' prefix")
+    if not (bool((lengths == NAME_LENGTH).all())
+            and not bool(data[:, NAME_LENGTH:].any())):
+        raise AssertionError("a name is not 18 bytes and zero padding")
+    digits = data[:, len(NAME_PREFIX):NAME_LENGTH].to(torch.int64) - ord("0")
+    if bool(((digits < 0) | (digits > 9)).any()):
+        raise AssertionError("a name holds a non-digit")
+    k = torch.zeros(n, dtype=torch.int64, device=data.device)
+    for i in range(NAME_DIGITS):
+        k = k * 10 + digits[:, i]
+    return k
+
+
+def _sharded_table(ctx: CylonContext, names, arrays) -> Table:
+    """A Table of ``ctx``'s shards from host arrays split into contiguous
+    chunks (``_shard_plan``); an array is 1-D values, or a (byte matrix,
+    lengths) pair for a string column (``column.from_native_buffers``)."""
+    first = arrays[0][0] if isinstance(arrays[0], tuple) else arrays[0]
+    chunk, counts, cap = _shard_plan(len(first), ctx.GetWorldSize())
+    shards = []
+    for s, (n, dev) in enumerate(zip(counts, ctx.devices)):
+        lo = s * chunk
+        cols = []
+        for a in arrays:
+            if isinstance(a, tuple):
+                mat, lens = a
+                cols.append(column.from_native_buffers(
+                    mat[lo:lo + n], None, lens[lo:lo + n], capacity=cap,
+                    device=dev))
+            else:
+                cols.append(column.from_native_buffers(
+                    a[lo:lo + n], None, capacity=cap, device=dev))
+        shards.append(tuple(cols))
+    counts_t = tuple(torch.tensor(n, dtype=torch.int32, device=dev)
+                     for n, dev in zip(counts, ctx.devices))
+    return Table(tuple(shards), counts_t, tuple(names), ctx)
+
+
+def string_tables(ctx: CylonContext, lk, lv, rk, rv) -> Tuple[Table, Table]:
+    """``(k, lv)`` and ``(k, rv)`` over ``ctx``'s shards, ``k`` the string
+    ``customer_names`` of the int keys."""
+    return (_sharded_table(ctx, ["k", "lv"], [customer_names(lk), lv]),
+            _sharded_table(ctx, ["k", "rv"], [customer_names(rk), rv]))
+
+
+def string_join_groupby(left: Table, right: Table) -> Tuple[Table, Table]:
+    """(groups, joined): the join on the string key (shuffled first when
+    the tables have several shards), then its group-by on the left key
+    with SUM(lv) and MEAN(rv); the groups' columns are ``l_k``, ``sum_lv``,
+    ``mean_rv``, in key order on every shard."""
+    joined = left.distributed_join(right, on="k")
+    groups = joined.groupby("l_k", {"lv": "sum", "rv": "mean"})
+    return groups, joined
+
+
+# -- TPC-H Q1 -----------------------------------------------------------------
+
+LINEITEM_ROWS_PER_SF = 6_000_000
+DATE_LO, DATE_HI = 0, 2556  # day ordinals from 1992-01-01
+Q1_CUTOFF = 2190  # 1998-12-01 minus 90 days
+RETURNFLAGS = b"ANR"
+LINESTATUSES = b"FO"
+
+
+def lineitem(sf: float, seed: int = 0) -> Dict[str, object]:
+    """Q1's lineitem columns at scale factor ``sf``, drawn as
+    ``examples/tpch_data.py:41 lineitem`` draws them from
+    ``np.random.default_rng(seed)``: the same values, with
+    ``l_returnflag`` and ``l_linestatus`` as CHAR(1) ``(byte matrix,
+    lengths)`` pairs instead of object arrays."""
+    rng = np.random.default_rng(seed)
+    n = int(LINEITEM_ROWS_PER_SF * sf)
+
+    def char1(alphabet: bytes, codes):
+        mat = np.frombuffer(alphabet, np.uint8)[codes].reshape(n, 1)
+        return mat, np.ones(n, np.int32)
+
+    return {
+        "l_quantity": rng.integers(1, 51, n).astype(np.float32),
+        "l_extendedprice": (rng.random(n, np.float32) * 90000 + 900),
+        "l_discount": rng.integers(0, 11, n).astype(np.float32) / 100,
+        "l_tax": rng.integers(0, 9, n).astype(np.float32) / 100,
+        "l_returnflag": char1(RETURNFLAGS, rng.integers(0, 3, n)),
+        "l_linestatus": char1(LINESTATUSES, rng.integers(0, 2, n)),
+        "l_shipdate": rng.integers(DATE_LO, DATE_HI, n).astype(np.int32),
+    }
+
+
+def lineitem_table(ctx: CylonContext, data: Dict[str, object]) -> Table:
+    return _sharded_table(ctx, list(data), list(data.values()))
+
+
+Q1_AGGS = {
+    "l_quantity": ["sum", "mean"],
+    "l_extendedprice": ["sum", "mean"],
+    "disc_price": ["sum"],
+    "charge": ["sum"],
+    "l_discount": ["mean", "count"],
+}
+
+
+def tpch_q1(t: Table) -> Table:
+    """TPC-H Q1 as ``examples/tpch_q1.py:28-39`` writes it: the shipdate
+    filter, the two derived columns, the 8-aggregate group-by on the two
+    flags.  Groups come out in key order on each shard."""
+    f = t.select(lambda r: r.l_shipdate <= Q1_CUTOFF)
+    f["disc_price"] = (f["l_extendedprice"] * (f["l_discount"] * -1.0 + 1.0))
+    f["charge"] = f["disc_price"] * (f["l_tax"] + 1.0)
+    return f.groupby(["l_returnflag", "l_linestatus"], Q1_AGGS)

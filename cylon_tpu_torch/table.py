@@ -7,10 +7,11 @@ holds one tuple of Columns per shard, each on its shard's device
 (``ctx.devices[i]``), and one 0-d int32 row count per shard beside it.
 Every shard of a table has the same capacity.
 
-Ported, for fixed-width columns:
+Ported, for fixed-width and string columns:
 
 - host boundary and metadata: ``from_numpy`` (contiguous chunks,
-  ``_shard_plan``), ``to_numpy`` (live rows gathered in shard order),
+  ``_shard_plan``; string columns at one width on every shard),
+  ``to_numpy`` (live rows gathered in shard order), ``__setitem__``,
   ``project``, ``rename``, ``add_prefix``, ``add_suffix``, ``drop``;
 - shard-local operators (``_shard_wise`` runs them shard by shard, as
   each MPI rank of the reference runs its own): ``sort``, ``merge``,
@@ -28,8 +29,7 @@ Ported, for fixed-width columns:
   ``shuffle`` and ``hash_partition``.
 
 The reference's adaptive join-capacity cache, its out-of-core fallbacks
-and the distributed pipeline group-by are not ported.  A string column
-raises ``NotImplemented``.
+and the distributed pipeline group-by are not ported.
 """
 from __future__ import annotations
 
@@ -136,28 +136,73 @@ class Table:
                                  f"column {name} length {len(a)} != {n}")
         world = ctx.GetWorldSize()
         chunk, counts, shard_cap = _shard_plan(n, world)
-        shards = [tuple(column_mod.from_numpy(a[s * chunk:s * chunk
-                                                 + counts[s]],
-                                              capacity=shard_cap, device=dev)
-                        for a in arrays)
-                  for s, dev in enumerate(ctx.devices)]
+        cols = [_split_column(a, chunk, counts, shard_cap, ctx.devices)
+                for a in arrays]
+        shards = [tuple(c[s] for c in cols) for s in range(world)]
         counts_t = tuple(torch.tensor(c, dtype=torch.int32, device=dev)
                          for c, dev in zip(counts, ctx.devices))
         return Table(tuple(shards), counts_t, tuple(names), ctx)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Live rows of every shard, in shard order; nulls become None in
-        an object array (``column.to_numpy``)."""
+        an object array, strings str (``column.to_numpy``)."""
         counts = self.row_counts
         out = {}
         for j, name in enumerate(self.names):
-            data = torch.cat([s[j].data[:int(n)].cpu()
-                              for s, n in zip(self.shards, counts)])
-            valid = torch.cat([s[j].validity[:int(n)].cpu()
-                               for s, n in zip(self.shards, counts)])
-            col = Column(data, valid, None, self.shards[0][j].dtype)
+            live = [(s[j], int(n)) for s, n in zip(self.shards, counts)]
+
+            def cat(buf):
+                return torch.cat([getattr(c, buf)[:n].cpu()
+                                  for c, n in live])
+
+            col = Column(cat("data"), cat("validity"),
+                         cat("lengths") if live[0][0].is_string else None,
+                         self.shards[0][j].dtype)
             out[name] = column_mod.to_numpy(col, int(counts.sum()))
         return out
+
+    # -- column assignment ----------------------------------------------------
+    def __setitem__(self, key: str, value) -> None:
+        """Add or replace column ``key`` (``cylon_tpu/table.py:772``):
+        ``value`` is a one-column Table of this table's shard layout, a
+        Column of a one-shard table's capacity, a host array of
+        ``row_count`` values, or a scalar repeated to every row."""
+        if not isinstance(key, str):
+            raise CylonError(Code.Invalid, "column name must be a string")
+        cols = self._column_from_value(value)
+        if key in self.names:
+            i = self.names.index(key)
+            self.shards = tuple(s[:i] + (c,) + s[i + 1:]
+                                for s, c in zip(self.shards, cols))
+        else:
+            self.shards = tuple(s + (c,) for s, c in zip(self.shards, cols))
+            self.names = self.names + (key,)
+
+    def _column_from_value(self, value) -> List[Column]:
+        """Per shard, the Column ``__setitem__`` stores."""
+        cap = self.shard_capacity
+        if isinstance(value, Column):
+            value = [value]
+        elif isinstance(value, Table):
+            if len(value.names) != 1:
+                raise CylonError(Code.Invalid,
+                                 "expected a single-column table")
+            value = [s[0] for s in value.shards]
+        if isinstance(value, list):
+            if len(value) != self.num_shards or any(
+                    c.capacity != cap for c in value):
+                raise CylonError(Code.Invalid, "column capacity mismatch")
+            return value
+        if np.isscalar(value) or isinstance(value, (bool, int, float, str)):
+            value = np.full((self.row_count,), value)
+        arr = np.asarray(value)
+        if arr.shape[0] != self.row_count:
+            raise CylonError(Code.Invalid, f"value length {arr.shape[0]} != "
+                             f"rows {self.row_count}")
+        counts = [int(n) for n in self.row_counts]
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        return [column_mod.from_numpy(arr[o:o + n], capacity=cap, device=dev)
+                for o, n, dev in zip(offsets, counts, self.ctx.devices)]
 
     # -- column subsets -----------------------------------------------------
     def project(self, refs) -> "Table":
@@ -193,7 +238,6 @@ class Table:
         """Filter rows with a vectorized predicate over named column
         tensors (reference: table.cpp:491-520 Select with a row lambda;
         here the lambda sees whole columns and returns a bool mask)."""
-        _fixed_width(self, range(len(self.names)), "select")
 
         def fn(cols, count):
             env = _RowEnv(dict(zip(self.names, cols)))
@@ -212,7 +256,6 @@ class Table:
             raise CylonError(Code.Invalid, "filter mask must have one column")
         if mask.shards[0][0].dtype.type != dtypes.Type.BOOL:
             raise CylonError(Code.Invalid, "filter mask must be boolean")
-        _fixed_width(self, range(len(self.names)), "filter")
 
         def fn(cols, count, mcols, _):
             mc = mcols[0]
@@ -224,7 +267,6 @@ class Table:
     def merge(self, other: "Table") -> "Table":
         """Row concatenation (reference: table.cpp:278-299 Merge)."""
         _check_schemas(self, other)
-        _fixed_width(self, range(len(self.names)), "merge")
 
         def fn(cols_a, count_a, cols_b, count_b):
             dev = cols_a[0].device
@@ -240,7 +282,6 @@ class Table:
              nulls_first: bool = True) -> "Table":
         """Shard-local sort (reference: local Sort, util::SortTable)."""
         by_idx = self._resolve_many(by)
-        _fixed_width(self, by_idx, "sort")
         asc = (tuple([ascending] * len(by_idx))
                if isinstance(ascending, bool) else tuple(ascending))
         return _shard_wise(lambda cols, n: sort_mod.sort_rows(
@@ -251,7 +292,6 @@ class Table:
         occurrence, in row order (reference: table.cpp:966-1029)."""
         key_idx = (tuple(range(len(self.names))) if columns is None
                    else self._resolve_many(columns))
-        _fixed_width(self, key_idx, "unique")
         return _shard_wise(lambda cols, n: unique_mod.unique(
             cols, n, key_idx, keep), self)
 
@@ -306,7 +346,6 @@ class Table:
             return self.unique(columns, keep)
         key_idx = (tuple(range(len(self.names))) if columns is None
                    else self._resolve_many(columns))
-        _fixed_width(self, key_idx, "distributed_unique")
         return par_ops.shuffle(self, key_idx).unique(key_idx, keep)
 
     def distributed_sort(self, by, options: Optional[SortOptions] = None,
@@ -329,7 +368,6 @@ class Table:
             opts = SortOptions(ascending=asc[0], num_bins=opts.num_bins,
                                num_samples=opts.num_samples,
                                nulls_first=opts.nulls_first)
-        _fixed_width(self, by_idx, "distributed_sort")
         if self.num_shards == 1:
             return self.sort(by, ascending=asc, nulls_first=opts.nulls_first)
         return par_ops.distributed_sort(self, by_idx, opts, asc)
@@ -392,7 +430,6 @@ class Table:
         30-156): a local reduce, then an allreduce over the shards.
         Returns a 0-d tensor on shard 0's device."""
         ci = self._resolve(ref)
-        _fixed_width(self, (ci,), op.name.lower())
         if self.num_shards == 1:
             return agg_mod.scalar_agg(self.shards[0][ci], self.counts[0],
                                       op)[0]
@@ -545,14 +582,6 @@ def _compact_rows(cols: Sequence[Column], mask: torch.Tensor):
     return tuple(c.take(perm, valid_mask=valid) for c in cols), m
 
 
-def _fixed_width(t: Table, idx, what: str) -> None:
-    for i in idx:
-        if t.shards[0][i].is_string:
-            raise CylonError(Code.NotImplemented,
-                             f"{what} on {t.names[i]}: string columns are "
-                             "not ported yet")
-
-
 def _check_schemas(a: Table, b: Table) -> None:
     if len(a.names) != len(b.names):
         raise CylonError(Code.Invalid, "column count mismatch")
@@ -565,7 +594,6 @@ def _check_schemas(a: Table, b: Table) -> None:
 def _local_set_op(a: Table, b: Table, op: str) -> Table:
     """Shard-by-shard set op at capacity ``pow2ceil(cap_a + cap_b)``."""
     _check_schemas(a, b)
-    _fixed_width(a, range(len(a.names)), op)
     out_cap = pow2ceil(a.shard_capacity + b.shard_capacity)
     return _shard_wise(lambda ca, na, cb, nb: setops_mod.set_op(
         ca, na, cb, nb, op, out_cap), a, b)
@@ -577,10 +605,20 @@ def _dist_set_op(a: Table, b: Table, op: str) -> Table:
     if a.num_shards == 1:
         return _local_set_op(a, b, op)
     _check_schemas(a, b)
-    _fixed_width(a, range(len(a.names)), op)
     all_cols = tuple(range(len(a.names)))
     return _local_set_op(par_ops.shuffle(a, all_cols),
                          par_ops.shuffle(b, all_cols), op)
+
+
+def _split_column(a: np.ndarray, chunk: int, counts, shard_cap: int,
+                  devices) -> List[Column]:
+    """One host array as per-shard Columns of contiguous chunks; a string
+    column at the width of its widest shard on every shard."""
+    cols = [column_mod.from_numpy(a[s * chunk:s * chunk + n],
+                                  capacity=shard_cap, device=dev)
+            for s, (n, dev) in enumerate(zip(counts, devices))]
+    width = max(c.string_width for c in cols)
+    return [common_mod.pad_width(c, width) for c in cols]
 
 
 def _shard_plan(n: int, world: int):
@@ -615,7 +653,12 @@ def _join_config(left: Table, right: Table, config, on, left_on, right_on,
         raise CylonError(Code.Invalid, "left_on/right_on length mismatch")
     for li, ri in zip(cfg.left_on, cfg.right_on):
         lt, rt = left.shards[0][li].dtype, right.shards[0][ri].dtype
-        if lt != rt:
+        # string keys need only agree on being strings (widths are padded
+        # to one); other keys must match exactly unless a side is empty
+        kind = dtypes.join_key_mismatch(
+            dtypes.is_string_like(lt), dtypes.is_string_like(rt), lt == rt,
+            lt != rt and (left.row_count == 0 or right.row_count == 0))
+        if kind is not None:
             raise CylonError(Code.Invalid,
                              f"join key type mismatch: {left.names[li]}:{lt} "
                              f"vs {right.names[ri]}:{rt} (cast the keys to a "

@@ -67,8 +67,10 @@ def test_interop_round_trip_keeps_buffers_bit_for_bit():
     np.testing.assert_array_equal(data.view(np.int32),
                                   np.asarray(r.data).view(np.int32))
     np.testing.assert_array_equal(valid, np.asarray(r.validity))
-    with pytest.raises(Exception, match="not ported"):
-        interop.column_from_arrays(np.zeros((4, 8), np.uint8),
-                                   np.ones(4, bool), np.zeros(4, np.int32),
-                                   dtypes.DataType(dtypes.Type.STRING),
-                                   device="cpu")
+    s = rcol.from_numpy(np.array(["ab", None, "xyz\x00"], object),
+                        capacity=4)
+    data, valid, lengths, dt = interop.column_to_arrays(port_column(s))
+    assert dt == dtypes.string and data.shape == (4, 32)
+    for got, want in ((data, s.data), (valid, s.validity),
+                      (lengths, s.lengths)):
+        np.testing.assert_array_equal(got, np.asarray(want))

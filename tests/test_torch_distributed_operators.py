@@ -13,7 +13,7 @@ package on its 4-device CPU mesh, on the same numpy inputs.
 - The scalar aggregates: every ReduceOp; float32 sums rtol 1e-5, float64
   sums rtol 1e-12, everything else exact.
 - The verify skill's probes: a schema mismatch, fewer rows than shards,
-  every row one key, empty tables, a string lead column.
+  every row one key, empty tables, a string lead column (now sorted).
 """
 import numpy as np
 import pytest
@@ -23,7 +23,6 @@ from cylon_tpu.config import SortOptions as RSortOptions
 from cylon_tpu.ops.aggregates import ReduceOp as RReduceOp
 from cylon_tpu.table import Table as RTable
 from cylon_tpu_torch import CylonContext, MeshConfig, Table, pipeline
-from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.config import SortOptions
 from cylon_tpu_torch.ops import aggregates, hash_kernels, scan
 from cylon_tpu_torch.parallel import ops as par_ops
@@ -266,21 +265,21 @@ def test_schema_mismatch_and_string_lead_column(pctx):
         t.project(["k", "v"]).distributed_union(t.project(["v", "k"]))
     with pytest.raises(CylonError, match=r"\[Invalid\] schema mismatch"):
         t.project(["k"]).distributed_intersect(t.project(["w"]))
-    s = [(Column(torch.zeros((10, 4), dtype=torch.uint8),
-                 torch.ones(10, dtype=torch.bool),
-                 torch.zeros(10, dtype=torch.int32),
-                 pipeline.column.dtypes.DataType(
-                     pipeline.column.dtypes.Type.STRING)),)
-         for _ in range(WORLD)]
-    st = Table(tuple(s), tuple(torch.tensor(10, dtype=torch.int32)
-                               for _ in range(WORLD)), ("s",), pctx)
-    with pytest.raises(CylonError, match=r"\[NotImplemented\].*string"):
-        st.distributed_sort("s")
+    # a string lead column range-partitions on its 4-byte prefix: the
+    # shards come out globally ordered, and hold the input's strings
+    words = np.array(["pear", "apple", "fig", None, "zz", "kiwi", "date",
+                      "plum", "lime", "yuzu"], object)
+    st = Table.from_numpy(["s"], [words[np.arange(40) % 10]], ctx=pctx)
+    out = st.distributed_sort("s")
+    flat = list(out.to_numpy()["s"])
+    assert flat[:4] == [None] * 4  # nulls first
+    assert flat[4:] == sorted(w for w in words[np.arange(40) % 10] if w)
     from cylon_tpu_torch.parallel import partition
 
-    with pytest.raises(CylonError, match=r"\[NotImplemented\].*string"):
-        partition.range_targets([c[0] for c in s], st.counts, pctx.devices,
-                                num_bins=4, num_samples=8)
+    targets = partition.range_targets([c[0] for c in st.shards], st.counts,
+                                      pctx.devices, num_bins=4, num_samples=8)
+    assert all(int(t[:int(n)].max()) < WORLD
+               for t, n in zip(targets, st.counts))
     with pytest.raises(CylonError, match="ascending length"):
         t.distributed_sort(["k", "w"], ascending=[True])
 

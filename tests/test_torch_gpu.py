@@ -1,6 +1,7 @@
 """The CUDA kernels (scan family, murmur3 hash partition) against their
-plain PyTorch versions on the card, and the relational operators on the
-card against the same operators on the CPU.
+plain PyTorch versions on the card, and the relational operators (string
+keys and TPC-H Q1 included) on the card against the same operators on the
+CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA card: a CUDA
 kernel has no CPU mode.  This file imports neither jax nor cylon_tpu, so
@@ -265,3 +266,87 @@ def test_distributed_operators_on_the_card_equal_the_cpu(gen):
     hash_kernels.reset_launches()
     left.project("k").distributed_union(right.project("k"))
     assert hash_kernels.LAUNCHES == {"hash_partition": 8}
+
+
+# -- string columns -----------------------------------------------------------
+
+def _string_keys(device, n=5000, seed=9):
+    """A string column with nulls and an int64 column, from one seed."""
+    rng = np.random.default_rng(seed)
+    words = np.array(["", "a", "Customer#000000001", "été", "x" * 40,
+                      "a\x00b", "zz", None], object)
+    return (column.from_numpy(words[rng.integers(0, len(words), n)],
+                              capacity=n + 5, device=device),
+            column.from_numpy(rng.integers(-9, 9, n).astype(np.int64),
+                              capacity=n + 5, device=device))
+
+
+@pytest.mark.gpu
+def test_string_words_and_row_hash_on_the_card_equal_the_cpu(gen):
+    """``pack_string_words`` and the row hash of string and mixed keys,
+    bit for bit: the hash is plain PyTorch on both devices."""
+    from cylon_tpu_torch.ops import hashing, keys
+
+    (s_gpu, i_gpu), (s_cpu, i_cpu) = _string_keys("cuda"), _string_keys("cpu")
+    for g, w in zip(keys.pack_string_words(s_gpu.data),
+                    keys.pack_string_words(s_cpu.data)):
+        assert torch.equal(g.cpu(), w)
+    for k_gpu, k_cpu in (([s_gpu], [s_cpu]), ([s_gpu, i_gpu], [s_cpu, i_cpu])):
+        assert torch.equal(hashing.hash_columns(k_gpu).cpu(),
+                           hashing.hash_columns(k_cpu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [1, 4])
+def test_string_join_groupby_on_the_card_equals_the_cpu(gen, world):
+    """``pipeline.string_join_groupby`` on the card against the CPU: group
+    keys and counts exact, sums and means rtol 1e-5; on the card it
+    launches both scan kernels and, with string keys, no murmur3."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+
+    data = pipeline.make_data(6000)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = (CylonContext.InitDistributed(MeshConfig(devices=[dev],
+                                                       world_size=world))
+               if world > 1 else CylonContext.Init(dev))
+        scan.reset_launches()
+        hash_kernels.reset_launches()
+        groups, joined = pipeline.string_join_groupby(
+            *pipeline.string_tables(ctx, *data))
+        out[dev] = (groups.to_numpy(), joined.row_count,
+                    dict(scan.LAUNCHES), dict(hash_kernels.LAUNCHES))
+    (g, jm, scans, hashes), (w, wm, _, _) = out["cuda"], out["cpu"]
+    assert jm == wm
+    og, ow = np.argsort(g["l_k"]), np.argsort(w["l_k"])
+    np.testing.assert_array_equal(g["l_k"][og], w["l_k"][ow])
+    for name in ("sum_lv", "mean_rv"):
+        np.testing.assert_allclose(g[name][og].astype(np.float64),
+                                   w[name][ow].astype(np.float64), rtol=1e-5)
+    assert scans["scan_1d"] > 0 and scans["segmented_scan"] > 0
+    assert hashes == {"hash_partition": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [1, 4])
+def test_tpch_q1_on_the_card_equals_the_cpu(gen, world):
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+
+    data = pipeline.lineitem(0.01, 5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = (CylonContext.InitDistributed(MeshConfig(devices=[dev],
+                                                       world_size=world))
+               if world > 1 else CylonContext.Init(dev))
+        out[dev] = pipeline.tpch_q1(pipeline.lineitem_table(ctx, data)) \
+            .to_numpy()
+    g, w = out["cuda"], out["cpu"]
+    og = np.lexsort((g["l_linestatus"], g["l_returnflag"]))
+    ow = np.lexsort((w["l_linestatus"], w["l_returnflag"]))
+    for name in w:
+        if w[name].dtype == object or name.startswith("count"):
+            np.testing.assert_array_equal(g[name][og], w[name][ow])
+        else:
+            np.testing.assert_allclose(g[name][og].astype(np.float64),
+                                       w[name][ow].astype(np.float64),
+                                       rtol=1e-5)

@@ -14,11 +14,9 @@ states) and float64 sums within rtol 1e-12.
 """
 import numpy as np
 import pytest
-import torch
 
 from cylon_tpu.ops.aggregates import ReduceOp as RReduceOp
-from cylon_tpu_torch import CylonContext, Table, compute, dtypes, pipeline
-from cylon_tpu_torch.column import Column
+from cylon_tpu_torch import compute, pipeline
 from cylon_tpu_torch.ops import aggregates, scan
 from cylon_tpu_torch.status import CylonError
 
@@ -306,16 +304,10 @@ def test_operators_pipeline_matches_numpy():
 
 
 def _string_table():
-    """A one-shard port Table with a string-typed column (the port has no
-    string constructor yet, so the column is assembled by hand)."""
-    s = Column(torch.zeros((8, 4), dtype=torch.uint8),
-               torch.ones(8, dtype=torch.bool),
-               torch.zeros(8, dtype=torch.int32),
-               dtypes.DataType(dtypes.Type.STRING))
-    k = Column(torch.arange(8, dtype=torch.int32),
-               torch.ones(8, dtype=torch.bool), None, dtypes.int32)
-    return Table(((s, k),), (torch.tensor(8, dtype=torch.int32),),
-                 ("s", "k"), CylonContext.Init("cpu"))
+    """(reference, port) one-shard Tables with a string column ``s`` (nulls,
+    repeats) and an int32 column ``k``."""
+    s = np.array(["b", "a", None, "ab", "b", "", "zz", "a"], object)
+    return local_tables(["s", "k"], [s, np.arange(8, dtype=np.int32)])
 
 
 @pytest.mark.parametrize("op", [
@@ -327,10 +319,21 @@ def _string_table():
     ids=["sort", "unique", "union", "intersect", "subtract", "merge",
          "select", "sum", "min", "compare", "add", "distributed_sort"])
 def test_string_columns_raise_not_implemented(op):
-    with pytest.raises(CylonError,
-                       match=r"\[NotImplemented\].*string columns are not "
-                             r"ported yet"):
-        op(_string_table())
+    """String columns are ported: each operator gives the reference's table,
+    or raises the reference's error (TypeError for a numeric aggregate of
+    a string, Invalid for arithmetic or a compare with a number); none
+    raises NotImplemented.  (A one-shard ``distributed_sort`` is the local
+    sort.)"""
+    rt, pt = _string_table()
+    try:
+        want = op(rt)
+    except Exception as e:  # noqa: BLE001 - the reference's own error
+        with pytest.raises(type(e) if isinstance(e, TypeError)
+                           else CylonError, match=str(e).split("] ")[-1]):
+            op(pt)
+        assert not isinstance(e, NotImplementedError)
+        return
+    assert_tables_equal(op(pt), want)
 
 
 def test_bad_arguments_raise():

@@ -44,10 +44,12 @@ def ref_column(values, validity=None, capacity=None):
 
 
 def port_column(ref):
-    """The port's Column holding exactly a reference Column's buffers."""
-    return interop.column_from_arrays(np.asarray(ref.data),
-                                      np.asarray(ref.validity), None,
-                                      ref.dtype, device="cpu")
+    """The port's Column holding exactly a reference Column's buffers (a
+    string's byte matrix and lengths included)."""
+    return interop.column_from_arrays(
+        np.asarray(ref.data), np.asarray(ref.validity),
+        None if ref.lengths is None else np.asarray(ref.lengths), ref.dtype,
+        device="cpu")
 
 
 def columns(values_list, validity_list=None, capacity=None):
@@ -65,11 +67,14 @@ def np_of(x) -> np.ndarray:
 
 
 def assert_columns_equal(port_cols, ref_cols, float_rtol=None):
-    """Data and validity over the whole capacity: exact, or within
-    ``float_rtol`` for float data."""
+    """Data, validity and string lengths over the whole capacity: exact,
+    or within ``float_rtol`` for float data."""
     assert len(port_cols) == len(ref_cols)
     for p, r in zip(port_cols, ref_cols):
         np.testing.assert_array_equal(np_of(p.validity), np_of(r.validity))
+        assert (p.lengths is None) == (r.lengths is None)
+        if r.lengths is not None:
+            np.testing.assert_array_equal(np_of(p.lengths), np_of(r.lengths))
         assert p.dtype.type == int(r.dtype.type)
         pd_, rd = np_of(p.data), np_of(r.data)
         assert pd_.dtype == rd.dtype, (pd_.dtype, rd.dtype)
@@ -119,25 +124,31 @@ def ref_table_shards(t):
 
     cap = t.shard_capacity
     pieces = [(_host_shard_pieces(c.data, cap),
-               _host_shard_pieces(c.validity, cap)) for c in t.columns]
-    shards = [[(d[s], v[s]) for d, v in pieces]
+               _host_shard_pieces(c.validity, cap),
+               None if c.lengths is None
+               else _host_shard_pieces(c.lengths, cap)) for c in t.columns]
+    shards = [[(d[s], v[s], None if ln is None else ln[s])
+               for d, v, ln in pieces]
               for s in range(t.num_shards)]
     return shards, _host_row_counts(t)
 
 
 def assert_shards_equal(port_table, ref_table):
-    """Slot for slot: per-shard counts, capacity, data and validity over
-    the whole shard capacity (exact)."""
+    """Slot for slot: per-shard counts, capacity, data, validity and
+    string lengths over the whole shard capacity (exact)."""
     names, p_shards, p_counts = interop.table_shards_to_arrays(port_table)
     r_shards, r_counts = ref_table_shards(ref_table)
     assert tuple(names) == tuple(ref_table.names)
     np.testing.assert_array_equal(p_counts, r_counts)
     assert len(p_shards) == len(r_shards)
     for p_cols, r_cols in zip(p_shards, r_shards):
-        for (pd_, pv, _, pdt), (rd, rv), rc in zip(p_cols, r_cols,
-                                                   ref_table.columns):
+        for (pd_, pv, pl, pdt), (rd, rv, rl), rc in zip(p_cols, r_cols,
+                                                        ref_table.columns):
             assert int(pdt.type) == int(rc.dtype.type)
             np.testing.assert_array_equal(pv, rv)
+            assert (pl is None) == (rl is None)
+            if rl is not None:
+                np.testing.assert_array_equal(pl, rl)
             assert pd_.dtype == rd.dtype, (pd_.dtype, rd.dtype)
             np.testing.assert_array_equal(pd_, rd)
 
