@@ -56,6 +56,23 @@ Phases, each of which fails the run on error:
    on one shard and on SHARDS shards, against a numpy ``bincount`` oracle
    over the group codes.  On 3f-3h both scan kernels must launch and the
    hash kernel must not (every shuffle key is a string);
+3i. the main path past the card's memory: ``pipeline.make_data(OOC_ROWS)``
+   (2^29 rows per side, 2^30 in all) through ``exec.chunked_join_groupby``
+   in 16 key-domain passes (``pipeline.out_of_core_join_groupby``), twice:
+   steady rate ``2*rows / best run_seconds``, cold rate ``2*rows /
+   total_seconds`` of the first sweep, the plan and run seconds, the
+   per-pass capacities, peak device memory over the memory allocated at
+   the phase's start, the host's MemTotal / MemAvailable and the process's
+   peak RSS; both scan kernels must launch in every sweep (counters zeroed
+   just before each), and the result must equal phase 3's numpy
+   ``bincount`` oracle (keys and group count exact, SUM and MEAN within
+   rtol 1e-5 of float64);
+3j. OOM refinement on the card with no injected fault: phase 3's 2^26-row
+   data through the engine at 2 and at 4 passes uncapped (each run's peak
+   reserved memory recorded), then at 2 passes with the caching allocator
+   capped between the two peaks: it must split at least once and equal
+   the uncapped run (keys and group count exact, sums and means rtol
+   1e-5); the cap is lifted even when the phase fails;
 4. each kernel's time at the main path's shapes (CUDA events), its bound
    (bytes over 3.35 TB/s), its plain version's time and, where one
    PyTorch call computes the same function, that call's time; ``scan_1d``
@@ -67,12 +84,16 @@ limit line, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
 adds a device-time breakdown by kernel of one run of each main path, of
-the set ops, of the distributed sorts, of the string paths and of Q1, and
-a stage breakdown of one distributed run.
+the set ops, of the distributed sorts, of the string paths, of Q1 and of a
+third out-of-core sweep (whose device busy share of its wall time is the
+engine's idle measure), and a stage breakdown of one distributed run.
+Phases 3i and 3j run after phase 4, once the earlier phases' tensors are
+freed.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -83,6 +104,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 ROWS = 1 << 26  # main-path rows per side: the TPU ladder's top size
+OOC_ROWS = 1 << 29  # out-of-core rows per side: bench.py's 1B-row ladder
+OOC_PASSES = 16
 SHARDS = 4  # distributed path: shards of the in-process mesh, one card
 SCAN_SOURCE = "cylon_tpu_torch/cuda/scan.cu"
 HASH_SOURCE = "cylon_tpu_torch/cuda/murmur3.cu"
@@ -370,6 +393,7 @@ def _hash_checks(dev, passed, checks) -> None:
         for world in (4, 6):
             case([cols["int32"], cols["float64"]], world,
                  f"int32+float64 n={n}")
+    _float_key_checks(dev, case, passed, checks)
     n = ROWS
     keys = column.Column(
         torch.randint(0, n, (n,), generator=torch.Generator(device=dev)
@@ -378,6 +402,41 @@ def _hash_checks(dev, passed, checks) -> None:
         column.dtypes.int32)
     for world in (4, 6):
         case([keys], world, f"int32 keys n={n}")
+
+
+def _float_key_checks(dev, case, passed, checks) -> None:
+    """Float keys fold in the kernel as in the plain version: -0.0 hashes
+    as +0.0, every NaN payload (kept by an explicit validity) as one NaN,
+    for float16, bfloat16, float32 and float64."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import column
+    from cylon_tpu_torch.ops import hash_kernels
+
+    nan32 = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FC0BEEF],
+                     np.uint32).view(np.float32)
+    base = np.concatenate([[0.0, -0.0, np.inf, -np.inf, 1.5, -1.5],
+                           nan32.astype(np.float64)])
+    rng = np.random.default_rng(19)
+    vals = np.concatenate([base, rng.standard_normal(4091)])
+    for dt in (torch.float16, torch.bfloat16, torch.float32, torch.float64):
+        data = torch.from_numpy(vals).to(dt)
+        if dt == torch.float32:  # the exact NaN payloads above
+            data[6:10] = torch.from_numpy(nan32)
+        data = data.to(dev)
+        c = column.Column(data, torch.ones(len(vals), dtype=torch.bool,
+                                           device=dev), None,
+                          column.dtypes.float_)
+        for world in (4, 6):
+            case([c], world, f"{dt} +-0 and NaN payloads")
+        h, _ = hash_kernels.hash_partition([c], 4)
+        h = h.view(torch.int32).cpu()
+        if h[0] != h[1] or len(set(h[6:10].tolist())) != 1:
+            raise AssertionError(f"hash_partition {dt}: +0.0/-0.0 or NaN "
+                                 f"payloads hash apart: {h[:10].tolist()}")
+        passed["hash_partition"] += 1
+        checks.append(f"hash_partition {dt}: -0.0 as +0.0, one NaN")
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -406,12 +465,16 @@ def _check_groups(oracle: dict, keys, sums, means, label: str):
 
     if not np.array_equal(keys, oracle["keys"]):
         raise AssertionError(f"{label}: group keys differ from the oracle")
-    sums = np.asarray(sums, np.float64)
-    means = np.asarray(means, np.float64)
-    np.testing.assert_allclose(sums, oracle["sum"], rtol=F32_SUM_RTOL)
-    np.testing.assert_allclose(means, oracle["mean"], rtol=F32_SUM_RTOL)
-    return (float(np.abs(sums - oracle["sum"]).max(initial=0.0)),
-            float(np.abs(means - oracle["mean"]).max(initial=0.0)))
+    errs = []
+    for name, got in (("sum", sums), ("mean", means)):
+        want = oracle[name]
+        err = np.abs(np.asarray(got, np.float64) - want)
+        bad = np.count_nonzero(~(err <= F32_SUM_RTOL * np.abs(want)))
+        if bad:
+            raise AssertionError(f"{label}: {bad} {name}s outside rtol "
+                                 f"{F32_SUM_RTOL} of the oracle")
+        errs.append(float(err.max(initial=0.0)))
+    return tuple(errs)
 
 
 def _launch_counts() -> dict:
@@ -1326,6 +1389,175 @@ def phase_stages(report: dict, dist: dict) -> None:
         f"{k} {v:.2f}" for k, v in stages.items()))
 
 
+# -- phases 3i and 3j: out of core --------------------------------------------
+
+def _host_memory() -> dict:
+    """The host's MemTotal and MemAvailable (/proc/meminfo) and this
+    process's peak resident set, in bytes."""
+    import resource
+
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    out["peak_rss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return out
+
+
+def _check_out_of_core(label: str, res: dict, stats: dict, oracle: dict):
+    """A range-mode run's groups come out in ascending key order (passes
+    are ascending key ranges): keys and group count exact, SUM and MEAN
+    within rtol of the float64 oracle."""
+    if stats["mode"] != "range":
+        raise AssertionError(f"{label}: planned {stats['mode']}, not range")
+    if stats["groups"] != oracle["groups"]:
+        raise AssertionError(f"{label}: {stats['groups']} groups, oracle "
+                             f"{oracle['groups']}")
+    return _check_groups(oracle, res["key"], res["agg0"], res["agg1"], label)
+
+
+def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
+                      passes: int = OOC_PASSES, profile: bool = False) -> None:
+    """Phase 3i: the main path past the card's memory, two sweeps of the
+    out-of-core engine, counters zeroed just before each."""
+    import torch
+
+    from cylon_tpu_torch import pipeline
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    data = pipeline.make_data(rows, pipeline.SEED)
+    gen_s = time.perf_counter() - t0
+    log(f"[3i] {rows} rows per side generated in {gen_s:.1f} s; host "
+        f"{_host_memory()}")
+    t0 = time.perf_counter()
+    oracle = _oracle(data, rows)
+    oracle_s = time.perf_counter() - t0
+    sweeps, errs = [], []
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        res, stats = pipeline.out_of_core_join_groupby(data, passes)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        sweep = {k: stats.get(k) for k in (
+            "passes", "mode", "chunk_cap", "cap_l", "cap_r", "out_cap",
+            "groups", "parts_run", "oom_splits", "retries", "plan_seconds",
+            "run_seconds", "total_seconds")}
+        sweep.update(launches=launches, peak_device_bytes=peak,
+                     host=_host_memory())
+        sweeps.append(sweep)
+        log(f"[3i] sweep {i + 1}: {json.dumps(sweep)}")
+        if launches["scan_1d"] < stats["passes"] \
+                or launches["segmented_scan"] < stats["passes"]:
+            raise AssertionError(f"sweep {i + 1} did not run both scan "
+                                 f"kernels in every pass: {launches}")
+        # every sweep is checked: the steady rate takes the best of them
+        errs.append(_check_out_of_core(f"out of core, sweep {i + 1}", res,
+                                       sweep, oracle))
+        del res
+    del oracle
+    gc.collect()
+    if profile:
+        phase_profile(report, "out_of_core",
+                      lambda: pipeline.out_of_core_join_groupby(data, passes))
+    del data
+    gc.collect()
+    sum_err = max(e[0] for e in errs)
+    mean_err = max(e[1] for e in errs)
+    best = min(s["run_seconds"] for s in sweeps)
+    out = {"rows_per_side": rows, "passes": passes, "generate_s": gen_s,
+           "oracle_s": oracle_s, "sweeps": sweeps,
+           "steady_rows_per_s": 2 * rows / best,
+           "cold_rows_per_s": 2 * rows / sweeps[0]["total_seconds"],
+           "peak_device_bytes": max(s["peak_device_bytes"] for s in sweeps),
+           "base_device_bytes": base, "sum_max_abs_err": sum_err,
+           "mean_max_abs_err": mean_err, "host": _host_memory()}
+    report["out_of_core"] = out
+    log(f"[3i] oracle: {sweeps[0]['groups']} groups exact in both sweeps; "
+        f"SUM max abs err "
+        f"{sum_err:.3g}, MEAN max abs err {mean_err:.3g} (rtol "
+        f"{F32_SUM_RTOL}); steady {out['steady_rows_per_s']:.6g} rows/s, "
+        f"cold {out['cold_rows_per_s']:.6g} rows/s, peak device "
+        f"{out['peak_device_bytes'] / 2**30:.2f} GiB over "
+        f"{base / 2**30:.2f} GiB resident")
+
+
+def _sorted_groups(res: dict):
+    import numpy as np
+
+    order = np.argsort(res["key"], kind="stable")
+    return [np.asarray(res[k])[order] for k in ("key", "agg0", "agg1")]
+
+
+def phase_oom_refinement(report: dict, rows: int = ROWS) -> None:
+    """Phase 3j: a real device OOM refines the plan.  The engine at 2 and
+    4 passes, uncapped, gives each run's peak reserved memory; then the
+    caching allocator is capped between the two and 2 passes must split
+    and still equal the uncapped run."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import pipeline
+
+    data = pipeline.make_data(rows, pipeline.SEED)
+    total = torch.cuda.get_device_properties(0).total_memory
+    runs = {}
+    for passes in (2, 4):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, stats = pipeline.out_of_core_join_groupby(data, passes)
+        torch.cuda.synchronize()
+        runs[passes] = (res, stats, torch.cuda.max_memory_reserved())
+    # the cap counts everything this process holds on the card, so the
+    # peaks (absolute reserved bytes) already include what was resident
+    cap = (runs[2][2] + runs[4][2]) // 2
+    fraction = cap / total
+    if not runs[4][2] < cap < runs[2][2]:
+        raise AssertionError(f"no room between the peaks: {runs[4][2]} "
+                             f"< {cap} < {runs[2][2]}")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(fraction)
+        torch.cuda.reset_peak_memory_stats()
+        res, stats = pipeline.out_of_core_join_groupby(data, 2)
+        torch.cuda.synchronize()
+        capped_peak = torch.cuda.max_memory_reserved()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    if stats.get("oom_splits", 0) < 1:
+        raise AssertionError(f"capped run did not split: {stats}")
+    want = _sorted_groups(runs[2][0])
+    got = _sorted_groups(res)
+    if not np.array_equal(got[0], want[0]) \
+            or stats["groups"] != runs[2][1]["groups"]:
+        raise AssertionError("capped run's groups differ from the uncapped")
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(np.asarray(g, np.float64),
+                                   np.asarray(w, np.float64),
+                                   rtol=F32_SUM_RTOL)
+    keep = ("passes", "mode", "cap_l", "cap_r", "out_cap", "parts_run",
+            "oom_splits", "plan_seconds", "run_seconds", "total_seconds")
+    out = {"rows_per_side": rows, "total_device_bytes": total,
+           "cap_bytes": cap, "fraction": fraction,
+           "capped_peak_reserved_bytes": capped_peak,
+           "uncapped": {p: {**{k: runs[p][1].get(k) for k in keep},
+                            "peak_reserved_bytes": runs[p][2]}
+                        for p in (2, 4)},
+           "capped": {k: stats.get(k) for k in keep},
+           "groups": stats["groups"]}
+    report["oom_refinement"] = out
+    log(f"[3j] {json.dumps(out)}")
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def _segmented_inputs(tables, out_cap):
@@ -1544,6 +1776,15 @@ def main(argv=None) -> int:
         phase_string_distributed(report, main_state, ROWS, args.profile)
         phase_tpch_q1(report, args.profile)
         kernels = phase_timings(report, main_state, dist, ROWS)
+        del main_state, dist
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_out_of_core(report, profile=args.profile)
+        phase_oom_refinement(report)
+        ooc = report["out_of_core"]["sweeps"]
+        for r in kernels:
+            r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
+                                         for s in ooc]
         report["kernels"] = kernels
     except Exception:
         traceback.print_exc()

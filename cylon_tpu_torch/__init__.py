@@ -8,19 +8,23 @@ The JAX package's Pallas TPU kernels become hand-written CUDA kernels
 (``cuda/``), built with ``nvcc`` at first use; each has a plain PyTorch
 version beside it that CPU tensors take.  A ``CylonContext`` holds an
 in-process mesh of shards (``context.py``), over which a ``Table`` runs the
-distributed rung (``parallel/``).
+distributed rung (``parallel/``).  ``exec`` streams key-domain passes of
+a join (and group-by) over host frames larger than the card's memory,
+splitting passes that run out of it (``resilience``).
 """
 from __future__ import annotations
 
-from . import (column, config, context, dtypes, interop, pipeline, precision,
-               status, table)
+from . import (column, config, context, dtypes, durable, exec, interop, obs,
+               pipeline, precision, resilience, status, table)
 from .column import Column, default_device
 from .config import JoinConfig, JoinType
 from .context import CylonContext, MeshConfig
-from .status import Code, CylonError
+from .ops.groupby import AggOp
+from .status import Code, CylonError, Status
 from .table import Table
 
-__all__ = ["Code", "Column", "CylonContext", "CylonError", "JoinConfig",
-           "JoinType", "MeshConfig", "Table", "column", "config", "context",
-           "default_device", "dtypes", "interop", "pipeline", "precision",
-           "status", "table"]
+__all__ = ["AggOp", "Code", "Column", "CylonContext", "CylonError",
+           "JoinConfig", "JoinType", "MeshConfig", "Status", "Table",
+           "column", "config", "context", "default_device", "dtypes",
+           "durable", "exec", "interop", "obs", "pipeline", "precision",
+           "resilience", "status", "table"]

@@ -65,6 +65,34 @@ def _check_width(needed: int, explicit: Optional[int]) -> None:
             "ingest it")
 
 
+# CUDA torch has no indexing and no ``where`` for uint16/uint32/uint64:
+# gathers and selects of such data go through the same-width signed view,
+# which moves the same bits.
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def bits_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` viewed as the same-width signed dtype if it is uint16/32/64."""
+    signed = _SIGNED_VIEW.get(x.dtype)
+    return x if signed is None else x.view(signed)
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for any dtype, bit for bit."""
+    return bits_view(x)[idx].view(x.dtype)
+
+
+def zero_unless(keep: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``where(keep, x, 0)`` for any dtype; ``keep`` broadcasts over the
+    rows of a 2-D ``x``."""
+    b = bits_view(x)
+    if b.ndim == 2 and keep.ndim == 1:
+        keep = keep[:, None]
+    return torch.where(keep, b, torch.zeros((), dtype=b.dtype,
+                                            device=b.device)).view(x.dtype)
+
+
 @dataclass
 class Column:
     """One typed column of device buffers.
@@ -124,18 +152,14 @@ class Column:
         lengths included (the outer joins' null fill, reference
         join.cpp:179-235)."""
         idx = indices.clamp(0, self.capacity - 1)
-        data = self.data[idx]
+        data = gather(self.data, idx)
         validity = self.validity[idx]
         lengths = None if self.lengths is None else self.lengths[idx]
         if valid_mask is not None:
             validity = validity & valid_mask
-            rows = validity[:, None] if data.ndim == 2 else validity
-            zero = torch.zeros((), dtype=data.dtype, device=data.device)
-            data = torch.where(rows, data, zero)
+            data = zero_unless(validity, data)
             if lengths is not None:
-                lengths = torch.where(validity, lengths,
-                                      torch.zeros((), dtype=lengths.dtype,
-                                                  device=lengths.device))
+                lengths = zero_unless(validity, lengths)
         return Column(data, validity, lengths, self.dtype)
 
 

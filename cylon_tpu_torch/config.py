@@ -4,16 +4,17 @@
 ``cylon_tpu/config.py:29``, ``:67`` and ``:107`` (reference:
 join/join_config.hpp, table.hpp).
 ``KNOBS`` is the one place this package reads a
-``CYLON_TPU_*`` environment variable; ``knob()`` is its only accessor, as in
-``cylon_tpu/config.py:649``.  It holds only the knobs the ported modules
-read.
+``CYLON_TPU_*`` environment variable; ``knob()`` and ``knob_raw()`` are its
+accessors, as in ``cylon_tpu/config.py:649``.  It holds only the knobs the
+ported modules read, with the JAX package's names and defaults.
 """
 from __future__ import annotations
 
+import contextlib
 import enum
 import os
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 class JoinType(enum.IntEnum):
@@ -75,35 +76,117 @@ class SortOptions:
 
 @dataclass(frozen=True)
 class Knob:
-    """An environment knob: one of ``choices``, or an integer when
-    ``choices`` is empty."""
+    """An environment knob of one ``kind``: "str", "int", "float", "bool",
+    or "enum" (one of ``choices``), as ``cylon_tpu/config.py:133``."""
 
     name: str
-    default: str
-    choices: Tuple[str, ...]
+    kind: str
+    default: object
     help: str
+    choices: Tuple[str, ...] = ()
 
+
+_K = Knob
 
 KNOBS = {k.name: k for k in [
-    Knob("CYLON_TPU_ACCUM", "auto", ("auto", "wide", "narrow"),
-         "Accumulation precision: wide (f64/int64 accumulators), narrow "
-         "(f32/int32, scans through the CUDA scan kernels), or auto "
-         "(narrow for CUDA tensors, wide for CPU tensors)."),
-    Knob("CYLON_TPU_MAX_STRING_WIDTH", "4096", (),
-         "Widest byte matrix a string column may ingest without an explicit "
-         "string_width= (device memory = capacity x width)."),
+    _K("CYLON_TPU_ACCUM", "enum", "auto",
+       "Accumulation precision: wide (f64/int64 accumulators), narrow "
+       "(f32/int32, scans through the CUDA scan kernels), or auto "
+       "(narrow for CUDA tensors, wide for CPU tensors).",
+       ("auto", "wide", "narrow")),
+    _K("CYLON_TPU_MAX_STRING_WIDTH", "int", 4096,
+       "Widest byte matrix a string column may ingest without an explicit "
+       "string_width= (device memory = capacity x width)."),
+    # -- the out-of-core engine (exec.py) and its resilience layer --------
+    _K("CYLON_TPU_CHUNK_PRESORT", "bool", True,
+       "Pre-group host rows by pass id once (O(n)) instead of masking "
+       "per pass (O(n x passes)) in the chunked engine."),
+    _K("CYLON_TPU_PREFETCH", "bool", True,
+       "Overlap host slicing and upload of pass p+1 with device execution "
+       "of pass p in the chunked engine."),
+    _K("CYLON_TPU_MAX_OOM_SPLITS", "int", 4,
+       "How many times the out-of-core engine may double the pass count "
+       "before a device OOM becomes fatal."),
+    _K("CYLON_TPU_RETRY_MAX", "int", 2,
+       "Transient-failure retry budget (RetryPolicy.from_env)."),
+    _K("CYLON_TPU_RETRY_BASE_S", "float", 0.05,
+       "Base backoff seconds for transient retries."),
+    _K("CYLON_TPU_RETRY_MAX_S", "float", 2.0,
+       "Backoff ceiling seconds for transient retries."),
+    _K("CYLON_TPU_FAULT_PLAN", "str", "",
+       "Deterministic fault-injection plan: `site[@N][+][=kind]` entries "
+       "joined by `;` (resilience.FaultPlan.parse), e.g. "
+       "`pass_dispatch@2=oom;host_fetch@1=timeout`; empty disables."),
+    _K("CYLON_TPU_PASS_DEADLINE_S", "float", 0.0,
+       "Per-pass wall-clock budget: a watchdog thread fires "
+       "deadline.fired when a pass runs past it; 0 (default) disables."),
+    _K("CYLON_TPU_QUARANTINE_AFTER", "int", 0,
+       "Poison-pass quarantine: a part failing with the same classified "
+       "code this many consecutive times is isolated into the run report "
+       "(stats['quarantined']); 0 (default) disables."),
+    _K("CYLON_TPU_DURABLE_DIR", "str", "",
+       "Root directory of the durable run journal.  The journal is not "
+       "ported: a non-empty value makes the out-of-core engine raise "
+       "NotImplemented."),
+    # -- observability (obs/) ----------------------------------------------
+    _K("CYLON_TPU_TRACE", "enum", "auto",
+       "Tracing mode: auto (aggregate stopwatch only), 1/on (plus the "
+       "bounded event buffer), 0/off (no-op).",
+       ("auto", "0", "off", "1", "on")),
+    _K("CYLON_TPU_TRACE_DIR", "str", "traces",
+       "Directory for flight-recorder dumps (flight/<run_id>.r<rank>.json)."),
 ]}
+
+_FALSE_WORDS = ("0", "false", "off", "no")
+
+
+def knob_raw(name: str) -> Optional[str]:
+    """The knob's raw environment value, or None when unset; ``name`` must
+    be registered."""
+    if name not in KNOBS:
+        raise KeyError(f"unregistered knob {name!r}; add it to "
+                       "cylon_tpu_torch.config.KNOBS")
+    return os.environ.get(name)
 
 
 def knob(name: str):
-    """The knob's value: the environment's when it is set to one of the
-    knob's choices (or parses as an integer, for an integer knob), else the
-    registered default."""
+    """The knob's parsed value: the environment's when it is set and
+    parses for the knob's kind, else the registered default (as
+    ``cylon_tpu/config.py:649``)."""
     k = KNOBS[name]
     raw = os.environ.get(name)
-    if not k.choices:
-        try:
-            return int(raw)
-        except (TypeError, ValueError):
-            return int(k.default)
-    return raw if raw in k.choices else k.default
+    if raw is None or raw == "":
+        return k.default
+    if k.kind == "str":
+        return raw
+    if k.kind == "enum":
+        return raw if raw in k.choices else k.default
+    if k.kind == "bool":
+        return raw.lower() not in _FALSE_WORDS
+    try:
+        return int(raw) if k.kind == "int" else float(raw)
+    except ValueError:
+        return k.default
+
+
+@contextlib.contextmanager
+def knob_env(**overrides: Optional[str]):
+    """Temporarily set (or, with None, unset) registered knobs in the
+    process environment."""
+    for name in overrides:
+        if name not in KNOBS:
+            raise KeyError(f"unregistered knob {name!r}")
+    saved = {name: os.environ.get(name) for name in overrides}
+    try:
+        for name, val in overrides.items():
+            if val is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = val
+        yield
+    finally:
+        for name, val in saved.items():
+            if val is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = val

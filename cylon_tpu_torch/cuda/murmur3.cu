@@ -6,6 +6,10 @@
 // word; 1- and 2-byte values are zero-extended; bool is 0/1; a null row's
 // words are 0), columns combined as h = 31*h + column_hash from h = 1, and
 // the target h & (world-1) for a power-of-two world, else h % world.
+// Float keys are folded in registers first, as the plain version folds
+// them (ops/keys.py canonical_float): -0.0 hashes as +0.0 and every NaN
+// as the one NaN torch makes of float("nan"), so keys that compare equal
+// land on one shard.  No extra pass, no copy of the key.
 //
 // Bound: memory.  The work is a few dozen integer operations per word,
 // far below what the card can do per byte, so the least time is the bytes:
@@ -33,6 +37,7 @@ struct CmhColumns {
   const uint8_t* valid[CMH_MAX_COLS];
   int width[CMH_MAX_COLS];    // element bytes: 1, 2, 4 or 8
   int is_bool[CMH_MAX_COLS];  // 1 for bool data (any nonzero byte is 1)
+  int is_float[CMH_MAX_COLS];  // 0 none, 1 IEEE binary16/32/64, 2 bfloat16
   int ncols;
 };
 }
@@ -66,6 +71,30 @@ __device__ __forceinline__ uint32_t fmix(uint32_t h, uint32_t len_bytes) {
   return h;
 }
 
+// One bit pattern per float value: +-0 -> +0, any NaN -> torch's NaN.
+__device__ __forceinline__ uint32_t canon16(uint32_t w, int kind) {
+  const uint32_t exp = kind == 2 ? 0x7F80u : 0x7C00u;  // bfloat16 : half
+  const uint32_t man = kind == 2 ? 0x007Fu : 0x03FFu;
+  if ((w & 0x7FFFu) == 0u) return 0u;
+  if ((w & exp) == exp && (w & man) != 0u) return kind == 2 ? 0x7FC0u : 0x7E00u;
+  return w;
+}
+
+__device__ __forceinline__ uint32_t canon32(uint32_t w) {
+  if ((w & 0x7FFFFFFFu) == 0u) return 0u;
+  if ((w & 0x7F800000u) == 0x7F800000u && (w & 0x007FFFFFu) != 0u)
+    return 0x7FC00000u;
+  return w;
+}
+
+__device__ __forceinline__ uint64_t canon64(uint64_t w) {
+  if ((w & 0x7FFFFFFFFFFFFFFFull) == 0ull) return 0ull;
+  if ((w & 0x7FF0000000000000ull) == 0x7FF0000000000000ull &&
+      (w & 0x000FFFFFFFFFFFFFull) != 0ull)
+    return 0x7FF8000000000000ull;
+  return w;
+}
+
 // murmur3_x86_32, seed 0, of one column's value at row i
 __device__ __forceinline__ uint32_t column_hash(const CmhColumns& c, int j,
                                                 long long i) {
@@ -77,15 +106,18 @@ __device__ __forceinline__ uint32_t column_hash(const CmhColumns& c, int j,
       return fmix(mix_block(0u, w), 4u);
     }
     case 2: {
-      const uint32_t w = valid ? static_cast<const uint16_t*>(c.data[j])[i] : 0u;
+      uint32_t w = valid ? static_cast<const uint16_t*>(c.data[j])[i] : 0u;
+      if (c.is_float[j]) w = canon16(w, c.is_float[j]);
       return fmix(mix_block(0u, w), 4u);
     }
     case 4: {
-      const uint32_t w = valid ? static_cast<const uint32_t*>(c.data[j])[i] : 0u;
+      uint32_t w = valid ? static_cast<const uint32_t*>(c.data[j])[i] : 0u;
+      if (c.is_float[j]) w = canon32(w);
       return fmix(mix_block(0u, w), 4u);
     }
     default: {  // 8 bytes: lo word, then hi word
-      const uint64_t v = valid ? static_cast<const uint64_t*>(c.data[j])[i] : 0ull;
+      uint64_t v = valid ? static_cast<const uint64_t*>(c.data[j])[i] : 0ull;
+      if (c.is_float[j]) v = canon64(v);
       uint32_t h = mix_block(0u, static_cast<uint32_t>(v));
       h = mix_block(h, static_cast<uint32_t>(v >> 32));
       return fmix(h, 8u);

@@ -13,7 +13,7 @@ import torch
 
 from .. import precision
 from ..column import Column
-from . import compact
+from . import compact, keys
 
 
 class ReduceOp(enum.IntEnum):
@@ -50,6 +50,7 @@ def scalar_agg(col: Column, count, op: ReduceOp):
                                                       device=dev)).sum(), n
         return torch.where(mask, acc, torch.ones((), dtype=acc.dtype,
                                                  device=dev)).prod(), n
+    data, restore = keys.signed_carrier(data)
     if data.is_floating_point():
         lo, hi = float("-inf"), float("inf")
     else:
@@ -57,6 +58,6 @@ def scalar_agg(col: Column, count, op: ReduceOp):
         lo, hi = info.min, info.max
     if op == ReduceOp.MIN:
         fill = torch.full((), hi, dtype=data.dtype, device=dev)
-        return torch.where(mask, data, fill).min(), n
+        return restore(torch.where(mask, data, fill).min()), n
     fill = torch.full((), lo, dtype=data.dtype, device=dev)
-    return torch.where(mask, data, fill).max(), n
+    return restore(torch.where(mask, data, fill).max()), n

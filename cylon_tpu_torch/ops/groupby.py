@@ -31,6 +31,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .. import dtypes, precision
+from .. import column
 from ..column import Column
 from . import keys, segments
 
@@ -160,6 +161,7 @@ def _segment_aggregate(op: AggOp, data, valid, gid, num_segments: int,
         return _segment_sum(acc, gid, num_segments), cnt
     if op in (AggOp.MIN, AggOp.MAX):
         is_min = op == AggOp.MIN
+        data, restore = keys.signed_carrier(data)
         if data.is_floating_point():
             sentinel = float("inf") if is_min else float("-inf")
         elif data.dtype == torch.bool:
@@ -182,7 +184,7 @@ def _segment_aggregate(op: AggOp, data, valid, gid, num_segments: int,
             out = torch.full((num_segments,), sentinel, dtype=masked.dtype,
                              device=dev).scatter_reduce_(
                 0, gid.to(torch.int64), masked, "amin" if is_min else "amax")
-        return torch.where(cnt > 0, out, _zero(out.dtype, dev)), cnt
+        return column.zero_unless(cnt > 0, restore(out)), cnt
     if op in (AggOp.MEAN, AggOp.VAR, AggOp.STDDEV):
         facc = precision.float_acc(dev)
         x = torch.where(valid, data, _zero(data.dtype, dev)).to(facc)
@@ -241,7 +243,7 @@ def _aggregate_groups(cols, live, gid, start, end, new_group, group_live,
             validity = group_live  # a count of zero values is a valid 0
         else:
             validity = group_live & (cnts > 0)
-        vals = torch.where(validity, vals, _zero(vals.dtype, vals.device))
+        vals = column.zero_unless(validity, vals)
         out_cols.append(Column(vals, validity, None,
                                _agg_out_dtype(op, cols[col_idx].dtype, nar)))
     return out_cols

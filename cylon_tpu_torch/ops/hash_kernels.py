@@ -6,7 +6,8 @@ Replaces the JAX package's Pallas TPU kernel
 ``cylon_tpu/ops/pallas_kernels.py:84 _hash_kernel`` (``pl.pallas_call`` at
 ``:113``, entered through ``hash_partition:129``), bit for bit: murmur3_x86_32
 with seed 0 over each key column's little-endian 32-bit words
-(``column_words``), columns combined as ``h = 31*h + column_hash`` from
+(``column_words``; float keys folded first, so -0.0 hashes as +0.0 and
+every NaN alike), columns combined as ``h = 31*h + column_hash`` from
 ``h = 1``, null rows hashed as zero words, and the target ``h & (world-1)``
 for a power-of-two ``world``, else ``h % world``.  Results equal the native
 host hasher's ``ct_row_hash`` (``cylon_tpu/native/src/hashing.cpp``).
@@ -34,6 +35,7 @@ import torch
 
 from ..column import Column
 from ..status import Code, CylonError
+from . import keys
 
 C1 = 0xCC9E2D51
 C2 = 0x1B873593
@@ -85,13 +87,17 @@ _UNSIGNED_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
 
 def column_words(col: Column) -> List[torch.Tensor]:
     """The column's 32-bit words, little-endian order: one for values of at
-    most 4 bytes, lo then hi for 8-byte values.  4- and 8-byte data give
-    views of its bytes (as int32 bit patterns, no copy); 1- and 2-byte data
-    are zero-extended into int32, and bool gives 0/1."""
+    most 4 bytes, lo then hi for 8-byte values.  4- and 8-byte integer data
+    give views of its bytes (as int32 bit patterns, no copy); 1- and 2-byte
+    data are zero-extended into int32, and bool gives 0/1.  Float data is
+    first folded to one bit pattern per value (``keys.canonical_float``:
+    -0.0 as +0.0, one NaN), so keys that compare equal hash alike."""
     data = col.data
     if col.is_string:
         raise CylonError(Code.NotImplemented,
                          "column_words takes fixed-width columns only")
+    if data.is_floating_point():
+        data = keys.canonical_float(data)
     if data.dtype == torch.bool:
         return [data.to(torch.int32)]
     size = data.dtype.itemsize
@@ -164,7 +170,14 @@ class _Columns(ctypes.Structure):
                 ("valid", ctypes.c_void_p * MAX_COLS),
                 ("width", ctypes.c_int * MAX_COLS),
                 ("is_bool", ctypes.c_int * MAX_COLS),
+                ("is_float", ctypes.c_int * MAX_COLS),
                 ("ncols", ctypes.c_int)]
+
+
+# ``is_float`` codes of the column spec: which float layout the kernel
+# folds to one bit pattern per value
+_FLOAT_KIND = {torch.float16: 1, torch.float32: 1, torch.float64: 1,
+               torch.bfloat16: 2}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -196,6 +209,7 @@ def _launch(cols: Sequence[Column], world: int, hash_out: torch.Tensor,
         spec.valid[j] = c.validity.data_ptr()
         spec.width[j] = c.data.dtype.itemsize
         spec.is_bool[j] = int(c.data.dtype == torch.bool)
+        spec.is_float[j] = _FLOAT_KIND.get(c.data.dtype, 0)
     spec.ncols = len(cols)
     dev = hash_out.device
     lib = _lib()

@@ -6,6 +6,9 @@ string words first avalanche to 32 bits with the splitmix64 finalizer, and
 columns combine as ``h = 31*h + column_hash`` from ``h = 0``.  A string
 folds its packed big-endian words (``keys.pack_string_words``) from seed
 ``0x9747B28C`` and is finalized once; a null row hashes to ``0x52ABD123``.
+Float data is folded first (``keys.canonical_float``: -0.0 as +0.0, one
+NaN), which the JAX package's copy does not do, so keys that compare equal
+always land on one shard.
 
 In the JAX package this is a plain jnp function, outside any Pallas
 kernel, and it places the rows of every key set holding a string
@@ -82,6 +85,8 @@ def hash_column(col: Column) -> torch.Tensor:
         h = _fmix32(h)
     else:
         data = col.data
+        if data.is_floating_point():
+            data = keys.canonical_float(data)  # -0.0 and +0.0 hash alike
         if data.dtype == torch.bool:
             h = _fmix32(data.to(torch.int64))
         elif data.dtype.itemsize <= 4:

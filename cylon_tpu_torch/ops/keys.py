@@ -100,13 +100,42 @@ def build_operands(cols: Sequence[Column], row_count, capacity: int, *,
 
 def _invert_operand(x: torch.Tensor) -> torch.Tensor:
     """Order-reversing transform for one operand."""
-    if x.dtype == torch.uint64:  # a string word's bit pattern
+    if x.dtype == torch.uint64:  # a string word's or uint64 data's bits
         return (~x.view(torch.int64)).view(torch.uint64)
-    if x.dtype == torch.bool or not (x.is_floating_point() or x.is_signed()):
+    if x.dtype in (torch.bool, torch.uint8):
         return ~x
     if x.is_floating_point():
         return -x
+    if not x.is_signed():  # uint16 / uint32: no ``~`` on the CPU
+        x = x.to(torch.int64)
     return -1 - x
+
+
+def signed_carrier(x: torch.Tensor):
+    """(carrier, restore) for an op torch lacks on unsigned dtypes (``~``,
+    ``min``/``max``, ``scatter_reduce_`` "amin"/"amax" on the CPU):
+    ``uint16`` and ``uint32`` ride in ``int64``, ``uint64`` in its
+    sign-flipped ``int64`` view, which orders as the unsigned values do.
+    ``restore`` maps a carrier result back to ``x``'s dtype; every other
+    dtype passes through."""
+    dt = x.dtype
+    if dt in (torch.uint16, torch.uint32):
+        return x.to(torch.int64), lambda y: y.to(dt)
+    if dt == torch.uint64:
+        return (x.view(torch.int64) ^ _INT64_MIN,
+                lambda y: (y ^ _INT64_MIN).view(torch.uint64))
+    return x, lambda y: y
+
+
+def canonical_float(x: torch.Tensor) -> torch.Tensor:
+    """Float data with -0.0 folded into +0.0 and every NaN payload into
+    the one NaN torch makes of ``float("nan")``, so equal keys have equal
+    bits (``cylon_tpu/ops/keys.py:121-125``)."""
+    x = torch.where(x == 0, torch.zeros((), dtype=x.dtype, device=x.device),
+                    x)
+    return torch.where(torch.isnan(x),
+                       torch.full((), float("nan"), dtype=x.dtype,
+                                  device=x.device), x)
 
 
 def _ordered_unsigned(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -118,10 +147,7 @@ def _ordered_unsigned(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
     if dt == torch.bool:
         return x.to(torch.int64), 1
     if dt.is_floating_point:
-        x = torch.where(x == 0, torch.zeros((), dtype=dt, device=x.device), x)
-        x = torch.where(torch.isnan(x),
-                        torch.full((), float("nan"), dtype=dt,
-                                   device=x.device), x)
+        x = canonical_float(x)
         w = dt.itemsize * 8
         if w == 64:
             bits = x.view(torch.int64)

@@ -25,6 +25,7 @@ from ..config import SortOptions
 from ..ops import aggregates as agg_mod
 from ..ops import compact
 from ..ops import groupby as groupby_mod
+from ..ops import keys
 from ..ops import sort as sort_mod
 from ..ops.groupby import AggOp
 from ..status import Code, CylonError
@@ -230,9 +231,10 @@ def distributed_scalar_agg(t, col_idx: int, op: agg_mod.ReduceOp):
             for cols, n in zip(t.shards, t.counts)]
     if op in (agg_mod.ReduceOp.SUM, agg_mod.ReduceOp.COUNT):
         return collectives.allreduce_sum(vals, devices)[0]
-    if op == agg_mod.ReduceOp.MIN:
-        return collectives.allreduce_min(vals, devices)[0]
-    if op == agg_mod.ReduceOp.MAX:
-        return collectives.allreduce_max(vals, devices)[0]
+    if op in (agg_mod.ReduceOp.MIN, agg_mod.ReduceOp.MAX):
+        carried = [keys.signed_carrier(v) for v in vals]
+        combine = (collectives.allreduce_min if op == agg_mod.ReduceOp.MIN
+                   else collectives.allreduce_max)
+        return carried[0][1](combine([c for c, _ in carried], devices)[0])
     return torch.prod(collectives.allgather([v.reshape(1) for v in vals],
                                             devices)[0])

@@ -30,6 +30,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import column
 from ..column import Column
 from . import collectives
 
@@ -101,7 +102,8 @@ def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
 
     for j in range(ncols):
         cols = [s[j] for s in shards]
-        data = exchange([c.data[p] for c, p in zip(cols, perms)])
+        data = exchange([column.gather(c.data, p)
+                         for c, p in zip(cols, perms)])
         valid = exchange([c.validity[p] for c, p in zip(cols, perms)])
         lengths = ([None] * world if cols[0].lengths is None else
                    exchange([c.lengths[p] for c, p in zip(cols, perms)]))

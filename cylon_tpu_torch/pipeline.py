@@ -7,6 +7,9 @@
   group-by with SUM of the left value and MEAN of the right value, sized by
   the exact join count rounded by ``cap_round`` (the copy of
   ``cylon_tpu/table.py:1238 _cap_round``).
+- Out of core (``out_of_core_join_groupby``): the same join -> SUM/MEAN
+  group-by through the key-domain passes of ``exec.chunked_join_groupby``,
+  for inputs past the card's memory.
 - Distributed (``distributed_tables``, ``distributed_join_groupby``): the
   repo's end-to-end drive on a mesh of shards, ``Table.distributed_join``
   on the key then the two-phase ``groupby`` with the same SUM and MEAN.
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from . import column
+from . import exec as exec_mod
 from .column import DEFAULT_STRING_WIDTH, Column
 from .config import JoinType
 from .context import CylonContext
@@ -87,6 +91,14 @@ def join_groupby(cols_l, cnt_l, cols_r, cnt_r, out_cap: int
         joined, jm, (0,), ((1, groupby.AggOp.SUM), (2, groupby.AggOp.MEAN)),
         0)
     return gcols, g, jm
+
+
+def out_of_core_join_groupby(data, passes: int, ctx=None):
+    """The main path past the card's memory: ``exec.chunked_join_groupby``
+    on ``make_data``'s host arrays ``data`` in ``passes`` key-domain
+    passes, on ``ctx``'s device (default: the CUDA card).  Returns
+    ({"key", "agg0": SUM(lv), "agg1": MEAN(rv)}, stats)."""
+    return exec_mod.chunked_join_groupby(*data, passes, ctx=ctx)
 
 
 def distributed_tables(ctx, lk, lv, rk, rv) -> Tuple[Table, Table]:

@@ -1,0 +1,371 @@
+"""Resilience layer: error classification, bounded retry, and a
+deterministic fault-injection harness for the out-of-core engine.
+
+A copy of ``cylon_tpu/resilience.py``, with only the fault kinds the
+engine's probes act on.  The engine (``exec.py``) streams
+key-domain passes, which makes device memory pressure a recoverable
+condition: when a pass exceeds memory, the remaining parts split into
+more, smaller passes.  Three primitives:
+
+- **classification**: `Status.from_exception` (status.py) maps a failure
+  into the `Code` taxonomy (a CUDA allocator failure is
+  `Code.OutOfMemory`, transient comm/deadline failures
+  `Code.ExecutionError`); `RETRYABLE_CODES` names the codes a plain retry
+  may heal (not OOM: that is healed by splitting);
+- **RetryPolicy**: bounded exponential backoff driven by
+  ``CYLON_TPU_RETRY_MAX`` / ``CYLON_TPU_RETRY_BASE_S`` /
+  ``CYLON_TPU_RETRY_MAX_S``;
+- **fault injection**: named `fault_point(site)` probes (pass_dispatch,
+  host_fetch, ...) driven by a ``CYLON_TPU_FAULT_PLAN`` spec, so every
+  recovery path runs deterministically on the CPU.  Injected faults carry
+  the message shapes real failures do and take the same classification
+  path.
+
+Fault-plan spec grammar (';'- or ','-separated entries)::
+
+    site            fire an OOM on the 1st hit of `site`
+    site@N          fire an OOM on the Nth hit (1-based)
+    site@N=kind     kind in FAULT_KINDS (oom, timeout, comm, unknown, hang,
+                    delay)
+    site@N+=kind    fire on EVERY hit >= N (persistent fault)
+
+e.g. ``CYLON_TPU_FAULT_PLAN="pass_dispatch@2=oom;host_fetch@1=timeout"``.
+A kind of the JAX package that acts on a module not ported yet (the run
+journal's ``journal_corrupt``, the gang's ``rank_kill``, ...) fails the
+parse with `Code.NotImplemented` instead of firing as a no-op.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+from . import config
+from .obs import metrics as obs_metrics
+from .obs import spans as obs_spans
+from .status import Code, CylonError, Status
+
+# Codes a plain bounded retry may heal.  OutOfMemory is deliberately
+# absent: repeating an identical allocation cannot succeed — the engine
+# heals OOM by splitting the remaining key-domain parts instead.
+# Timeout (a pass-deadline overrun, durable.PassDeadline) retries like
+# any transient: the hung collective/fetch may simply have been late.
+RETRYABLE_CODES = frozenset({Code.ExecutionError, Code.Timeout})
+
+
+def max_oom_splits() -> int:
+    """How many times the engine may double the pass count before a device
+    OOM becomes fatal (``CYLON_TPU_MAX_OOM_SPLITS``, default 4 — a 16x
+    refinement of the original plan)."""
+    return max(0, int(config.knob("CYLON_TPU_MAX_OOM_SPLITS")))
+
+
+# ---------------------------------------------------------------------------
+# retry policy
+# ---------------------------------------------------------------------------
+
+_U64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    """splitmix64 finalizer on plain ints — the stateless hash behind
+    seeded full-jitter (no RNG object, no hidden state: ``(seed, i)``
+    always yields the same draw)."""
+    x = (x + 0x9E3779B97F4A7C15) & _U64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64
+    return x ^ (x >> 31)
+
+
+def _jitter_u01(seed: int, i: int) -> float:
+    """Deterministic uniform draw in [0, 1) for the ``i``-th retry under
+    ``seed``."""
+    return _splitmix64((seed & _U64) ^ _splitmix64(i)) / float(1 << 64)
+
+
+@dataclass
+class RetryPolicy:
+    """Bounded exponential backoff for transient (`Code.ExecutionError`)
+    failures.  ``max_retries`` is the number of RE-tries: an operation is
+    attempted at most ``max_retries + 1`` times.
+
+    ``jitter="full"`` draws each delay uniformly from ``[0, exp_delay]``
+    (AWS full-jitter): when MANY clients back off from the same event —
+    every survivor of a coordinator restart reconnecting at once — pure
+    exponential backoff keeps them in lockstep and the whole herd
+    thunders into the one-shot TCP accept loop on the same tick.  The
+    draw is seeded-deterministic per (seed, retry_index): give each
+    client a distinct ``jitter_seed`` (its rank) and the herd spreads,
+    while tests replay the exact same schedule."""
+
+    max_retries: int = 2
+    base_s: float = 0.05
+    max_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: str = "none"            # "none" | "full"
+    jitter_seed: int = 0
+    sleep: Callable[[float], None] = field(default=time.sleep, repr=False)
+
+    @classmethod
+    def from_env(cls) -> "RetryPolicy":
+        return cls(
+            max_retries=max(0, int(config.knob("CYLON_TPU_RETRY_MAX"))),
+            base_s=max(0.0, float(config.knob("CYLON_TPU_RETRY_BASE_S"))),
+            max_s=max(0.0, float(config.knob("CYLON_TPU_RETRY_MAX_S"))))
+
+    def delay(self, retry_index: int) -> float:
+        """Backoff before the ``retry_index``-th retry (0-based).  Safe
+        for unbounded indices (long reconnect loops): the exponential
+        saturates at ``max_s`` instead of overflowing, while the jitter
+        draw keeps advancing with the index — a capped draw would freeze
+        every late retry at one fixed per-seed delay."""
+        if retry_index >= 64:
+            d = self.max_s  # multiplier**i would overflow; it's capped
+        else:
+            d = min(self.base_s * (self.multiplier ** retry_index),
+                    self.max_s)
+        if self.jitter == "full":
+            return d * _jitter_u01(self.jitter_seed, retry_index)
+        return d
+
+    def delays(self):
+        for i in range(self.max_retries):
+            yield self.delay(i)
+
+
+# ---------------------------------------------------------------------------
+# deterministic fault injection
+# ---------------------------------------------------------------------------
+
+# Message shapes mirror real PJRT/collective failure text so injected
+# faults exercise the SAME classification path genuine failures take.
+# Only the kinds the engine's two probes (pass_dispatch, host_fetch) can
+# act on: the raising kinds, `hang` (sleeps the probe past the active
+# pass deadline) and `delay` (sleeps FAULT_DELAY_S and continues, a
+# seeded straggler).  The JAX package's other kinds act on the run
+# journal, the elastic gang or the serving layer, none of which is ported.
+_KIND_MESSAGES = {
+    "oom": ("RESOURCE_EXHAUSTED: injected fault at {site} (hit {hit}): "
+            "attempting to allocate past HBM capacity"),
+    "timeout": ("DEADLINE_EXCEEDED: injected fault at {site} (hit {hit}): "
+                "operation timed out"),
+    "comm": ("UNAVAILABLE: injected fault at {site} (hit {hit}): "
+             "connection reset by peer"),
+    "unknown": "INTERNAL: injected fault at {site} (hit {hit})",
+    "hang": "injected hang at {site} (hit {hit})",
+    "delay": "injected delay at {site} (hit {hit})",
+}
+
+FAULT_KINDS = tuple(_KIND_MESSAGES)
+
+# the JAX package's kinds that act on a module the port does not have
+# yet, by its ROADMAP.md queue A item: 10 the run journal, 11 the elastic
+# gang and the serving layer
+_UNPORTED_KINDS = {
+    **dict.fromkeys(("killhard", "journal_corrupt", "cache_evict_race",
+                     "disk_full", "bitrot", "sync_partial"), 10),
+    **dict.fromkeys(("rank_kill", "heartbeat_loss", "coordinator_loss",
+                     "coordinator_restart", "coord_partition", "coord_slow",
+                     "tenant_flood", "shed", "replica_sick"), 11),
+}
+
+#: seconds the ``delay`` kind sleeps the probe
+FAULT_DELAY_S = 0.25
+
+
+class InjectedFault(RuntimeError):
+    """Synthetic failure raised at a named `fault_point`."""
+
+    def __init__(self, site: str, kind: str, hit: int):
+        self.site = site
+        self.kind = kind
+        self.hit = hit
+        super().__init__(_KIND_MESSAGES[kind].format(site=site, hit=hit))
+
+
+@dataclass
+class _FaultRule:
+    site: str
+    nth: int          # 1-based hit index on which to fire
+    kind: str
+    persistent: bool  # fire on every hit >= nth
+
+
+class FaultPlan:
+    """Parsed ``CYLON_TPU_FAULT_PLAN``: per-site hit counters + rules.
+
+    Deterministic by construction: a site's Nth hit either always fires
+    or never does, independent of timing.  ``hits`` and ``fired`` are
+    exposed so tests can assert a site was actually exercised.
+
+    Grammar extensions for chaos schedules (`FaultSchedule`): a
+    ``seed=<int>`` entry anywhere in the spec seeds the plan, and a hit
+    index may carry ``~J`` (``site@N~J=kind``) — the rule fires on a hit
+    drawn deterministically from ``[N, N+J]`` by the seed and the rule's
+    position, so one seed replays one exact multi-event timeline while
+    different seeds explore different interleavings."""
+
+    def __init__(self, rules: List[_FaultRule], spec: str = "",
+                 seed: int = 0):
+        self.rules = rules
+        self.spec = spec
+        self.seed = seed
+        self.hits: Dict[str, int] = {}
+        self.fired: List[Tuple[str, str, int]] = []  # (site, kind, hit)
+
+    @classmethod
+    def parse(cls, spec: str) -> "FaultPlan":
+        raw_rules: List[Tuple[str, int, int, str, bool, str]] = []
+        seed = 0
+        for raw in spec.replace(",", ";").split(";"):
+            entry = raw.strip()
+            if not entry:
+                continue
+            if entry.startswith("seed="):
+                try:
+                    seed = int(entry[len("seed="):])
+                except ValueError:
+                    raise CylonError(Code.Invalid,
+                                     f"bad seed in CYLON_TPU_FAULT_PLAN "
+                                     f"entry {raw!r}")
+                continue
+            persistent = False
+            kind = "oom"
+            if "=" in entry:
+                entry, kind = entry.split("=", 1)
+                kind = kind.strip().lower()
+                if entry.endswith("+"):
+                    persistent = True
+                    entry = entry[:-1]
+            if kind in _UNPORTED_KINDS:
+                raise CylonError(Code.NotImplemented,
+                                 f"fault kind {kind!r} in "
+                                 f"CYLON_TPU_FAULT_PLAN entry {raw!r} acts "
+                                 f"on a module not ported yet (ROADMAP.md "
+                                 f"queue A, item {_UNPORTED_KINDS[kind]})")
+            if kind not in _KIND_MESSAGES:
+                raise CylonError(Code.Invalid,
+                                 f"bad fault kind {kind!r} in "
+                                 f"CYLON_TPU_FAULT_PLAN entry {raw!r} "
+                                 f"(expected one of {FAULT_KINDS})")
+            nth, jit = 1, 0
+            if "@" in entry:
+                entry, n = entry.split("@", 1)
+                if "~" in n:
+                    n, j = n.split("~", 1)
+                    try:
+                        jit = int(j)
+                    except ValueError:
+                        raise CylonError(Code.Invalid,
+                                         f"bad hit jitter {j!r} in "
+                                         f"CYLON_TPU_FAULT_PLAN entry "
+                                         f"{raw!r}")
+                    if jit < 0:
+                        raise CylonError(Code.Invalid,
+                                         f"hit jitter must be >= 0 in "
+                                         f"{raw!r}")
+                try:
+                    nth = int(n)
+                except ValueError:
+                    raise CylonError(Code.Invalid,
+                                     f"bad hit index {n!r} in "
+                                     f"CYLON_TPU_FAULT_PLAN entry {raw!r}")
+                if nth < 1:
+                    raise CylonError(Code.Invalid,
+                                     f"hit index must be >= 1 in {raw!r}")
+            site = entry.strip()
+            if not site:
+                raise CylonError(Code.Invalid,
+                                 f"empty site in CYLON_TPU_FAULT_PLAN "
+                                 f"entry {raw!r}")
+            raw_rules.append((site, nth, jit, kind, persistent, raw))
+        rules: List[_FaultRule] = []
+        for idx, (site, nth, jit, kind, persistent, _raw) in \
+                enumerate(raw_rules):
+            if jit:
+                # the seed + rule position pick the exact hit: one spec
+                # string is one timeline, replayable byte-for-byte
+                nth += _splitmix64((seed & _U64) ^ _splitmix64(idx + 1)) \
+                    % (jit + 1)
+            rules.append(_FaultRule(site, nth, kind, persistent))
+        return cls(rules, spec, seed=seed)
+
+    def check(self, site: str) -> Optional[str]:
+        """Record one hit of ``site``; return the fault kind to raise, or
+        None."""
+        hit = self.hits.get(site, 0) + 1
+        self.hits[site] = hit
+        for r in self.rules:
+            if r.site != site:
+                continue
+            if hit == r.nth or (r.persistent and hit >= r.nth):
+                self.fired.append((site, r.kind, hit))
+                return r.kind
+        return None
+
+
+# Override plan (tests, via the fault_plan() context manager) wins over the
+# env-driven plan; the env plan object persists while the spec string is
+# unchanged so its hit counters accumulate across sites in one process.
+_OVERRIDE_PLAN: Optional[FaultPlan] = None
+_ENV_PLAN: Optional[FaultPlan] = None
+
+
+def active_plan() -> Optional[FaultPlan]:
+    global _ENV_PLAN
+    if _OVERRIDE_PLAN is not None:
+        return _OVERRIDE_PLAN
+    spec = config.knob_raw("CYLON_TPU_FAULT_PLAN") or ""
+    if not spec:
+        _ENV_PLAN = None
+        return None
+    if _ENV_PLAN is None or _ENV_PLAN.spec != spec:
+        _ENV_PLAN = FaultPlan.parse(spec)
+    return _ENV_PLAN
+
+
+def fault_point(site: str) -> None:
+    """Injection probe: no-op unless an active fault plan names ``site``
+    and its hit counter matches.  Costs one dict lookup when no plan is
+    active — safe on hot paths."""
+    plan = _OVERRIDE_PLAN
+    if plan is None:
+        if not config.knob_raw("CYLON_TPU_FAULT_PLAN"):
+            return
+        plan = active_plan()
+        if plan is None:
+            return
+    kind = plan.check(site)
+    if kind is not None:
+        obs_spans.instant("fault.injected", site=site, kind=kind,
+                          hit=plan.hits[site])
+        obs_metrics.counter_add("fault.injected")
+        if kind == "hang":
+            from . import durable
+
+            time.sleep(max(1.5 * durable.deadline_s(), 0.05))
+            return
+        if kind == "delay":
+            time.sleep(FAULT_DELAY_S)
+            return
+        raise InjectedFault(site, kind, plan.hits[site])
+
+
+@contextlib.contextmanager
+def fault_plan(spec: str):
+    """Install a fresh fault plan for the duration of the block (tests).
+    Yields the `FaultPlan` so callers can assert on ``hits``/``fired``."""
+    global _OVERRIDE_PLAN
+    prev = _OVERRIDE_PLAN
+    plan = FaultPlan.parse(spec)
+    _OVERRIDE_PLAN = plan
+    try:
+        yield plan
+    finally:
+        _OVERRIDE_PLAN = prev
+
+
+def classify(exc: BaseException) -> Code:
+    """Shorthand: the classified `Code` of an exception."""
+    return Status.from_exception(exc).code

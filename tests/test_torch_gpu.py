@@ -350,3 +350,130 @@ def test_tpch_q1_on_the_card_equals_the_cpu(gen, world):
             np.testing.assert_allclose(g[name][og].astype(np.float64),
                                        w[name][ow].astype(np.float64),
                                        rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64])
+def test_hash_partition_folds_signed_zero_and_nan_on_the_card(gen, dtype):
+    """The kernel folds float keys in registers as the plain version does:
+    -0.0 hashes as +0.0, every NaN payload as one NaN, bit for bit with
+    the plain version."""
+    vals = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), 1.5,
+                         float("nan"), -float("nan")] * 300, dtype=dtype)
+    if dtype == torch.float32:  # NaN payloads a cast would not make
+        bits = vals.view(torch.int32)
+        bits[5::7] = 0x7FC0BEEF
+        bits[6::7] = 0x7F800001
+    col = column.Column(vals.to("cuda"),
+                        torch.ones(len(vals), dtype=torch.bool,
+                                   device="cuda"), None,
+                        column.dtypes.float_)
+    for world in (4, 6):
+        h, t = hash_kernels.hash_partition([col], world)
+        ph, pt = hash_kernels.hash_partition_plain([col], world)
+        assert torch.equal(h.view(torch.int32), ph.view(torch.int32))
+        assert torch.equal(t, pt)
+    h = h.view(torch.int32).cpu()
+    assert h[0] == h[1] and h[5] == h[6]
+
+
+UNSIGNED = (np.uint8, np.uint16, np.uint32, np.uint64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", UNSIGNED, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("world", [1, 4])
+def test_unsigned_operators_on_the_card_equal_the_cpu(gen, dtype, world):
+    """Descending sort, group-by MIN/MAX and scalar min/max of unsigned
+    columns on the card equal the same calls on the CPU, exactly (the
+    values span the type's top bit)."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, Table
+
+    rng = np.random.default_rng(11)
+    top = np.iinfo(dtype).max
+    n = 3000
+    k = rng.integers(0, top, n, dtype=dtype, endpoint=True)
+    k[:4] = [0, top, top - 1, 1 << (8 * np.dtype(dtype).itemsize - 1)]
+    g = rng.integers(0, 40, n).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = CylonContext.InitDistributed(MeshConfig(devices=[dev],
+                                                      world_size=world))
+        t = Table.from_numpy(["g", "k"], [g, k], ctx=ctx)
+        s = (t.sort("k", ascending=False) if world == 1
+             else t.distributed_sort("k", ascending=False))
+        gb = t.groupby("g", {"k": ["min", "max"]}).to_numpy()
+        order = np.argsort(gb["g"])
+        out[dev] = (s.to_numpy()["k"], gb["min_k"][order],
+                    gb["max_k"][order], int(t.min("k").cpu().numpy()),
+                    int(t.max("k").cpu().numpy()))
+    np.testing.assert_array_equal(out["cuda"][0], np.sort(k)[::-1])
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    assert out["cuda"][3:] == (int(k.min()), int(k.max()))
+
+
+def _engine_results(device, data, passes):
+    from cylon_tpu_torch import CylonContext, pipeline
+
+    return pipeline.out_of_core_join_groupby(
+        data, passes, ctx=CylonContext.Init(device))
+
+
+@pytest.mark.gpu
+def test_out_of_core_engine_on_the_card_equals_the_cpu(gen):
+    """2^20 rows per side in 4 passes: the card (narrow, the default for
+    CUDA tensors) against the CPU port in narrow mode, row for row: keys
+    and stats exact, SUM and MEAN rtol 1e-5; both scan kernels launch in
+    every pass on the card."""
+    from cylon_tpu_torch import pipeline, precision
+
+    data = pipeline.make_data(1 << 20)
+    scan.reset_launches()
+    got, gstats = _engine_results("cuda", data, 4)
+    assert scan.LAUNCHES["scan_1d"] >= 4
+    assert scan.LAUNCHES["segmented_scan"] >= 4
+    precision.set_accumulation("narrow")
+    try:
+        want, wstats = _engine_results("cpu", data, 4)
+    finally:
+        precision.set_accumulation(None)
+    for k in ("passes", "mode", "cap_l", "cap_r", "out_cap", "groups"):
+        assert gstats[k] == wstats[k]
+    np.testing.assert_array_equal(got["key"], want["key"])
+    for k in ("agg0", "agg1"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_out_of_core_engine_refines_under_a_capped_allocator(gen):
+    """A real device OOM, no injected fault: capped between the peaks of
+    the 2-pass and 4-pass runs, the 2-pass run splits at least once and
+    gives the uncapped result (keys exact, sums and means rtol 1e-5)."""
+    from cylon_tpu_torch import pipeline
+
+    data = pipeline.make_data(1 << 20)
+    peaks, results = {}, {}
+    for passes in (2, 4):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        results[passes] = _engine_results("cuda", data, passes)[0]
+        peaks[passes] = torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(
+            (peaks[2] + peaks[4]) / 2 / total)
+        got, stats = _engine_results("cuda", data, 2)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    assert stats.get("oom_splits", 0) >= 1
+    want = results[2]
+    go, wo = np.argsort(got["key"]), np.argsort(want["key"])
+    np.testing.assert_array_equal(got["key"][go], want["key"][wo])
+    for k in ("agg0", "agg1"):
+        np.testing.assert_allclose(got[k][go], want[k][wo], rtol=1e-5,
+                                   atol=1e-6)

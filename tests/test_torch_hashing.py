@@ -8,6 +8,10 @@ keys against the JAX package, bit for bit, on the same numpy inputs.
   set holding a string with its jnp hash on every device, and so does the
   port, so no murmur3 patch is involved.  Fixed-width key sets still take
   the murmur3 kernel's placement (its plain version here).
+
+The port folds float keys before hashing (-0.0 as +0.0, one NaN) and the
+reference does not, so the reference side hashes the folded columns
+(``torch_parity.folded_floats``); the inputs keep their -0.0 rows.
 """
 import numpy as np
 import pytest
@@ -21,7 +25,7 @@ from cylon_tpu.parallel import partition as rpartition
 from cylon_tpu_torch.ops import hash_kernels, hashing
 from cylon_tpu_torch.parallel import partition
 
-from .torch_parity import port_column
+from .torch_parity import folded_floats, port_column
 
 DTYPES = (np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16,
           np.uint32, np.uint64, np.float16, np.float32, np.float64, np.bool_)
@@ -55,9 +59,15 @@ def _ref_hash(ref_cols):
 def test_hash_column_fixed_width_bit_for_bit(dtype):
     ref = _fixed(np.random.default_rng(1), dtype)
     got = hashing.hash_column(port_column(ref)).numpy()
-    want = np.asarray(rhashing.hash_column(ref)).astype(np.int64)
+    want = np.asarray(rhashing.hash_column(folded_floats(ref))).astype(
+        np.int64)
     np.testing.assert_array_equal(got, want)
     assert got.min() >= 0 and got.max() < (1 << 32)
+    if np.dtype(dtype).kind == "f":
+        # rows 0 and 1 hold +0.0 and -0.0: equal keys, one hash
+        zeros = port_column(rcol.from_numpy(np.array([0.0, -0.0], dtype)))
+        h = hashing.hash_column(zeros).numpy()
+        assert h[0] == h[1]
 
 
 @pytest.mark.parametrize("case", ["default_width", "width_1", "wide",
@@ -87,8 +97,9 @@ def test_hash_columns_mixed_bit_for_bit():
            _strings(rng), _fixed(rng, np.bool_)]
     port = [port_column(c) for c in ref]
     for k in range(1, len(ref) + 1):
-        np.testing.assert_array_equal(hashing.hash_columns(port[:k]).numpy(),
-                                      _ref_hash(ref[:k]))
+        np.testing.assert_array_equal(
+            hashing.hash_columns(port[:k]).numpy(),
+            _ref_hash([folded_floats(c) for c in ref[:k]]))
 
 
 @pytest.mark.parametrize("world", [1, 3, 4, 8])
@@ -101,8 +112,9 @@ def test_hash_targets_string_keys_match_unpatched_reference(world, keys):
     port = [port_column(c) for c in ref]
     count = 90  # rows past it are padding: target ``world``
     key_idx = tuple(range(len(ref)))
-    want = np.asarray(rpartition.hash_targets(tuple(ref), jnp.int32(count),
-                                              key_idx, world))
+    want = np.asarray(rpartition.hash_targets(
+        tuple(folded_floats(c) for c in ref), jnp.int32(count), key_idx,
+        world))
     hash_kernels.reset_launches()
     got = partition.hash_targets(port, torch.tensor(count, dtype=torch.int32),
                                  key_idx, world)

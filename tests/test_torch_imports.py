@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import cylon_tpu_torch
-from cylon_tpu_torch import column, interop, pipeline
+from cylon_tpu_torch import column, exec as exec_mod, interop, pipeline
 from cylon_tpu_torch.ops import scan
 from cylon_tpu_torch.status import CylonError
 
@@ -39,7 +39,8 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 23  # every module of the package
+    # every module of the package, the out-of-core engine's included
+    assert int(out.stdout.split()[-1]) >= 41
 
 
 def _imported_roots(path: Path):
@@ -72,6 +73,11 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
                                    cylon_tpu_torch.dtypes.int32)
     with pytest.raises(CylonError, match="no CUDA device"):
         pipeline.tables(x, x.astype(np.float32), x, x.astype(np.float32))
+    with pytest.raises(CylonError, match="no CUDA device"):
+        exec_mod.chunked_join({"k": x}, {"k": x}, on="k", passes=2)
+    with pytest.raises(CylonError, match="no CUDA device"):
+        pipeline.out_of_core_join_groupby(
+            (x, x.astype(np.float32), x, x.astype(np.float32)), 2)
     # an explicit CPU request runs
     col = column.from_numpy(x, device="cpu")
     assert col.data.device.type == "cpu"

@@ -4,6 +4,7 @@ and through ``cylon_tpu_torch`` on the CPU."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,12 +85,28 @@ def assert_columns_equal(port_cols, ref_cols, float_rtol=None):
             np.testing.assert_array_equal(pd_, rd)
 
 
+def folded_floats(col):
+    """A reference Column whose float data has -0.0 folded into +0.0 and
+    every NaN payload into the one NaN ``float("nan")`` gives, as the port
+    folds float keys before hashing them (``keys.canonical_float``); any
+    other column as it is.  The JAX package hashes raw bits, so it splits
+    equal float keys across shards; the port places a key as the
+    reference places its folded form."""
+    data = col.data
+    if not jnp.issubdtype(data.dtype, jnp.floating):
+        return col
+    data = jnp.where(data == 0, jnp.zeros((), data.dtype), data)
+    data = jnp.where(jnp.isnan(data), jnp.array(jnp.nan, data.dtype), data)
+    return dataclasses.replace(col, data=data)
+
+
 def _murmur3_hash_targets(cols, count, key_idx, world):
     """The TPU branch of ``cylon_tpu/parallel/partition.py:50-59
-    hash_targets``: the Pallas murmur3 kernel (interpret mode here), then
-    padding rows set to ``world``."""
-    _, t = pallas_kernels.hash_partition([cols[i] for i in key_idx], world,
-                                         interpret=True)
+    hash_targets``: the Pallas murmur3 kernel (interpret mode here) over
+    the key columns with float keys folded (``folded_floats``, as the
+    port's kernel folds them), then padding rows set to ``world``."""
+    _, t = pallas_kernels.hash_partition(
+        [folded_floats(cols[i]) for i in key_idx], world, interpret=True)
     live = rcompact.live_mask(cols[0].data.shape[0], count)
     return jnp.where(live, t, jnp.int32(world))
 
@@ -97,8 +114,8 @@ def _murmur3_hash_targets(cols, count, key_idx, world):
 @contextlib.contextmanager
 def murmur3_reference(world: int):
     """A FRESH reference context of ``world`` shards whose
-    ``hash_targets`` takes its TPU (murmur3) branch, as the port does on
-    every device; restored on exit.
+    ``hash_targets`` takes its TPU (murmur3) branch over folded float keys,
+    as the port does on every device; restored on exit.
 
     On the CPU the reference places rows with its jnp hash, so only under
     this patch do its shards hold the port's rows.  The context must be
@@ -188,3 +205,25 @@ def assert_tables_equal(pt, rt, float_rtol=None):
     assert tuple(pt.names) == tuple(rt.names)
     assert int(pt.counts[0]) == int(rt.row_counts[0])
     assert_columns_equal(pt.shards[0], rt.columns, float_rtol)
+
+
+def assert_frames_equal(got, want, float_rtol=None):
+    """Host frames (dicts of numpy columns, as the chunked engines return
+    them), row for row: the same names in the same order, the same dtypes,
+    objects (strings, None nulls) equal, ints exact, floats within
+    ``float_rtol`` (default: rtol 1e-5 for float32, 1e-12 for float64)
+    with NaN where the reference has NaN."""
+    assert list(got) == list(want), (list(got), list(want))
+    for name in want:
+        g, w = np.asarray(got[name]), np.asarray(want[name])
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        assert g.dtype == w.dtype, (name, g.dtype, w.dtype)
+        if w.dtype == object:
+            assert [None if v is None else v for v in g.tolist()] \
+                == w.tolist(), name
+        elif w.dtype.kind == "f":
+            rtol = float_rtol or (1e-5 if w.dtype.itemsize <= 4 else 1e-12)
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=1e-6,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
