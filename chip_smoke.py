@@ -56,17 +56,33 @@ Phases, each of which fails the run on error:
    on one shard and on SHARDS shards, against a numpy ``bincount`` oracle
    over the group codes.  On 3f-3h both scan kernels must launch and the
    hash kernel must not (every shuffle key is a string);
+3k. the main path with the hash join: phase 3's tables through
+   ``pipeline.join_count`` and ``pipeline.join_groupby`` with
+   ``algo="hash"``; the join count must equal phase 3's, the groups
+   (ordered by key) its oracle; counters zeroed just before the first run
+   and read just after (both scan kernels must launch), the hash join's
+   build and probe rounds, best-of-5 rows/s and peak device memory;
+3l. the rest of the distributed surface on phase 3b's 4-shard tables,
+   each case against numpy with the counters zeroed around its first run,
+   first-run and best-of-3 times: (a) ``distributed_join(...,
+   algorithm="hash")`` -> the SUM/MEAN group-by, against phase 3's
+   oracle; (b) ``distributed_sort`` -> the pipeline group-by, equal to the
+   hash group-by of the same table; (c) NUNIQUE; (d) the salted NUNIQUE
+   (salt 4), equal to (c); (e) the pre-partitioned group-by of
+   ``shuffle("k")``, equal to the shuffled path; (f) ``broadcast_gather``
+   of a 2^20-row table: every shard holds every row in source-rank order.
+   The hash kernel must launch in (a)-(e);
 3i. the main path past the card's memory: ``pipeline.make_data(OOC_ROWS)``
    (2^29 rows per side, 2^30 in all) through ``exec.chunked_join_groupby``
-   in 16 key-domain passes (``pipeline.out_of_core_join_groupby``), twice:
-   steady rate ``2*rows / best run_seconds``, cold rate ``2*rows /
-   total_seconds`` of the first sweep, the plan and run seconds, the
-   per-pass capacities, peak device memory over the memory allocated at
-   the phase's start, the host's MemTotal / MemAvailable and the process's
-   peak RSS; both scan kernels must launch in every sweep (counters zeroed
-   just before each), and the result must equal phase 3's numpy
-   ``bincount`` oracle (keys and group count exact, SUM and MEAN within
-   rtol 1e-5 of float64);
+   in 16 key-domain passes (``pipeline.out_of_core_join_groupby``), one
+   sweep: steady rate ``2*rows / run_seconds``, cold rate ``2*rows /
+   total_seconds``, the plan and run seconds, the per-pass capacities,
+   peak device memory over the memory allocated at the phase's start, the
+   host's MemTotal / MemAvailable and the process's peak RSS; both scan
+   kernels must launch in every pass (counters zeroed just before the
+   sweep), and the result must equal phase 3's numpy ``bincount`` oracle
+   (keys and group count exact, SUM and MEAN within rtol 1e-5 of
+   float64);
 3j. OOM refinement on the card with no injected fault: phase 3's 2^26-row
    data through the engine at 2 and at 4 passes uncapped (each run's peak
    reserved memory recorded), then at 2 passes with the caching allocator
@@ -79,13 +95,14 @@ Phases, each of which fails the run on error:
    in all three of ``run_extents``' variants (sum, max, reversed min) at
    both the single-chip and the per-shard shape.
 
-It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
-limit line, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+It prints the script's wall time, a ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name and power limit line, and, last, ``{"ok": true,
+"device": {...}}``.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
-adds a device-time breakdown by kernel of one run of each main path, of
-the set ops, of the distributed sorts, of the string paths, of Q1 and of a
-third out-of-core sweep (whose device busy share of its wall time is the
+adds a device-time breakdown by kernel of one run of each main path (the
+hash join's included), of the set ops, of the distributed sorts, of the
+string paths, of Q1 and of a second out-of-core sweep (whose device busy share of its wall time is the
 engine's idle measure), and a stage breakdown of one distributed run.
 Phases 3i and 3j run after phase 4, once the earlier phases' tensors are
 freed.
@@ -1389,6 +1406,214 @@ def phase_stages(report: dict, dist: dict) -> None:
         f"{k} {v:.2f}" for k, v in stages.items()))
 
 
+# -- phases 3k and 3l: the hash join and the distributed surface --------------
+
+def _rounds() -> dict:
+    from cylon_tpu_torch.ops import hash_join
+
+    return dict(hash_join.ROUNDS)
+
+
+def phase_hash_join(report: dict, main: dict, rows: int,
+                    profile: bool = False) -> None:
+    """Phase 3k: the main path with ``algo="hash"`` on phase 3's tables."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import pipeline
+    from cylon_tpu_torch.ops import hash_join
+
+    tables, oracle = main["tables"], main["oracle"]
+    torch.cuda.synchronize()
+    _reset_launches()
+    hash_join.reset_rounds()
+    t0 = time.perf_counter()
+    m = pipeline.join_count(*tables, algo="hash")
+    out_cap = pipeline.cap_round(m)
+    count_rounds = _rounds()
+    gcols, g, jm = pipeline.join_groupby(*tables, out_cap, algo="hash")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, rounds = _launch_counts(), _rounds()
+    gather_rounds = {k: rounds[k] - count_rounds[k] for k in rounds}
+    log(f"[3k] join_count(algo=hash)={m} out_cap={out_cap} first run "
+        f"{first_s:.3f} s launches={launches} rounds: count "
+        f"{count_rounds}, gather {gather_rounds}")
+    if m != oracle["join"] or out_cap != main["out_cap"]:
+        raise AssertionError(f"hash join count {m} != sort path's "
+                             f"{oracle['join']}")
+    if launches["scan_1d"] < 1 or launches["segmented_scan"] < 1:
+        raise AssertionError(f"hash main path did not go through the scan "
+                             f"kernels: {launches}")
+    g_n, jm_n = int(g), int(jm)
+    if (jm_n, g_n) != (oracle["join"], oracle["groups"]):
+        raise AssertionError(f"hash counts: join {jm_n} group {g_n}")
+    valid = [c.validity.cpu().numpy() for c in gcols]
+    for v in valid:
+        if not (v[:g_n].all() and not v[g_n:].any()):
+            raise AssertionError("group validity is not the live prefix")
+    keys = gcols[0].data[:g_n].cpu().numpy()
+    order = np.argsort(keys, kind="stable")  # groups in chain-head order
+    sum_err, mean_err = _check_groups(
+        oracle, keys[order], gcols[1].data[:g_n].cpu().numpy()[order],
+        gcols[2].data[:g_n].cpu().numpy()[order], "hash join")
+    log(f"[3k] oracle: join {oracle['join']} groups {oracle['groups']} "
+        f"exact; SUM max abs err {sum_err:.3g}, MEAN max abs err "
+        f"{mean_err:.3g} (rtol {F32_SUM_RTOL})")
+    del gcols, g, jm, valid, keys, order
+
+    times, rate, peak = _best_of_5(
+        lambda: pipeline.join_groupby(*tables, out_cap, algo="hash"), rows)
+    report["hash_join"] = {
+        "rows_per_side": rows, "join_count": m, "groups": oracle["groups"],
+        "out_cap": out_cap, "launches": launches, "rounds_count": count_rounds,
+        "rounds_gather": gather_rounds, "first_run_s": first_s,
+        "times_s": times, "rows_per_s": rate, "peak_device_bytes": peak,
+        "sum_max_abs_err": sum_err, "mean_max_abs_err": mean_err}
+    log(f"[3k] best-of-5 {min(times) * 1e3:.2f} ms -> {rate:.6g} rows/s; "
+        f"times {[round(t * 1e3, 2) for t in times]} ms; peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    if profile:
+        phase_profile(report, "hash_join", lambda: pipeline.join_groupby(
+            *tables, out_cap, algo="hash"))
+
+
+def _groups_of(t, key: str, cols) -> dict:
+    """A group-by's output on the host, ordered by its key."""
+    import numpy as np
+
+    out = _cols(t, [key] + list(cols))
+    order = np.argsort(out[key], kind="stable")
+    return {n: v[order] for n, v in out.items()}
+
+
+def _expect_close(label: str, got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.shape} vs {want.shape}")
+    err = np.abs(got - want)
+    bad = np.count_nonzero(~(err <= F32_SUM_RTOL * np.abs(want)))
+    if bad:
+        raise AssertionError(f"{label}: {bad} values outside rtol "
+                             f"{F32_SUM_RTOL}")
+    return float(err.max(initial=0.0))
+
+
+def _distinct_per_key(k, v, rows: int):
+    """Distinct float32 values per int32 key in [0, rows): one direct sort
+    of (key, value bits) packed into a uint64, then a bincount of the keys
+    of the distinct pairs."""
+    import numpy as np
+
+    pairs = _distinct(_packed(k, v))
+    return np.bincount((pairs >> np.uint64(32)).astype(np.int64),
+                       minlength=rows)
+
+
+def phase_distributed_surface(report: dict, main: dict, dist: dict,
+                              rows: int) -> None:
+    """Phase 3l: the hash join and the group-bys of the distributed
+    surface on phase 3b's tables, and ``broadcast_gather``."""
+    import numpy as np
+
+    from cylon_tpu_torch import Table
+    from cylon_tpu_torch.ops.groupby import AggOp
+    from cylon_tpu_torch.parallel import ops as par_ops
+
+    lk, lv, _, _ = main["data"]
+    left, right, ctx = dist["left"], dist["right"], dist["ctx"]
+    oracle = main["oracle"]
+    t0 = time.perf_counter()
+    cnt_l = np.bincount(lk, minlength=rows)
+    present = np.flatnonzero(cnt_l)
+    sum_l = np.bincount(lk, weights=lv.astype(np.float64),
+                        minlength=rows)[present]
+    nunique = _distinct_per_key(lk, lv, rows)[present]
+    log(f"[3l] numpy oracles in {time.perf_counter() - t0:.1f} s")
+    bc_rows = min(1 << 20, rows)
+    small = Table.from_numpy(["k", "lv"], [lk[:bc_rows], lv[:bc_rows]],
+                             ctx=ctx)
+    nunique_aggs = ((1, AggOp.NUNIQUE),)
+    calls = {
+        "hash_join_groupby": lambda: left.distributed_join(
+            right, on="k", algorithm="hash").groupby(
+                "l_k", {"lv": "sum", "rv": "mean"}),
+        "pipeline_groupby": lambda: left.distributed_sort("k").groupby(
+            "k", {"lv": ["sum", "mean"]}, groupby_type="pipeline"),
+        "nunique": lambda: left.groupby("k", {"lv": "nunique"}),
+        "salted_nunique": lambda: par_ops.distributed_groupby(
+            left, (0,), nunique_aggs, 0, salt=4),
+        "pre_partitioned": lambda: par_ops.distributed_groupby(
+            left.shuffle("k"), (0,), ((1, AggOp.SUM),), 0,
+            pre_partitioned=True),
+        "broadcast_gather": lambda: par_ops.broadcast_gather(small),
+    }
+    results, nunique_out = {}, None
+    for name, fn in calls.items():
+        out, first_s, launches = _first_run(fn)
+        info = {}
+        if name == "hash_join_groupby":
+            g = _groups_of(out, "l_k", ["sum_lv", "mean_rv"])
+            info["max_abs_err"] = max(_check_groups(
+                oracle, g["l_k"], g["sum_lv"], g["mean_rv"], name))
+        elif name == "pipeline_groupby":
+            g = _groups_of(out, "k", ["sum_lv", "mean_lv"])
+            h = _groups_of(left.groupby("k", {"lv": ["sum", "mean"]}), "k",
+                           ["sum_lv", "mean_lv"])
+            _expect_equal(f"{name} keys", g["k"], h["k"])
+            _expect_equal(f"{name} keys vs numpy", g["k"], present)
+            info["max_abs_err"] = _expect_close(f"{name} sum", g["sum_lv"],
+                                                sum_l)
+            _expect_close(f"{name} vs hash sum", g["sum_lv"], h["sum_lv"])
+            _expect_close(f"{name} vs hash mean", g["mean_lv"],
+                          h["mean_lv"])
+        elif name in ("nunique", "salted_nunique"):
+            g = _groups_of(out, "k", ["nunique_lv"])
+            _expect_equal(f"{name} keys", g["k"], present)
+            _expect_equal(f"{name} counts", g["nunique_lv"], nunique)
+            if name == "nunique":
+                nunique_out = g
+            else:
+                _expect_equal(f"{name} vs unsalted", g["nunique_lv"],
+                              nunique_out["nunique_lv"])
+        elif name == "pre_partitioned":
+            g = _groups_of(out, "k", ["sum_lv"])
+            shuffled = _groups_of(par_ops.distributed_groupby(
+                left.shuffle("k"), (0,), ((1, AggOp.SUM),), 0), "k",
+                ["sum_lv"])
+            _expect_equal(f"{name} keys", g["k"], shuffled["k"])
+            _expect_equal(f"{name} keys vs numpy", g["k"], present)
+            _expect_close(f"{name} vs shuffled", g["sum_lv"],
+                          shuffled["sum_lv"])
+            info["max_abs_err"] = _expect_close(f"{name} sum", g["sum_lv"],
+                                                sum_l)
+        else:  # broadcast_gather
+            if out.row_counts.tolist() != [bc_rows] * out.num_shards:
+                raise AssertionError(f"{name}: rows {out.row_counts}")
+            for s, (cols, n) in enumerate(zip(out.shards, out.counts)):
+                n = int(n)
+                _expect_equal(f"{name} shard {s} k",
+                              cols[0].data[:n].cpu().numpy(), lk[:bc_rows])
+                _expect_equal(f"{name} shard {s} lv",
+                              cols[1].data[:n].cpu().numpy(), lv[:bc_rows])
+        if name != "broadcast_gather" and launches["hash_partition"] < 1:
+            raise AssertionError(f"{name}: the hash kernel did not launch: "
+                                 f"{launches}")
+        del out
+        r = _time_op(fn, bc_rows if name == "broadcast_gather" else
+                     2 * rows if name == "hash_join_groupby" else rows,
+                     runs=3)
+        r.update(first_run_s=first_s, launches=launches, **info)
+        results[name] = r
+        log(f"[3l] {name}: best-of-3 {r['best_ms']:.2f} ms -> "
+            f"{r['rows_per_s']:.6g} rows/s ({SHARDS} shards on one card), "
+            f"first run {first_s:.3f} s, peak "
+            f"{r['peak_device_bytes'] / 2**30:.2f} GiB, launches {launches}")
+    report["distributed_surface"] = results
+
+
 # -- phases 3i and 3j: out of core --------------------------------------------
 
 def _host_memory() -> dict:
@@ -1420,8 +1645,8 @@ def _check_out_of_core(label: str, res: dict, stats: dict, oracle: dict):
 
 def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
                       passes: int = OOC_PASSES, profile: bool = False) -> None:
-    """Phase 3i: the main path past the card's memory, two sweeps of the
-    out-of-core engine, counters zeroed just before each."""
+    """Phase 3i: the main path past the card's memory, one sweep of the
+    out-of-core engine, counters zeroed just before it."""
     import torch
 
     from cylon_tpu_torch import pipeline
@@ -1437,50 +1662,40 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
     t0 = time.perf_counter()
     oracle = _oracle(data, rows)
     oracle_s = time.perf_counter() - t0
-    sweeps, errs = [], []
-    for i in range(2):
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
-        res, stats = pipeline.out_of_core_join_groupby(data, passes)
-        torch.cuda.synchronize()
-        launches = _launch_counts()
-        peak = torch.cuda.max_memory_allocated() - base
-        sweep = {k: stats.get(k) for k in (
-            "passes", "mode", "chunk_cap", "cap_l", "cap_r", "out_cap",
-            "groups", "parts_run", "oom_splits", "retries", "plan_seconds",
-            "run_seconds", "total_seconds")}
-        sweep.update(launches=launches, peak_device_bytes=peak,
-                     host=_host_memory())
-        sweeps.append(sweep)
-        log(f"[3i] sweep {i + 1}: {json.dumps(sweep)}")
-        if launches["scan_1d"] < stats["passes"] \
-                or launches["segmented_scan"] < stats["passes"]:
-            raise AssertionError(f"sweep {i + 1} did not run both scan "
-                                 f"kernels in every pass: {launches}")
-        # every sweep is checked: the steady rate takes the best of them
-        errs.append(_check_out_of_core(f"out of core, sweep {i + 1}", res,
-                                       sweep, oracle))
-        del res
-    del oracle
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    res, stats = pipeline.out_of_core_join_groupby(data, passes)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    sweep = {k: stats.get(k) for k in (
+        "passes", "mode", "chunk_cap", "cap_l", "cap_r", "out_cap",
+        "groups", "parts_run", "oom_splits", "retries", "plan_seconds",
+        "run_seconds", "total_seconds")}
+    sweep.update(launches=launches, peak_device_bytes=peak,
+                 host=_host_memory())
+    log(f"[3i] sweep: {json.dumps(sweep)}")
+    if launches["scan_1d"] < stats["passes"] \
+            or launches["segmented_scan"] < stats["passes"]:
+        raise AssertionError(f"the sweep did not run both scan kernels in "
+                             f"every pass: {launches}")
+    sum_err, mean_err = _check_out_of_core("out of core", res, sweep, oracle)
+    del res, oracle
     gc.collect()
     if profile:
         phase_profile(report, "out_of_core",
                       lambda: pipeline.out_of_core_join_groupby(data, passes))
     del data
     gc.collect()
-    sum_err = max(e[0] for e in errs)
-    mean_err = max(e[1] for e in errs)
-    best = min(s["run_seconds"] for s in sweeps)
     out = {"rows_per_side": rows, "passes": passes, "generate_s": gen_s,
-           "oracle_s": oracle_s, "sweeps": sweeps,
-           "steady_rows_per_s": 2 * rows / best,
-           "cold_rows_per_s": 2 * rows / sweeps[0]["total_seconds"],
-           "peak_device_bytes": max(s["peak_device_bytes"] for s in sweeps),
+           "oracle_s": oracle_s, "sweeps": [sweep],
+           "steady_rows_per_s": 2 * rows / sweep["run_seconds"],
+           "cold_rows_per_s": 2 * rows / sweep["total_seconds"],
+           "peak_device_bytes": peak,
            "base_device_bytes": base, "sum_max_abs_err": sum_err,
            "mean_max_abs_err": mean_err, "host": _host_memory()}
     report["out_of_core"] = out
-    log(f"[3i] oracle: {sweeps[0]['groups']} groups exact in both sweeps; "
-        f"SUM max abs err "
+    log(f"[3i] oracle: {sweep['groups']} groups exact; SUM max abs err "
         f"{sum_err:.3g}, MEAN max abs err {mean_err:.3g} (rtol "
         f"{F32_SUM_RTOL}); steady {out['steady_rows_per_s']:.6g} rows/s, "
         f"cold {out['cold_rows_per_s']:.6g} rows/s, peak device "
@@ -1703,9 +1918,16 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     report["segmented_inputs"] = {"n": m, "resets": int(reset.sum())}
     op_launches = operator_launches(report)
     str_launches = string_launches(report)
+    surface: dict = {}
+    for r in report["distributed_surface"].values():
+        for k, n in r["launches"].items():
+            surface[k] = surface.get(k, 0) + n
     for r in rows_out:
         r["launches_operators"] = op_launches.get(r["name"], 0)
         r["launches_strings"] = str_launches.get(r["name"], 0)
+        r["launches_hash_join"] = report["hash_join"]["launches"].get(
+            r["name"], 0)
+        r["launches_distributed_surface"] = surface.get(r["name"], 0)
     for r in rows_out:
         log(f"[4] {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
             f"ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']}) "
@@ -1745,6 +1967,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     report: dict = {"device": torch.cuda.get_device_name(0)}
     kernels = []
     try:
@@ -1775,6 +1998,8 @@ def main(argv=None) -> int:
         phase_string_join(report, main_state, ROWS, args.profile)
         phase_string_distributed(report, main_state, ROWS, args.profile)
         phase_tpch_q1(report, args.profile)
+        phase_hash_join(report, main_state, ROWS, args.profile)
+        phase_distributed_surface(report, main_state, dist, ROWS)
         kernels = phase_timings(report, main_state, dist, ROWS)
         del main_state, dist
         gc.collect()
@@ -1786,6 +2011,7 @@ def main(argv=None) -> int:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
                                          for s in ooc]
         report["kernels"] = kernels
+        report["wall_s"] = time.perf_counter() - t_start
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1797,6 +2023,7 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1, default=str)
 
+    log(f"[wall] chip_smoke.py ran {report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(report["smi"])
     print(json.dumps({"ok": True, "device": {

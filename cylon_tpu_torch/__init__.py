@@ -8,9 +8,11 @@ The JAX package's Pallas TPU kernels become hand-written CUDA kernels
 (``cuda/``), built with ``nvcc`` at first use; each has a plain PyTorch
 version beside it that CPU tensors take.  A ``CylonContext`` holds an
 in-process mesh of shards (``context.py``), over which a ``Table`` runs the
-distributed rung (``parallel/``).  ``exec`` streams key-domain passes of
-a join (and group-by) over host frames larger than the card's memory,
-splitting passes that run out of it (``resilience``).
+distributed rung (``parallel/``): sort-merge and hash joins, hash and
+pipeline group-bys, NUNIQUE, sorts, set ops and broadcasts.  ``exec``
+streams key-domain passes of a join (and group-by) over host frames
+larger than the card's memory, splitting passes that run out of it
+(``resilience``).
 """
 from __future__ import annotations
 

@@ -29,11 +29,13 @@ tensors are released (the exception's frames cleared) and the caching
 allocator's free blocks returned, so the smaller rebuild does not fail on
 memory the dead pass still holds.
 
-Each pass runs on the engine's device, ``ctx.devices[0]``, or the CUDA
-card when no ``ctx`` is given; without a card it raises, never falling
-back to the CPU.  The mesh path (``_chunked_distributed``), the run
-journal (``CYLON_TPU_DURABLE_DIR``) and the standalone chunked group-by,
-sort and unique are not ported (ROADMAP.md queue A, items 4 and 10).
+Every pass program joins by the configured algorithm, sort-merge or hash
+(``algo=``).  Each pass runs on the engine's device, ``ctx.devices[0]``,
+or the CUDA card when no ``ctx`` is given; without a card it raises,
+never falling back to the CPU.  The mesh path (``_chunked_distributed``),
+the run journal (``CYLON_TPU_DURABLE_DIR``) and the standalone chunked
+group-by, sort and unique are not ported (ROADMAP.md queue A, items 4 and
+10).
 """
 from __future__ import annotations
 
@@ -1015,7 +1017,6 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
     _check_key_dtypes(arrs_l, lon, arrs_r, ron)
     cfg = JoinConfig.of(how, algo, tuple(lon), tuple(ron),
                         left_prefix, right_prefix)
-    join_mod._require_sort(cfg.algorithm)
     ctx = _engine_context(ctx)
     device = ctx.devices[0]
     durable.require_off()

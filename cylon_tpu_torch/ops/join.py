@@ -1,20 +1,19 @@
-"""Local sort-merge join over dense key runs.
+"""Local join over dense key runs, by sort-merge or by hash.
 
 The port of ``cylon_tpu/ops/join.py`` (reference: cpp/src/cylon/join/
 join.cpp sort-merge and hash joins):
 
-1. one multi-key lexsort of the union of both tables' key rows is the
-   only sort;
-2. each left row's match range [lo, lo + matches) into the key-ordered
-   right side is prefix arithmetic over that order (``run_extents``); the
-   key-ordered right permutation is a stable partition of the sorted
-   entries;
-3. the variable-size expansion is a static-capacity gather: each emitting
+1. ``algorithm="sort"``: one multi-key lexsort of the union of both
+   tables' key rows is the only sort; each left row's match range
+   [lo, lo + matches) into the key-ordered right side is prefix
+   arithmetic over that order (``run_extents``); the key-ordered right
+   permutation is a stable partition of the sorted entries;
+   ``algorithm="hash"``: the same ranges from an open-addressing hash
+   table (``hash_join.match_ranges_hash``), the right side ordered by
+   chain head;
+2. the variable-size expansion is a static-capacity gather: each emitting
    left row writes its index at its first output slot and a running max
    fills the slots after it.
-
-Only the sort algorithm is ported; ``algorithm="hash"`` raises until
-``hash_join.py`` is.
 """
 from __future__ import annotations
 
@@ -26,14 +25,9 @@ from .. import precision
 from ..column import Column
 from ..config import JoinType
 from ..status import Code, CylonError
-from . import common, compact, scan, segments
+from . import common, compact, hash_join, scan, segments
 
-
-def _require_sort(algorithm: str) -> None:
-    if algorithm != "sort":
-        raise CylonError(Code.NotImplemented,
-                         f"join algorithm {algorithm!r} is not ported yet; "
-                         "use 'sort'")
+_I32_MAX = (1 << 31) - 1
 
 
 def _match_ranges(cols_l, count_l, cols_r, count_r, left_on, right_on,
@@ -91,14 +85,28 @@ def _emission(matches, live_l, join_type: JoinType):
     return emit, csum, total
 
 
+def _ranges(cols_l, count_l, cols_r, count_r, left_on, right_on,
+            join_type: JoinType, algorithm: str):
+    """``_match_ranges``' six outputs by ``algorithm``; the hash path has
+    no key order of the left rows (None)."""
+    if algorithm == "hash":
+        return hash_join.match_ranges_hash(
+            cols_l, count_l, cols_r, count_r, left_on, right_on,
+            join_type) + (None,)
+    if algorithm != "sort":
+        raise CylonError(Code.Invalid, f"bad join algorithm {algorithm!r}")
+    return _match_ranges(cols_l, count_l, cols_r, count_r, left_on,
+                         right_on, join_type)
+
+
 def join_row_count(cols_l: Sequence[Column], count_l,
                    cols_r: Sequence[Column], count_r,
                    left_on: Tuple[int, ...], right_on: Tuple[int, ...],
                    join_type: JoinType, algorithm: str = "sort"):
     """Exact output row count of the join (0-d int32 tensor)."""
-    _require_sort(algorithm)
-    _, matches, _, live_l, unmatched_r, _ = _match_ranges(
-        cols_l, count_l, cols_r, count_r, left_on, right_on, join_type)
+    _, matches, _, live_l, unmatched_r, _ = _ranges(
+        cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
+        algorithm)
     _, _, total = _emission(matches, live_l, join_type)
     if join_type in (JoinType.RIGHT, JoinType.FULL_OUTER):
         total = total + unmatched_r.sum(dtype=torch.int32)
@@ -122,19 +130,28 @@ def join_gather(cols_l: Sequence[Column], count_l,
     the output row count.
 
     ``key_grouped=True`` (INNER only) emits rows with equal keys adjacent,
-    in key order, so a group-by on the key can take the boundary-scan
-    pipeline group-by without another sort."""
-    _require_sort(algorithm)
-    lo, matches, perm_r, live_l, unmatched_r, left_key_order = _match_ranges(
-        cols_l, count_l, cols_r, count_r, left_on, right_on, join_type)
+    so a group-by on the key can take the boundary-scan pipeline group-by
+    without another sort: in key order on the sort path, where the
+    combined lexsort gives the left rows' key order; on the hash path,
+    which has none, by a stable sort of the left rows on ``lo``, which
+    names a matched row's key group."""
+    lo, matches, perm_r, live_l, unmatched_r, left_key_order = _ranges(
+        cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
+        algorithm)
     dev = lo.device
     perm_l = None
     if key_grouped:
         if join_type != JoinType.INNER:
             raise ValueError("key_grouped join output requires INNER")
-        lm = (live_l & (matches > 0))[left_key_order]
-        part, _ = compact.partition_indices(lm)
-        perm_l = left_key_order[part]
+        matched = live_l & (matches > 0)
+        if left_key_order is None:
+            order_key = torch.where(matched, lo, torch.full(
+                (), _I32_MAX, dtype=torch.int32, device=dev))
+            perm_l = torch.sort(order_key, stable=True).indices.to(
+                torch.int32)
+        else:
+            part, _ = compact.partition_indices(matched[left_key_order])
+            perm_l = left_key_order[part]
         lo = lo[perm_l]
         matches = matches[perm_l]
         live_l = live_l[perm_l]

@@ -2,11 +2,12 @@
 
 - Single chip (``tables``, ``join_count``, ``join_groupby``): the twin of
   the JAX package's benchmark program (``bench.py:134
-  make_bench_pipeline``), an inner sort-merge join with
-  ``key_grouped=True`` and ``project=(0, 1, 3)`` feeding a boundary-scan
-  group-by with SUM of the left value and MEAN of the right value, sized by
-  the exact join count rounded by ``cap_round`` (the copy of
-  ``cylon_tpu/table.py:1238 _cap_round``).
+  make_bench_pipeline(out_cap, algo)``), an inner join (sort-merge, or
+  hash with ``algo="hash"``) with ``key_grouped=True`` and
+  ``project=(0, 1, 3)`` feeding a boundary-scan group-by with SUM of the
+  left value and MEAN of the right value, sized by the exact join count
+  rounded by ``cap_round`` (the copy of ``cylon_tpu/table.py:1238
+  _cap_round``).
 - Out of core (``out_of_core_join_groupby``): the same join -> SUM/MEAN
   group-by through the key-domain passes of ``exec.chunked_join_groupby``,
   for inputs past the card's memory.
@@ -74,18 +75,19 @@ def tables(lk, lv, rk, rv, device=None):
     return cols_l, cnt_l, cols_r, cnt_r
 
 
-def join_count(cols_l, cnt_l, cols_r, cnt_r) -> int:
+def join_count(cols_l, cnt_l, cols_r, cnt_r, algo: str = "sort") -> int:
     """Exact inner-join row count (synchronises with the device)."""
     return int(join.join_row_count(cols_l, cnt_l, cols_r, cnt_r, (0,), (0,),
-                                   JoinType.INNER))
+                                   JoinType.INNER, algo))
 
 
-def join_groupby(cols_l, cnt_l, cols_r, cnt_r, out_cap: int
+def join_groupby(cols_l, cnt_l, cols_r, cnt_r, out_cap: int,
+                 algo: str = "sort"
                  ) -> Tuple[Tuple[Column, ...], torch.Tensor, torch.Tensor]:
     """(group columns (key, SUM(lv), MEAN(rv)), group count, join count);
-    the counts are 0-d tensors."""
+    the counts are 0-d tensors.  ``algo`` is the join's algorithm."""
     joined, jm = join.join_gather(cols_l, cnt_l, cols_r, cnt_r, (0,), (0,),
-                                  JoinType.INNER, out_cap, "sort",
+                                  JoinType.INNER, out_cap, algo,
                                   key_grouped=True, project=(0, 1, 3))
     gcols, g = groupby.pipeline_groupby(
         joined, jm, (0,), ((1, groupby.AggOp.SUM), (2, groupby.AggOp.MEAN)),

@@ -237,19 +237,31 @@ def test_context_devices_and_unported_paths(pctx, monkeypatch):
 
     names, arrays = _frame(n=40)
     t = Table.from_numpy(names, arrays, ctx=pctx)
-    with pytest.raises(CylonError, match="NotImplemented"):
-        t.groupby("k", {"v": "sum"}, groupby_type="pipeline")
-    with pytest.raises(CylonError, match="NotImplemented"):
-        t.groupby("k", {"v": "nunique"})
+    # the pipeline and NUNIQUE group-bys and broadcast_gather, once
+    # refused on a mesh, now run
+    k = arrays[0]
+    piped = t.distributed_sort("k").groupby("k", {"w": "count"},
+                                            groupby_type="pipeline")
+    assert piped.row_count == len(np.unique(k))
+    nu = t.groupby("k", {"w": "nunique"}).to_numpy()
+    assert dict(zip(nu["k"].tolist(), nu["nunique_w"].tolist())) == {
+        int(x): len(np.unique(arrays[2][k == x])) for x in np.unique(k)}
+    from cylon_tpu_torch.parallel import ops as par_ops
+
+    everywhere = par_ops.broadcast_gather(t)
+    assert everywhere.row_counts.tolist() == [40] * WORLD
     with pytest.raises(CylonError, match="KeyError"):
         t.shuffle("nope")
     with pytest.raises(CylonError, match="Invalid"):
         t.distributed_join(t, left_on="k", right_on="w")  # int32 vs int64
-    from cylon_tpu_torch.parallel import ops as par_ops
-
     from cylon_tpu_torch.ops.groupby import AggOp
 
-    with pytest.raises(CylonError, match="NotImplemented"):
+    # a salted SUM is refused as the reference refuses it (Invalid)
+    with pytest.raises(CylonError, match="Invalid"):
         par_ops.distributed_groupby(t, (0,), ((1, AggOp.SUM),), 0, salt=2)
+    # still unported: the out-of-core engine over a mesh
+    from cylon_tpu_torch import exec as pexec
+
     with pytest.raises(CylonError, match="NotImplemented"):
-        par_ops.broadcast_gather(t)
+        pexec.chunked_join_groupby(arrays[0], arrays[1], arrays[0],
+                                   arrays[1], 2, ctx=pctx)

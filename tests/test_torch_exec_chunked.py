@@ -121,11 +121,44 @@ def test_chunked_negative_int64_keys(rng, mode):
     _assert_same_run(*_both(data, 6, mode))
 
 
-def test_chunked_hash_algo_is_not_ported(rng):
-    with pytest.raises(CylonError, match="not ported") as e:
-        pexec.chunked_join_groupby(*_data(rng, 100), 4, algo="hash",
-                                   ctx=CPU)
-    assert e.value.code == Code.NotImplemented
+@pytest.mark.parametrize("mode", ["wide", "narrow"])
+@pytest.mark.parametrize("passes", [1, 4, 7])
+def test_chunked_hash_join_groupby_matches_reference(rng, mode, passes):
+    """The fused key-grouped pass program with ``algo="hash"``: groups
+    come out in chain-head order, row for row with the reference."""
+    got, gstats, want, wstats = _both(_data(rng, 6000), passes, mode,
+                                      algo="hash")
+    _assert_same_run(got, gstats, want, wstats)
+    assert gstats["passes"] == passes
+
+
+@pytest.mark.parametrize("mode", ["wide", "narrow"])
+def test_chunked_hash_algo_is_not_ported(rng, mode):
+    """``algo="hash"`` runs, once refused, through the other two pass
+    programs, row for row against the reference: the plain join (every
+    join type) and the hash group-by of a non-key column (partials
+    combined across passes)."""
+    lk, lv, rk, rv = _data(rng, 3000, 0, 500)
+    left = {"k": lk, "lv": lv, "g": (lk % 7).astype(np.int32)}
+    right = {"k": rk[rk % 5 != 3], "rv": rv[rk % 5 != 3]}
+    for how in ("inner", "left", "right", "outer"):
+        with modes(mode):
+            want, wstats = rexec.chunked_join(left, right, on="k", how=how,
+                                              passes=4, algo="hash")
+            got, gstats = pexec.chunked_join(left, right, on="k", how=how,
+                                             passes=4, algo="hash", ctx=CPU)
+        assert_frames_equal(got, want)
+        assert gstats["rows"] == wstats["rows"] > 0
+    agg = {"lv": "sum", "rv": ["mean", "count"]}
+    with modes(mode):
+        want, wstats = rexec.chunked_join_groupby_tables(
+            left, right, on="k", group_by="g", agg=agg, passes=4,
+            algo="hash")
+        got, gstats = pexec.chunked_join_groupby_tables(
+            left, right, on="k", group_by="g", agg=agg, passes=4,
+            algo="hash", ctx=CPU)
+    assert_frames_equal(got, want)
+    assert gstats["groups"] == wstats["groups"] == 7
 
 
 def test_engine_refuses_a_mesh_and_the_journal(rng, tmp_path):

@@ -477,3 +477,108 @@ def test_out_of_core_engine_refines_under_a_capped_allocator(gen):
     for k in ("agg0", "agg1"):
         np.testing.assert_allclose(got[k][go], want[k][wo], rtol=1e-5,
                                    atol=1e-6)
+
+
+# -- the hash join and the distributed group-bys ------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["inner", "left", "right", "outer"])
+def test_hash_join_on_the_card_equals_the_cpu(gen, how):
+    """``Table.join(..., algorithm="hash")`` on the card against the same
+    join on the CPU, slot for slot (the table, chain heads and ranges are
+    integer work), with float keys holding -0.0, +0.0 and NaN (null)."""
+    from cylon_tpu_torch import CylonContext, Table, pipeline
+    from cylon_tpu_torch.ops import hash_join
+
+    lk, lv, rk, rv = pipeline.make_data(20000)
+    fk_l = (lk % 300).astype(np.float32)
+    fk_r = (rk % 300).astype(np.float32)
+    fk_l[::13], fk_r[::11] = -0.0, 0.0
+    fk_l[::17], fk_r[::19] = np.nan, np.nan
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = CylonContext.Init(dev)
+        left = Table.from_numpy(["k", "lv"], [fk_l, lv], ctx=ctx)
+        right = Table.from_numpy(["k", "rv"], [fk_r, rv], ctx=ctx)
+        hash_join.reset_rounds()
+        out[dev] = left.join(right, on="k", how=how, algorithm="hash")
+        assert hash_join.ROUNDS["build"] > 0
+        if dev == "cpu":
+            sort = left.join(right, on="k", how=how)
+    _assert_same_table(out["cuda"], out["cpu"])
+    _assert_same_table(out["cuda"], sort)  # the sort join's rows
+
+
+@pytest.mark.gpu
+def test_hash_join_pipeline_on_the_card_equals_the_cpu(gen):
+    """``pipeline.join_groupby(..., algo="hash")`` at 2^20 rows per side:
+    group keys and counts exact, SUM and MEAN rtol 1e-5; both scan kernels
+    launch on the card."""
+    from cylon_tpu_torch import pipeline, precision
+
+    data = pipeline.make_data(1 << 20)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tables = pipeline.tables(*data, device=dev)
+        precision.set_accumulation("narrow")
+        try:
+            m = pipeline.join_count(*tables, algo="hash")
+            scan.reset_launches()
+            res[dev] = pipeline.join_groupby(*tables, pipeline.cap_round(m),
+                                             algo="hash")
+            if dev == "cuda":
+                assert scan.LAUNCHES["scan_1d"] >= 2
+                assert scan.LAUNCHES["segmented_scan"] >= 1
+        finally:
+            precision.set_accumulation(None)
+    (gc_, gg, gj), (wc, wg, wj) = res["cuda"], res["cpu"]
+    assert int(gj) == int(wj) and int(gg) == int(wg) > 0
+    n = int(wg)
+    assert torch.equal(gc_[0].data[:n].cpu(), wc[0].data[:n])
+    for g, w in zip(gc_[1:], wc[1:]):
+        torch.testing.assert_close(g.data[:n].cpu().double(),
+                                   w.data[:n].double(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_distributed_groupbys_on_the_card_equal_the_cpu(gen):
+    """4 shards on the card against 4 on the CPU, both narrow: the
+    pipeline group-by of a range-sorted table and the NUNIQUE (plain and
+    salted) group-bys, shard for shard (murmur3 places rows alike on
+    both); float sums rtol 1e-5; ``broadcast_gather`` exact."""
+    from cylon_tpu_torch import pipeline, precision
+
+    lk, lv, _, _ = pipeline.make_data(8000)
+    w = (lk % 37).astype(np.int64)
+    out = {}
+    precision.set_accumulation("narrow")
+    try:
+        _distributed_groupbys(out, lk, lv, w)
+    finally:
+        precision.set_accumulation(None)
+    _assert_same_table(out["cuda"]["pipeline"], out["cpu"]["pipeline"],
+                       1e-5)
+    for name in ("nunique", "salted", "broadcast"):
+        _assert_same_table(out["cuda"][name], out["cpu"][name])
+
+
+def _distributed_groupbys(out, lk, lv, w):
+    from cylon_tpu_torch import CylonContext, MeshConfig, Table
+    from cylon_tpu_torch.ops.groupby import AggOp
+    from cylon_tpu_torch.parallel import ops as par_ops
+
+    for dev in ("cuda", "cpu"):
+        ctx = CylonContext.InitDistributed(MeshConfig(devices=[dev],
+                                                      world_size=4))
+        t = Table.from_numpy(["k", "lv", "w"], [lk % 500, lv, w], ctx=ctx)
+        hash_kernels.reset_launches()
+        out[dev] = {
+            "pipeline": t.distributed_sort("k").groupby(
+                "k", {"lv": ["sum", "mean"]}, groupby_type="pipeline"),
+            "nunique": t.groupby("k", {"w": "nunique"}),
+            "salted": par_ops.distributed_groupby(
+                t, (0,), ((2, AggOp.NUNIQUE),), 0, salt=4),
+            "broadcast": par_ops.broadcast_gather(t.project(["k", "w"])),
+        }
+        if dev == "cuda":
+            assert hash_kernels.LAUNCHES["hash_partition"] >= 12

@@ -91,10 +91,16 @@ def test_key_grouped_projected_join_matches_reference(mode):
 
 
 def test_join_rejects_unported_and_invalid_options():
+    """``algorithm="hash"``, refused until the hash join was ported, now
+    counts what the sort join counts; the invalid options still raise."""
     rng = np.random.default_rng(67)
     _, pl, cl, _, pr, cr, on = _join_tables(rng)
-    with pytest.raises(Exception, match="not ported"):
-        join.join_row_count(pl, cl, pr, cr, on, on, JoinType.INNER, "hash")
+    for jt in JOIN_TYPES:
+        assert int(join.join_row_count(pl, cl, pr, cr, on, on, JoinType[jt],
+                                       "hash")) == \
+            int(join.join_row_count(pl, cl, pr, cr, on, on, JoinType[jt]))
+    with pytest.raises(Exception, match="bad join algorithm"):
+        join.join_row_count(pl, cl, pr, cr, on, on, JoinType.INNER, "merge")
     with pytest.raises(ValueError, match="requires INNER"):
         join.join_gather(pl, cl, pr, cr, on, on, JoinType.LEFT, 64,
                          key_grouped=True)
