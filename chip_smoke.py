@@ -89,6 +89,37 @@ Phases, each of which fails the run on error:
    capped between the two peaks: it must split at least once and equal
    the uncapped run (keys and group count exact, sums and means rtol
    1e-5); the cap is lifted even when the phase fails;
+3m. ``chunked_groupby`` of 3i's left table (2^29 rows, read from 3i's
+   data) by ``k`` with SUM, MEAN and COUNT of the value, in 16 passes
+   (``pipeline.out_of_core_groupby``), against 3i's numpy ``bincount``s
+   with and without weights: groups and counts exact, float sums and
+   means within rtol 1e-5 of float64; both scan kernels must launch in
+   every pass;
+3n. ``chunked_unique`` of the first 2^28 keys of that table against the
+   nonzero count of their ``bincount`` (the distinct keys as a set);
+3o. ``chunked_sort`` of its first 2^28 rows by ``k`` in 16 passes: keys
+   never decrease, per-key counts equal the ``bincount``, per-key float64
+   value sums match it (rtol 1e-5), with no host sort;
+3p. ``chunked_repartition`` of 3i's two sides as one 2^30-row ``{k, v}``
+   frame into 4 hash targets in 16 passes of 2^26 rows: counts sum to the
+   rows, every target's keys re-hash to it under the card's
+   ``hash_partition`` (in chunks), the bincount of the output keys equals
+   the input's; the hash kernel launches at least once per pass;
+3q. ``chunked_distributed_join_groupby`` of 2^27 rows per side over 4
+   in-process shards on the one card, in 8 passes, against phase 3's
+   numpy oracle; the hash kernel must launch in every pass (4 shards on
+   one card, not a multi-card number);
+3r. the one-shot fallback under a real allocator OOM: on 2^26-row tables
+   on the card, the uncapped one-shot ``Table.join`` and a 4-pass
+   ``chunked_join`` give two peaks of reserved memory; capped between
+   them, ``Table.join`` must fall back (a ``table.oneshot_fallback``
+   instant) and give the uncapped rows; the same for the hash
+   ``Table.groupby`` against a 4-pass ``chunked_groupby``; the cap is
+   lifted even when the phase fails.
+   Each of 3m-3r zeroes the launch counters just before its call, reads
+   them just after, and prints its stats, peak device memory, host
+   memory and call time; their checks run on the card (``_card``), since
+   numpy takes seconds per pass over 2^29 rows on the card's host;
 4. each kernel's time at the main path's shapes (CUDA events), its bound
    (bytes over 3.35 TB/s), its plain version's time and, where one
    PyTorch call computes the same function, that call's time; ``scan_1d``
@@ -102,9 +133,10 @@ device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
 adds a device-time breakdown by kernel of one run of each main path (the
 hash join's included), of the set ops, of the distributed sorts, of the
-string paths, of Q1 and of a second out-of-core sweep (whose device busy share of its wall time is the
-engine's idle measure), and a stage breakdown of one distributed run.
-Phases 3i and 3j run after phase 4, once the earlier phases' tensors are
+string paths, of Q1, of a second out-of-core sweep (whose device busy
+share of its wall time is the engine's idle measure) and of a second run
+of 3m, 3o, 3p and 3q, and a stage breakdown of one distributed run.
+Phases 3i-3r run after phase 4, once the earlier phases' tensors are
 freed.
 """
 from __future__ import annotations
@@ -458,10 +490,12 @@ def _float_key_checks(dev, case, passed, checks) -> None:
 
 # -- phase 3 ------------------------------------------------------------------
 
-def _oracle(data, rows: int) -> dict:
+def _oracle(data, rows: int, keep_left: bool = False) -> dict:
     """numpy bincount oracle of the join -> SUM/MEAN group-by on
     ``pipeline.make_data`` tables: join count, group keys (ascending),
-    float64 SUM(lv) and MEAN(rv) per group."""
+    float64 SUM(lv) and MEAN(rv) per group; with ``keep_left`` also the
+    left side's per-key counts and float64 value sums (dense over
+    ``[0, rows)``), the group-by oracle of phase 3m."""
     import numpy as np
 
     lk, lv, rk, rv = data
@@ -469,10 +503,17 @@ def _oracle(data, rows: int) -> dict:
     cr = np.bincount(rk, minlength=rows).astype(np.int64)
     sl = np.bincount(lk, weights=lv.astype(np.float64), minlength=rows)
     sr = np.bincount(rk, weights=rv.astype(np.float64), minlength=rows)
-    both = (cl > 0) & (cr > 0)
-    return {"join": int((cl * cr).sum()), "groups": int(both.sum()),
-            "keys": np.nonzero(both)[0].astype(np.int32),
-            "sum": (sl * cr)[both], "mean": (sr / np.maximum(cr, 1))[both]}
+    # gathers at the group keys and a dot product instead of full-length
+    # temporaries and boolean masks: the same values, fewer passes over
+    # 2^29-long arrays on a host where each pass takes seconds
+    keys = np.flatnonzero((cl > 0) & (cr > 0))
+    cr_k = cr[keys]
+    out = {"join": int(np.dot(cl, cr)), "groups": len(keys),
+           "keys": keys.astype(np.int32),
+           "sum": sl[keys] * cr_k, "mean": sr[keys] / cr_k}
+    if keep_left:
+        out.update(count_l=cl, sum_l=sl)
+    return out
 
 
 def _check_groups(oracle: dict, keys, sums, means, label: str):
@@ -1644,9 +1685,11 @@ def _check_out_of_core(label: str, res: dict, stats: dict, oracle: dict):
 
 
 def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
-                      passes: int = OOC_PASSES, profile: bool = False) -> None:
+                      passes: int = OOC_PASSES, profile: bool = False) -> list:
     """Phase 3i: the main path past the card's memory, one sweep of the
-    out-of-core engine, counters zeroed just before it."""
+    out-of-core engine, counters zeroed just before it.  Returns the
+    generated ``[lk, lv, rk, rv]`` for phases 3m-3p and the left side's
+    numpy per-key counts and sums (3m's oracle)."""
     import torch
 
     from cylon_tpu_torch import pipeline
@@ -1660,7 +1703,7 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
     log(f"[3i] {rows} rows per side generated in {gen_s:.1f} s; host "
         f"{_host_memory()}")
     t0 = time.perf_counter()
-    oracle = _oracle(data, rows)
+    oracle = _oracle(data, rows, keep_left=True)
     oracle_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -1680,13 +1723,12 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
         raise AssertionError(f"the sweep did not run both scan kernels in "
                              f"every pass: {launches}")
     sum_err, mean_err = _check_out_of_core("out of core", res, sweep, oracle)
+    left = {"count": oracle["count_l"], "sum": oracle["sum_l"]}
     del res, oracle
     gc.collect()
     if profile:
         phase_profile(report, "out_of_core",
                       lambda: pipeline.out_of_core_join_groupby(data, passes))
-    del data
-    gc.collect()
     out = {"rows_per_side": rows, "passes": passes, "generate_s": gen_s,
            "oracle_s": oracle_s, "sweeps": [sweep],
            "steady_rows_per_s": 2 * rows / sweep["run_seconds"],
@@ -1701,6 +1743,7 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
         f"cold {out['cold_rows_per_s']:.6g} rows/s, peak device "
         f"{out['peak_device_bytes'] / 2**30:.2f} GiB over "
         f"{base / 2**30:.2f} GiB resident")
+    return list(data), left
 
 
 def _sorted_groups(res: dict):
@@ -1771,6 +1814,518 @@ def phase_oom_refinement(report: dict, rows: int = ROWS) -> None:
            "groups": stats["groups"]}
     report["oom_refinement"] = out
     log(f"[3j] {json.dumps(out)}")
+
+
+# -- phases 3m-3r: the rest of the out-of-core rung ---------------------------
+
+def _ooc_call(label: str, fn):
+    """Run one out-of-core entry point with the launch counters zeroed
+    just before it and read just after: (result, stats, record), the
+    record holding the stats, launches, first-call seconds, peak device
+    memory over the memory allocated before the call, and host memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res, stats = fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    rec = {"stats": stats, "launches": launches, "call_s": call_s,
+           "peak_device_bytes": torch.cuda.max_memory_allocated() - base,
+           "base_device_bytes": base, "host": _host_memory()}
+    log(f"[{label}] {json.dumps(rec, default=str)}")
+    return res, stats, rec
+
+
+def _card(a):
+    """A host array as a CUDA tensor (the checks run on the card: numpy
+    takes seconds per pass over 2^29 rows on the card's host)."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+def _card_dense(label: str, keys, rows: int, *values):
+    """Per-group host ``values`` scattered on the card into dense float64
+    arrays over ``[0, rows)``, after checking that every key is in range
+    and appears once: (present mask, dense arrays), CUDA tensors."""
+    import torch
+
+    k = _card(keys).long()
+    if k.numel() and (int(k.min()) < 0 or int(k.max()) >= rows):
+        raise AssertionError(f"{label}: a group key is out of range")
+    seen = torch.bincount(k, minlength=rows)
+    if int(seen.max()) > 1:
+        raise AssertionError(f"{label}: a group key appears twice")
+    present = seen > 0
+    del seen
+    dense = []
+    for v in values:
+        d = torch.zeros(rows, dtype=torch.float64, device="cuda")
+        d[k] = _card(v).double()
+        dense.append(d)
+    return present, dense
+
+
+def _card_rtol(label: str, got, want) -> float:
+    """Max abs error of ``got`` against the float64 ``want`` (CUDA
+    tensors); raises if any value is outside ``F32_SUM_RTOL`` of it."""
+    err = (got.double() - want).abs()
+    bad = int((~(err <= F32_SUM_RTOL * want.abs())).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} values outside rtol "
+                             f"{F32_SUM_RTOL} of the float64 oracle")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_ooc_groupby(report: dict, data, left: dict, rows: int = OOC_ROWS,
+                      passes: int = OOC_PASSES, profile: bool = False) -> None:
+    """Phase 3m: ``chunked_groupby`` of 3i's left table by ``k`` with
+    SUM, MEAN and COUNT of the value, against 3i's numpy ``bincount``s
+    with and without weights (``left``); both scan kernels must launch in
+    every pass."""
+    import torch
+
+    from cylon_tpu_torch import pipeline
+
+    lk, lv = data[0], data[1]
+    res, stats, rec = _ooc_call("3m", lambda: pipeline.out_of_core_groupby(
+        lk, lv, passes))
+    launches = rec["launches"]
+    if launches["segmented_scan"] < stats["passes"] \
+            or launches["scan_1d"] < stats["passes"]:
+        raise AssertionError(f"3m: the scan kernels did not launch in every "
+                             f"pass: {launches}")
+    t0 = time.perf_counter()
+    cnt, sums = _card(left["count"]), _card(left["sum"])
+    want_groups = int((cnt > 0).sum())
+    if stats["groups"] != want_groups:
+        raise AssertionError(f"3m: {stats['groups']} groups, oracle "
+                             f"{want_groups}")
+    present, (g_cnt, g_sum, g_mean) = _card_dense(
+        "3m", res["k"], rows, res["count_v"], res["sum_v"], res["mean_v"])
+    del res
+    if not torch.equal(present, cnt > 0):
+        raise AssertionError("3m: the group keys differ from the oracle")
+    if not torch.equal(g_cnt[present].long(), cnt[present]):
+        raise AssertionError("3m: a COUNT differs from the oracle")
+    sum_err = _card_rtol("3m SUM", g_sum[present], sums[present])
+    mean_err = _card_rtol("3m MEAN", g_mean[present],
+                          sums[present] / cnt[present])
+    del cnt, sums, present, g_cnt, g_sum, g_mean
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    if profile:
+        phase_profile(report, "ooc_groupby",
+                      lambda: pipeline.out_of_core_groupby(lk, lv, passes))
+    rec.update(rows=rows, passes=passes, check_s=check_s,
+               groups=want_groups, sum_max_abs_err=sum_err,
+               mean_max_abs_err=mean_err,
+               cold_rows_per_s=rows / stats["total_seconds"],
+               steady_rows_per_s=rows / stats["run_seconds"])
+    report["ooc_groupby"] = rec
+    log(f"[3m] {want_groups} groups exact, COUNT exact; SUM max abs err "
+        f"{sum_err:.3g}, MEAN {mean_err:.3g} (rtol {F32_SUM_RTOL}); cold "
+        f"{rec['cold_rows_per_s']:.6g} rows/s, {rec['call_s']:.2f} s")
+
+
+def _prefix_oracle(data, rows: int, domain: int = OOC_ROWS) -> dict:
+    """numpy ``bincount``s, with and without weights, of the first
+    ``rows`` rows of 3i's left table (keys in ``[0, domain)``): the
+    oracle of phases 3n and 3o."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    k, v = data[0][:rows], data[1][:rows]
+    out = {"rows": rows, "cnt": np.bincount(k, minlength=domain),
+           "sums": np.bincount(k, weights=v.astype(np.float64),
+                               minlength=domain)}
+    out["oracle_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_ooc_unique(report: dict, data, oracle: dict,
+                     passes: int = OOC_PASSES,
+                     domain: int = OOC_ROWS) -> None:
+    """Phase 3n: ``chunked_unique`` of the first ``oracle["rows"]`` keys
+    of 3i's left table against the nonzero count of their bincount, the
+    keys as a set."""
+    import torch
+
+    from cylon_tpu_torch import pipeline
+
+    rows = oracle["rows"]
+    res, stats, rec = _ooc_call("3n", lambda: pipeline.out_of_core_unique(
+        data[0][:rows], passes))
+    t0 = time.perf_counter()
+    cnt = _card(oracle["cnt"])
+    want = int((cnt > 0).sum())
+    if stats["rows"] != want:
+        raise AssertionError(f"3n: {stats['rows']} distinct keys, oracle "
+                             f"{want}")
+    present, _ = _card_dense("3n", res["k"], domain)
+    if not torch.equal(present, cnt > 0):
+        raise AssertionError("3n: the distinct keys differ from the oracle")
+    del res, present, cnt
+    torch.cuda.empty_cache()
+    rec.update(rows=rows, passes=passes, distinct=want,
+               oracle_s=oracle["oracle_s"],
+               check_s=time.perf_counter() - t0,
+               cold_rows_per_s=rows / stats["total_seconds"])
+    report["ooc_unique"] = rec
+    log(f"[3n] {want} distinct keys of {rows} exact; {rec['call_s']:.2f} s")
+
+
+def phase_ooc_sort(report: dict, data, oracle: dict,
+                   passes: int = OOC_PASSES, domain: int = OOC_ROWS,
+                   profile: bool = False) -> None:
+    """Phase 3o: ``chunked_sort`` of the first ``oracle["rows"]`` rows of
+    3i's left table by ``k`` ascending: keys never decrease, per-key
+    counts equal the numpy bincount and per-key float64 value sums match
+    it (rtol 1e-5); no host sort."""
+    import torch
+
+    from cylon_tpu_torch import pipeline
+
+    rows = oracle["rows"]
+    lk, lv = data[0][:rows], data[1][:rows]
+    res, stats, rec = _ooc_call("3o", lambda: pipeline.out_of_core_sort(
+        lk, lv, passes))
+    if stats["rows"] != rows or len(res["k"]) != rows:
+        raise AssertionError(f"3o: {stats['rows']} rows out of {rows}")
+    t0 = time.perf_counter()
+    k = _card(res["k"]).long()
+    if not bool((k[1:] >= k[:-1]).all()):
+        raise AssertionError("3o: the keys decrease somewhere")
+    if not torch.equal(torch.bincount(k, minlength=domain),
+                       _card(oracle["cnt"])):
+        raise AssertionError("3o: per-key counts differ from the input's")
+    got = torch.bincount(k, weights=_card(res["v"]).double(),
+                         minlength=domain)
+    sum_err = _card_rtol("3o per-key value sums", got, _card(oracle["sums"]))
+    del res, k, got
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    if profile:
+        phase_profile(report, "ooc_sort", lambda: pipeline.out_of_core_sort(
+            lk, lv, passes))
+    rec.update(rows=rows, passes=passes, sum_max_abs_err=sum_err,
+               oracle_s=oracle["oracle_s"], check_s=check_s,
+               cold_rows_per_s=rows / stats["total_seconds"])
+    report["ooc_sort"] = rec
+    log(f"[3o] {rows} rows in key order, per-key counts exact, value sums "
+        f"max abs err {sum_err:.3g}; {rec['call_s']:.2f} s")
+
+
+# 3n and 3o run on the first 2^28 rows of 3i's left table, cut from 2^29
+# for the script's time (PERF.md §4)
+OOC_PREFIX_ROWS = 1 << 28
+REPARTITION_WORLD = 4
+REPARTITION_PASSES = 16
+
+
+def phase_ooc_repartition(report: dict, data, rows: int = OOC_ROWS,
+                          world: int = REPARTITION_WORLD,
+                          passes: int = REPARTITION_PASSES,
+                          profile: bool = False) -> None:
+    """Phase 3p: ``chunked_repartition`` of 3i's two sides as one
+    2^30-row ``{k, v}`` frame into ``world`` hash targets in ``passes``
+    passes: counts sum to the rows, every target's keys re-hash to it
+    under the card's ``hash_partition`` (in chunks), and the bincount of
+    all output keys equals the input's.  ``data`` is emptied here: the
+    input frame and the output need about 16 GiB of host memory."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import column, pipeline
+    from cylon_tpu_torch.ops import hash_kernels
+
+    t0 = time.perf_counter()
+    keys = np.concatenate([data[0], data[2]])
+    vals = np.concatenate([data[1], data[3]])
+    data.clear()
+    gc.collect()
+    concat_s = time.perf_counter() - t0
+    n = len(keys)
+    parts, stats, rec = _ooc_call("3p", lambda: pipeline.out_of_core_repartition(
+        keys, vals, world, passes))
+    launches = rec["launches"]
+    if launches["hash_partition"] < passes:
+        raise AssertionError(f"3p: hash_partition launched "
+                             f"{launches['hash_partition']} times in "
+                             f"{passes} passes")
+    if stats["rows"] != n or sum(stats["per_target"]) != n:
+        raise AssertionError(f"3p: {stats['per_target']} rows out of {n}")
+    t0 = time.perf_counter()
+    chunk = 1 << 26
+    left = torch.bincount(_card(keys).long(), minlength=rows)
+    for t, p in enumerate(parts):
+        k = p["k"]
+        if len(k) != stats["per_target"][t] or len(p["v"]) != len(k):
+            raise AssertionError(f"3p: target {t} holds {len(k)} rows, "
+                                 f"stats say {stats['per_target'][t]}")
+        for lo in range(0, len(k), chunk):
+            col = column.from_numpy(k[lo:lo + chunk], device="cuda")
+            _, tgt = hash_kernels.hash_partition([col], world)
+            if not bool((tgt[:min(chunk, len(k) - lo)] == t).all()):
+                raise AssertionError(f"3p: a key of target {t} hashes "
+                                     f"elsewhere")
+        left -= torch.bincount(_card(k).long(), minlength=rows)
+    if bool(left.any()):
+        raise AssertionError("3p: the output keys' bincount differs from "
+                             "the input's")
+    check_s = time.perf_counter() - t0
+    del parts, left
+    gc.collect()
+    torch.cuda.empty_cache()
+    if profile:
+        phase_profile(report, "ooc_repartition",
+                      lambda: pipeline.out_of_core_repartition(
+                          keys, vals, world, passes))
+    del keys, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(rows=n, world=world, passes=passes, check_s=check_s,
+               concat_s=concat_s,
+               cold_rows_per_s=n / stats["total_seconds"],
+               steady_rows_per_s=n / stats["run_seconds"])
+    report["ooc_repartition"] = rec
+    log(f"[3p] {n} rows into {world} targets {stats['per_target']}, every "
+        f"key re-hashes to its target, key multiset exact; cold "
+        f"{rec['cold_rows_per_s']:.6g} rows/s, {rec['call_s']:.2f} s")
+
+
+DIST_OOC_ROWS = 1 << 27  # cut from 2^28 for the script's time (PERF.md §4)
+DIST_OOC_PASSES = 8
+
+
+def phase_ooc_distributed(report: dict, rows: int = DIST_OOC_ROWS,
+                          passes: int = DIST_OOC_PASSES,
+                          profile: bool = False) -> None:
+    """Phase 3q: ``chunked_distributed_join_groupby`` of 2^27 rows per
+    side over SHARDS in-process shards on the one card, in 8 passes,
+    against the numpy ``bincount`` oracle; the hash kernel must launch in
+    every pass.  4 shards on one card, not a multi-card number."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+    from cylon_tpu_torch import exec as exec_mod
+    from cylon_tpu_torch.ops import hash_kernels
+
+    t0 = time.perf_counter()
+    data = pipeline.make_data(rows, pipeline.SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = _oracle(data, rows)
+    oracle_s = time.perf_counter() - t0
+    ctx = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                  world_size=SHARDS))
+    per_pass = []
+    exec_mod.PASS_PROGRESS_HOOK = (
+        lambda done, n, total, secs: per_pass.append(
+            hash_kernels.LAUNCHES["hash_partition"]))
+    try:
+        res, stats, rec = _ooc_call(
+            "3q", lambda: pipeline.out_of_core_distributed_join_groupby(
+                data, passes, ctx))
+    finally:
+        exec_mod.PASS_PROGRESS_HOOK = None
+    if profile:
+        phase_profile(report, "ooc_distributed",
+                      lambda: pipeline.out_of_core_distributed_join_groupby(
+                          data, passes, ctx))
+    del data
+    steps = np.diff([0] + per_pass)
+    if len(steps) != stats["passes"] or not (steps > 0).all():
+        raise AssertionError(f"3q: hash_partition launches per pass "
+                             f"{steps.tolist()}")
+    if stats["groups"] != oracle["groups"] or stats["world"] != SHARDS:
+        raise AssertionError(f"3q: {stats['groups']} groups, oracle "
+                             f"{oracle['groups']}")
+    t0 = time.perf_counter()
+    present, (g_sum, g_mean) = _card_dense("3q", res["l_k"], rows,
+                                           res["sum_a"], res["mean_b"])
+    del res
+    keys = _card(oracle["keys"]).long()
+    want = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    want[keys] = True
+    if not torch.equal(present, want):
+        raise AssertionError("3q: the group keys differ from the oracle")
+    sum_err = _card_rtol("3q SUM", g_sum[keys], _card(oracle["sum"]))
+    mean_err = _card_rtol("3q MEAN", g_mean[keys], _card(oracle["mean"]))
+    check_s = time.perf_counter() - t0
+    del present, want, g_sum, g_mean, keys, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(rows_per_side=rows, passes=passes, shards=SHARDS,
+               generate_s=gen_s, oracle_s=oracle_s, check_s=check_s,
+               hash_launches_per_pass=steps.tolist(),
+               sum_max_abs_err=sum_err, mean_max_abs_err=mean_err,
+               cold_rows_per_s=2 * rows / stats["total_seconds"],
+               steady_rows_per_s=2 * rows / stats["run_seconds"])
+    report["ooc_distributed"] = rec
+    log(f"[3q] {stats['groups']} groups exact; SUM max abs err "
+        f"{sum_err:.3g}, MEAN {mean_err:.3g}; hash launches per pass "
+        f"{steps.tolist()}; cold {rec['cold_rows_per_s']:.6g} rows/s "
+        f"({SHARDS} shards on one card), {rec['call_s']:.2f} s")
+
+
+def _row_order(cols):
+    """The order sorting rows of equal-length CUDA int32/float32 columns
+    by all their bits, by stable sorts from the last column to the
+    first."""
+    import torch
+
+    order = None
+    for c in reversed(cols):
+        bits = c.view(torch.int32).to(torch.int64) if c.dtype == \
+            torch.float32 else c.to(torch.int64)
+        key = bits if order is None else bits[order]
+        o = torch.sort(key, stable=True).indices
+        order = o if order is None else order[o]
+    return order
+
+
+def _same_join_rows(label: str, got: dict, want: dict) -> None:
+    """The same multiset of (l_k, lv, r_k, rv) rows, compared on the card
+    after sorting both by every column."""
+    import torch
+
+    names = ["l_k", "lv", "r_k", "rv"]
+    if len(got["l_k"]) != len(want["l_k"]):
+        raise AssertionError(f"{label}: {len(got['l_k'])} rows, uncapped "
+                             f"{len(want['l_k'])}")
+    sides = []
+    for frame in (got, want):
+        cols = [torch.from_numpy(frame[n]).cuda() for n in names]
+        order = _row_order(cols)
+        sides.append([c[order] for c in cols])
+    for n, a, b in zip(names, *sides):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: column {n} differs from the "
+                                 f"uncapped run's")
+
+
+def _capped(fraction: float, fn):
+    """``fn()`` with the caching allocator capped at ``fraction`` of the
+    card, the cap lifted afterwards even when ``fn`` fails; (result,
+    peak reserved bytes)."""
+    import torch
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(fraction)
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_reserved()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+
+
+def _uncapped_peak(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_reserved()
+
+
+def phase_oneshot_fallback(report: dict, rows: int = ROWS) -> None:
+    """Phase 3r: the one-shot ``Table.join`` and hash ``Table.groupby``
+    fall back to the chunked engine under a real allocator OOM.  On phase
+    3's 2^26-row-per-side tables (one shard on the card), each one-shot
+    op and its 4-pass chunked counterpart run uncapped; then the caching
+    allocator is capped between the two peaks, the one-shot op must fall
+    back (a ``table.oneshot_fallback`` instant) and equal the uncapped
+    result."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import CylonContext, Table
+    from cylon_tpu_torch import exec as exec_mod
+    from cylon_tpu_torch import pipeline
+    from cylon_tpu_torch.obs import spans as obs_spans
+
+    lk, lv, rk, rv = pipeline.make_data(rows, pipeline.SEED)
+    ctx = CylonContext.Init("cuda")
+    left = Table.from_numpy(["k", "lv"], [lk, lv], ctx=ctx)
+    right = Table.from_numpy(["k", "rv"], [rk, rv], ctx=ctx)
+    del lk, lv, rk, rv
+    total = torch.cuda.get_device_properties(0).total_memory
+    agg = {"lv": ["sum", "count"]}
+    cases = {
+        "join": (lambda: left.join(right, on="k").to_numpy(),
+                 lambda: exec_mod.chunked_join(left, right, on="k", passes=4,
+                                               ctx=ctx)[0]),
+        "groupby": (lambda: left.groupby("k", agg).to_numpy(),
+                    lambda: exec_mod.chunked_groupby(left, "k", agg,
+                                                     passes=4, ctx=ctx)[0]),
+    }
+    out = {}
+    for name, (oneshot, chunked) in cases.items():
+        want, one_peak = _uncapped_peak(oneshot)
+        _, chunk_peak = _uncapped_peak(chunked)
+        cap = (one_peak + chunk_peak) // 2
+        if not chunk_peak < cap < one_peak:
+            raise AssertionError(f"3r {name}: no room between the peaks: "
+                                 f"{chunk_peak} < {cap} < {one_peak}")
+        before = obs_spans.aggregate_report().get(
+            "table.oneshot_fallback", (0.0, 0))[1]
+        _reset_launches()
+        t0 = time.perf_counter()
+        got, capped_peak = _capped(cap / total, oneshot)
+        call_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        fell_back = obs_spans.aggregate_report().get(
+            "table.oneshot_fallback", (0.0, 0))[1] - before
+        if fell_back != 1:
+            raise AssertionError(f"3r {name}: {fell_back} fallbacks under "
+                                 f"the cap")
+        if name == "join":
+            _same_join_rows("3r join", got, want)
+            detail = {"rows": len(got["l_k"])}
+        else:
+            g_keys, (g_cnt, g_sum) = _card_dense(
+                "3r groupby", got["k"], rows, got["count_lv"],
+                got["sum_lv"])
+            w_keys, (w_cnt, w_sum) = _card_dense(
+                "3r groupby", want["k"], rows, want["count_lv"],
+                want["sum_lv"])
+            if not torch.equal(g_keys, w_keys) \
+                    or not torch.equal(g_cnt, w_cnt):
+                raise AssertionError("3r groupby: keys or counts differ "
+                                     "from the uncapped run's")
+            detail = {"groups": len(got["k"]), "sum_max_abs_err":
+                      _card_rtol("3r groupby SUM", g_sum[w_keys],
+                                 w_sum[w_keys])}
+            del g_keys, g_cnt, g_sum, w_keys, w_cnt, w_sum
+        del got, want
+        gc.collect()
+        out[name] = {"oneshot_peak_reserved_bytes": one_peak,
+                     "chunked_peak_reserved_bytes": chunk_peak,
+                     "cap_bytes": cap, "fraction": cap / total,
+                     "capped_peak_reserved_bytes": capped_peak,
+                     "fallbacks": fell_back, "capped_call_s": call_s,
+                     "launches": launches, "host": _host_memory(),
+                     **detail}
+        log(f"[3r] {name}: {json.dumps(out[name])}")
+    del left, right
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["oneshot_fallback"] = out
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -2004,12 +2559,30 @@ def main(argv=None) -> int:
         del main_state, dist
         gc.collect()
         torch.cuda.empty_cache()
-        phase_out_of_core(report, profile=args.profile)
+        data, left = phase_out_of_core(report, profile=args.profile)
+        phase_ooc_groupby(report, data, left, profile=args.profile)
+        del left
+        prefix = _prefix_oracle(data, OOC_PREFIX_ROWS)
+        phase_ooc_unique(report, data, prefix)
+        phase_ooc_sort(report, data, prefix, profile=args.profile)
+        del prefix
+        gc.collect()
+        phase_ooc_repartition(report, data, profile=args.profile)
+        del data
+        phase_ooc_distributed(report, profile=args.profile)
         phase_oom_refinement(report)
+        phase_oneshot_fallback(report)
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
                                          for s in ooc]
+            r["launches_out_of_core_rest"] = {
+                key: report[key]["launches"].get(r["name"], 0)
+                for key in ("ooc_groupby", "ooc_unique", "ooc_sort",
+                            "ooc_repartition", "ooc_distributed")}
+            r["launches_out_of_core_rest"]["oneshot_fallback"] = sum(
+                c["launches"].get(r["name"], 0)
+                for c in report["oneshot_fallback"].values())
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:

@@ -98,6 +98,11 @@ KNOBS = {k.name: k for k in [
        "Widest byte matrix a string column may ingest without an explicit "
        "string_width= (device memory = capacity x width)."),
     # -- the out-of-core engine (exec.py) and its resilience layer --------
+    _K("CYLON_TPU_ONESHOT_FALLBACK", "bool", True,
+       "Allow a single-shard one-shot op that dies of device OOM to "
+       "fall back to the chunked out-of-core engine."),
+    _K("CYLON_TPU_FALLBACK_PASSES", "int", 4,
+       "Initial pass count for the one-shot -> chunked OOM fallback."),
     _K("CYLON_TPU_CHUNK_PRESORT", "bool", True,
        "Pre-group host rows by pass id once (O(n)) instead of masking "
        "per pass (O(n x passes)) in the chunked engine."),

@@ -112,6 +112,46 @@ class CylonContext:
     def is_distributed(self) -> bool:
         return self.distributed
 
+    # -- resilience --------------------------------------------------------
+    def retry_policy(self):
+        """Transient-failure retry policy for operations on this context.
+        Unset contexts re-read the env knobs (CYLON_TPU_RETRY_*) on every
+        call so tests and long-lived processes see live values; an
+        explicit `set_retry_policy` pins one."""
+        policy = getattr(self, "_retry_policy", None)
+        if policy is not None:
+            return policy
+        from .resilience import RetryPolicy
+
+        return RetryPolicy.from_env()
+
+    def set_retry_policy(self, policy) -> None:
+        self._retry_policy = policy
+
+    def multi_process(self) -> bool:
+        """True when the mesh spans several processes.  Always False: the
+        port's contexts are single-process, and a multi-process
+        ``torch.distributed`` backend is not ported yet (ROADMAP.md queue
+        A, item 8)."""
+        return False
+
+    def collective_retry_policy(self):
+        """Policy for retrying a whole collective (shuffle exchange,
+        broadcast gather, distributed per-pass join).  Safe only when ONE
+        process drives every shard: re-entering the collective from one
+        process of a multi-process mesh would start an exchange the peers
+        never join.  Multi-process runs therefore get a no-retry policy
+        and the failure surfaces at once; since ``multi_process`` is
+        always False until a multi-process backend exists, every context
+        retries under ``retry_policy()`` today."""
+        from .resilience import RetryPolicy
+
+        if self.distributed and self.multi_process():
+            base = self.retry_policy()
+            return RetryPolicy(max_retries=0, base_s=base.base_s,
+                               max_s=base.max_s)
+        return self.retry_policy()
+
     def Barrier(self) -> None:
         """Wait until every shard's device has finished its queued work."""
         for dev in dict.fromkeys(self.devices):

@@ -11,10 +11,12 @@ pipeline, pre-partitioned, NUNIQUE and salted) and
 ``distributed_scalar_agg:836``.  Each keeps the reference's partition ->
 exchange -> local kernel shape; where the reference runs one
 ``shard_map`` program per phase, the port runs the phase for every shard
-in turn.  Not ported: the packed-plane broadcast (``parallel/plane.py``),
-the collective retries around the shuffle and the broadcast
-(``resilience.retry_call``) and the ``_partitioning`` stamp the
-reference's planner reads.
+in turn.  The shuffle's exchange and the broadcast's gather retry a
+transient failure under ``ctx.collective_retry_policy()``
+(``resilience.retry_call``, sites ``shuffle`` and ``broadcast``, which are
+also fault-injection points).  Not ported: the packed-plane broadcast
+(``parallel/plane.py``) and the ``_partitioning`` stamp the reference's
+planner reads.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import dtypes, precision
+from .. import dtypes, precision, resilience
 from ..column import Column
 from ..config import SortOptions
 from ..ops import aggregates as agg_mod
@@ -57,15 +59,26 @@ def _targets(t, key_idx: Tuple[int, ...], mode: str,
 
 def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
               opts: Optional[SortOptions] = None):
-    """partition -> exchange; returns the shuffled Table."""
+    """partition -> exchange; returns the shuffled Table.  A transient
+    failure (classified retryable) retries the whole plan and exchange
+    under ``ctx.collective_retry_policy()``: the input table is untouched,
+    so the retry is exact."""
     world = t.num_shards
-    targets = _targets(t, key_idx, mode, opts)
-    cm = shuffle_mod.count_matrix([shuffle_mod.target_counts(tg, world)
-                                   for tg in targets])
-    out_cap = shuffle_mod.plan_shuffle(cm)
-    shards, totals = shuffle_mod.shuffle_shard_ragged(
-        t.shards, targets, cm, world, out_cap, t.ctx.devices)
-    return t._like(shards, totals)
+
+    def exchange():
+        # the named injection site of the collective exchange
+        resilience.fault_point("shuffle")
+        targets = _targets(t, key_idx, mode, opts)
+        cm = shuffle_mod.count_matrix([shuffle_mod.target_counts(tg, world)
+                                       for tg in targets])
+        out_cap = shuffle_mod.plan_shuffle(cm)
+        shards, totals = shuffle_mod.shuffle_shard_ragged(
+            t.shards, targets, cm, world, out_cap, t.ctx.devices)
+        return t._like(shards, totals)
+
+    out, _attempts = resilience.retry_call(
+        exchange, policy=t.ctx.collective_retry_policy(), site="shuffle")
+    return out
 
 
 def shuffle(t, key_idx: Tuple[int, ...]):
@@ -104,35 +117,46 @@ def broadcast_gather(t):
     """Every shard receives the whole table: each shard's row count and
     each of its buffers (data, validity, a string's lengths) are gathered,
     and the live rows are packed to the front in source-rank order, at
-    capacity ``shard capacity * world``.  A world of 1 returns ``t``."""
+    capacity ``shard capacity * world``.  A world of 1 returns ``t``.  The
+    gather retries under ``ctx.collective_retry_policy()``, as the
+    shuffle's exchange does."""
     world = t.num_shards
     if world == 1:
         return t
     devices = t.ctx.devices
     cap = t.shard_capacity
     out_cap = cap * world
-    counts = collectives.allgather([c.reshape(1) for c in t.counts], devices)
-    perms, valids, totals = [], [], []
-    for dev, cnt in zip(devices, counts):
-        live = (torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
-                < cnt[:, None]).reshape(out_cap)
-        perm, m = compact.compact_indices(live)
-        perms.append(perm)
-        valids.append(compact.live_mask(out_cap, m, dev))
-        totals.append(m.to(torch.int32))
-    cols_per_shard = [[] for _ in devices]
-    for i, c0 in enumerate(t.shards[0]):
-        data = collectives.allgather([s[i].data for s in t.shards], devices)
-        valid = collectives.allgather([s[i].validity for s in t.shards],
-                                      devices)
-        lengths = ([None] * world if c0.lengths is None else
-                   collectives.allgather([s[i].lengths for s in t.shards],
-                                         devices))
-        for d in range(world):
-            cols_per_shard[d].append(
-                Column(data[d], valid[d], lengths[d], c0.dtype).take(
-                    perms[d], valid_mask=valids[d]))
-    return t._like(cols_per_shard, totals)
+
+    def gather():
+        resilience.fault_point("broadcast")
+        counts = collectives.allgather([c.reshape(1) for c in t.counts],
+                                       devices)
+        perms, valids, totals = [], [], []
+        for dev, cnt in zip(devices, counts):
+            live = (torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+                    < cnt[:, None]).reshape(out_cap)
+            perm, m = compact.compact_indices(live)
+            perms.append(perm)
+            valids.append(compact.live_mask(out_cap, m, dev))
+            totals.append(m.to(torch.int32))
+        cols_per_shard = [[] for _ in devices]
+        for i, c0 in enumerate(t.shards[0]):
+            data = collectives.allgather([s[i].data for s in t.shards],
+                                         devices)
+            valid = collectives.allgather([s[i].validity for s in t.shards],
+                                          devices)
+            lengths = ([None] * world if c0.lengths is None else
+                       collectives.allgather([s[i].lengths for s in t.shards],
+                                             devices))
+            for d in range(world):
+                cols_per_shard[d].append(
+                    Column(data[d], valid[d], lengths[d], c0.dtype).take(
+                        perms[d], valid_mask=valids[d]))
+        return t._like(cols_per_shard, totals)
+
+    out, _attempts = resilience.retry_call(
+        gather, policy=t.ctx.collective_retry_policy(), site="broadcast")
+    return out
 
 
 def distributed_sort(t, by_idx: Tuple[int, ...], opts: SortOptions,

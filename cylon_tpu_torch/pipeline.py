@@ -11,6 +11,11 @@
 - Out of core (``out_of_core_join_groupby``): the same join -> SUM/MEAN
   group-by through the key-domain passes of ``exec.chunked_join_groupby``,
   for inputs past the card's memory.
+- The rest of the out-of-core rung on the same data
+  (``out_of_core_groupby``, ``out_of_core_unique``, ``out_of_core_sort``,
+  ``out_of_core_repartition``: the standalone ``exec`` operators on the
+  ``(k, v)`` table; ``out_of_core_distributed_join_groupby``: the
+  out-of-core main path with every pass sharded over a mesh ``ctx``).
 - Distributed (``distributed_tables``, ``distributed_join_groupby``): the
   repo's end-to-end drive on a mesh of shards, ``Table.distributed_join``
   on the key then the two-phase ``groupby`` with the same SUM and MEAN.
@@ -101,6 +106,46 @@ def out_of_core_join_groupby(data, passes: int, ctx=None):
     passes, on ``ctx``'s device (default: the CUDA card).  Returns
     ({"key", "agg0": SUM(lv), "agg1": MEAN(rv)}, stats)."""
     return exec_mod.chunked_join_groupby(*data, passes, ctx=ctx)
+
+
+def out_of_core_groupby(keys, values, passes: int, ctx=None):
+    """``exec.chunked_groupby`` of the ``(k, v)`` table by ``k`` with
+    SUM, MEAN and COUNT of ``v``, in ``passes`` key-domain passes on
+    ``ctx`` (default: the CUDA card).  Returns ({"k", "sum_v", "mean_v",
+    "count_v"}, stats)."""
+    return exec_mod.chunked_groupby({"k": keys, "v": values}, "k",
+                                    {"v": ["sum", "mean", "count"]},
+                                    passes=passes, ctx=ctx)
+
+
+def out_of_core_unique(keys, passes: int, ctx=None):
+    """``exec.chunked_unique`` of the key column: ({"k"}, stats)."""
+    return exec_mod.chunked_unique({"k": keys}, passes=passes, ctx=ctx)
+
+
+def out_of_core_sort(keys, values, passes: int, ctx=None):
+    """``exec.chunked_sort`` of the ``(k, v)`` table by ``k`` ascending:
+    ({"k", "v"} in global key order, stats)."""
+    return exec_mod.chunked_sort({"k": keys, "v": values}, "k",
+                                 passes=passes, ctx=ctx)
+
+
+def out_of_core_repartition(keys, values, world: int, passes: int,
+                            ctx=None, out_dir=None):
+    """``exec.chunked_repartition`` of the ``(k, v)`` table into
+    ``world`` hash targets of ``k``: (per-target {"k", "v"} frames, or
+    None with ``out_dir``; stats)."""
+    return exec_mod.chunked_repartition({"k": keys, "v": values}, "k",
+                                        world, passes=passes,
+                                        out_dir=out_dir, ctx=ctx)
+
+
+def out_of_core_distributed_join_groupby(data, passes: int, ctx):
+    """The out-of-core main path with every pass sharded over the mesh
+    ``ctx``: ``exec.chunked_distributed_join_groupby`` on ``make_data``'s
+    arrays.  Returns ({"l_k", "sum_a": SUM(lv), "mean_b": MEAN(rv)},
+    stats)."""
+    return exec_mod.chunked_distributed_join_groupby(*data, passes, ctx)
 
 
 def distributed_tables(ctx, lk, lv, rk, rv) -> Tuple[Table, Table]:

@@ -12,9 +12,10 @@ more, smaller passes.  Three primitives:
   `Code.OutOfMemory`, transient comm/deadline failures
   `Code.ExecutionError`); `RETRYABLE_CODES` names the codes a plain retry
   may heal (not OOM: that is healed by splitting);
-- **RetryPolicy**: bounded exponential backoff driven by
-  ``CYLON_TPU_RETRY_MAX`` / ``CYLON_TPU_RETRY_BASE_S`` /
-  ``CYLON_TPU_RETRY_MAX_S``;
+- **RetryPolicy** and **retry_call**: bounded exponential backoff driven
+  by ``CYLON_TPU_RETRY_MAX`` / ``CYLON_TPU_RETRY_BASE_S`` /
+  ``CYLON_TPU_RETRY_MAX_S``, around a pass or a collective (the shuffle's
+  exchange, the broadcast's gather);
 - **fault injection**: named `fault_point(site)` probes (pass_dispatch,
   host_fetch, ...) driven by a ``CYLON_TPU_FAULT_PLAN`` spec, so every
   recovery path runs deterministically on the CPU.  Injected faults carry
@@ -134,14 +135,54 @@ class RetryPolicy:
             yield self.delay(i)
 
 
+def retry_call(fn, *, policy: Optional[RetryPolicy] = None, site: str = "op",
+               retryable: frozenset = RETRYABLE_CODES,
+               on_retry: Optional[Callable] = None) -> Tuple[object, int]:
+    """Run ``fn()`` under ``policy``'s bounded backoff.
+
+    Returns ``(result, attempts)``.  Exceptions whose classified code is
+    not in ``retryable`` propagate unchanged (a TypeError must stay a
+    TypeError); exhausting the retries raises `CylonError` with the
+    classified code and the last failure's message.
+    """
+    policy = policy or RetryPolicy.from_env()
+    attempts = 0
+    while True:
+        attempts += 1
+        try:
+            return fn(), attempts
+        except Exception as e:
+            st = Status.from_exception(e)
+            if st.code not in retryable:
+                raise
+            retry_index = attempts - 1
+            if retry_index >= policy.max_retries:
+                raise CylonError(
+                    st.code,
+                    f"{site}: retries exhausted after {attempts} attempts: "
+                    f"{st.msg}") from e
+            # a retry is an event the trace must show: which site, which
+            # attempt, and how the failure classified
+            obs_spans.instant("retry", site=site, attempt=attempts,
+                              code=st.code.name)
+            obs_metrics.counter_add("retry.attempts")
+            if on_retry is not None:
+                on_retry(attempts, st)
+            d = policy.delay(retry_index)
+            if d > 0:
+                policy.sleep(d)
+
+
 # ---------------------------------------------------------------------------
 # deterministic fault injection
 # ---------------------------------------------------------------------------
 
 # Message shapes mirror real PJRT/collective failure text so injected
 # faults exercise the SAME classification path genuine failures take.
-# Only the kinds the engine's two probes (pass_dispatch, host_fetch) can
-# act on: the raising kinds, `hang` (sleeps the probe past the active
+# Only the kinds the port's probes (the engine's pass_dispatch and
+# host_fetch, the collectives' shuffle and broadcast, the one-shot
+# oneshot_join and oneshot_groupby) can act on: the raising kinds, `hang`
+# (sleeps the probe past the active
 # pass deadline) and `delay` (sleeps FAULT_DELAY_S and continues, a
 # seeded straggler).  The JAX package's other kinds act on the run
 # journal, the elastic gang or the serving layer, none of which is ported.

@@ -259,9 +259,13 @@ def test_context_devices_and_unported_paths(pctx, monkeypatch):
     # a salted SUM is refused as the reference refuses it (Invalid)
     with pytest.raises(CylonError, match="Invalid"):
         par_ops.distributed_groupby(t, (0,), ((1, AggOp.SUM),), 0, salt=2)
-    # still unported: the out-of-core engine over a mesh
+    # the out-of-core engine over a mesh, once refused, now runs: its
+    # groups are the one-shard engine's
     from cylon_tpu_torch import exec as pexec
 
-    with pytest.raises(CylonError, match="NotImplemented"):
-        pexec.chunked_join_groupby(arrays[0], arrays[1], arrays[0],
-                                   arrays[1], 2, ctx=pctx)
+    args = (arrays[0], arrays[1], arrays[0], arrays[1], 2)
+    res, stats = pexec.chunked_join_groupby(*args, ctx=pctx)
+    one, one_stats = pexec.chunked_join_groupby(
+        *args, ctx=CylonContext.Init("cpu"))
+    assert stats["world"] == WORLD and stats["groups"] == one_stats["groups"]
+    np.testing.assert_array_equal(np.sort(res["key"]), np.sort(one["key"]))

@@ -582,3 +582,104 @@ def _distributed_groupbys(out, lk, lv, w):
         }
         if dev == "cuda":
             assert hash_kernels.LAUNCHES["hash_partition"] >= 12
+
+
+# -- the rest of the out-of-core rung and the collective retries --------------
+
+def _standalone_results(device, lk, lv, passes):
+    from cylon_tpu_torch import CylonContext, pipeline
+
+    ctx = CylonContext.Init(device)
+    return {"groupby": pipeline.out_of_core_groupby(lk, lv, passes, ctx=ctx),
+            "sort": pipeline.out_of_core_sort(lk, lv, passes, ctx=ctx),
+            "repartition": pipeline.out_of_core_repartition(
+                lk, lv, 4, passes, ctx=ctx)}
+
+
+@pytest.mark.gpu
+def test_standalone_out_of_core_operators_on_the_card_equal_the_cpu(gen):
+    """``chunked_groupby``, ``chunked_sort`` and ``chunked_repartition`` at
+    2^20 rows in 4 passes: the card (narrow) against the CPU port in
+    narrow mode, row for row.  Keys, counts, sorted rows and repartition
+    shards exact (murmur3 places rows alike on both devices); float32
+    sums and means rtol 1e-5.  Every pass launches both scan kernels in
+    the group-by and the hash kernel in the repartition."""
+    from cylon_tpu_torch import pipeline, precision
+
+    lk, lv, _, _ = pipeline.make_data(1 << 20)
+    scan.reset_launches()
+    hash_kernels.reset_launches()
+    got = _standalone_results("cuda", lk, lv, 4)
+    assert scan.LAUNCHES["scan_1d"] >= 4
+    assert scan.LAUNCHES["segmented_scan"] >= 4
+    assert hash_kernels.LAUNCHES["hash_partition"] >= 4
+    precision.set_accumulation("narrow")
+    try:
+        want = _standalone_results("cpu", lk, lv, 4)
+    finally:
+        precision.set_accumulation(None)
+    (g, gs), (w, ws) = got["groupby"], want["groupby"]
+    assert gs["groups"] == ws["groups"] == len(np.unique(lk))
+    np.testing.assert_array_equal(g["k"], w["k"])
+    np.testing.assert_array_equal(g["count_v"], w["count_v"])
+    for k in ("sum_v", "mean_v"):
+        np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-6)
+    (s, _), (t, _) = got["sort"], want["sort"]
+    np.testing.assert_array_equal(s["k"], np.sort(lk))
+    for k in ("k", "v"):
+        np.testing.assert_array_equal(s[k], t[k])
+    (parts, ps), (wparts, wps) = got["repartition"], want["repartition"]
+    assert ps["per_target"] == wps["per_target"]
+    assert sum(ps["per_target"]) == len(lk)
+    for a, b in zip(parts, wparts):
+        for k in ("k", "v"):
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.gpu
+def test_cuda_shuffle_heals_an_injected_comm_fault(gen):
+    """The shuffle's exchange on CUDA tensors retries a ``comm`` fault
+    under the context's policy and equals the unfaulted shuffle."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, Table
+    from cylon_tpu_torch import config, resilience
+
+    rng = np.random.default_rng(3)
+    ctx = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                  world_size=4))
+    t = Table.from_numpy(["k", "v"], [rng.integers(0, 1000, 50000),
+                                      rng.random(50000)], ctx=ctx)
+    base = t.shuffle("k")
+    with config.knob_env(CYLON_TPU_RETRY_BASE_S="0"):
+        with resilience.fault_plan("shuffle@1=comm") as plan:
+            res = t.shuffle("k")
+    assert plan.fired == [("shuffle", "comm", 1)]
+    assert plan.hits["shuffle"] == 2
+    assert res.row_counts.tolist() == base.row_counts.tolist()
+    for a, b in zip(res.shards, base.shards):
+        for x, y in zip(a, b):
+            assert torch.equal(x.data, y.data)
+            assert torch.equal(x.validity, y.validity)
+
+
+@pytest.mark.gpu
+def test_oneshot_join_falls_back_on_the_card(gen):
+    """An injected OOM in the one-shot join on the card runs the chunked
+    engine on the card: the same rows as the one-shot join."""
+    from cylon_tpu_torch import CylonContext, Table, resilience
+
+    rng = np.random.default_rng(4)
+    ctx = CylonContext.Init("cuda")
+    lt = Table.from_numpy(["k", "a"], [rng.integers(0, 5000, 20000),
+                                       rng.integers(0, 99, 20000)], ctx=ctx)
+    rt = Table.from_numpy(["k", "b"], [rng.integers(0, 5000, 20000),
+                                       rng.integers(0, 99, 20000)], ctx=ctx)
+    base = lt.join(rt, on="k").to_numpy()
+    with resilience.fault_plan("oneshot_join@1=oom"):
+        res = lt.join(rt, on="k")
+    assert res.shards[0][0].device.type == "cuda"
+    got = res.to_numpy()
+    names = sorted(base)
+    go = np.lexsort(tuple(got[n] for n in names))
+    bo = np.lexsort(tuple(base[n] for n in names))
+    for n in names:
+        np.testing.assert_array_equal(got[n][go], base[n][bo])
