@@ -7,7 +7,8 @@ Phases, each of which fails the run on error:
 
 1. the card's name and power limit, torch and CUDA versions; build every
    CUDA kernel from the sources in the checkout (one nvcc per source, all
-   started together) and print the build time;
+   started together) and the host C++ library (``g++``, alongside), and
+   print the build time;
 2. every kernel against its plain PyTorch version on the card, at the
    main path's sizes and at ragged sizes: exact for integers and min/max,
    float32 sums within a stated tolerance of a float64 oracle; for
@@ -89,12 +90,12 @@ Phases, each of which fails the run on error:
    capped between the two peaks: it must split at least once and equal
    the uncapped run (keys and group count exact, sums and means rtol
    1e-5); the cap is lifted even when the phase fails;
-3m. ``chunked_groupby`` of 3i's left table (2^29 rows, read from 3i's
-   data) by ``k`` with SUM, MEAN and COUNT of the value, in 16 passes
-   (``pipeline.out_of_core_groupby``), against 3i's numpy ``bincount``s
-   with and without weights: groups and counts exact, float sums and
-   means within rtol 1e-5 of float64; both scan kernels must launch in
-   every pass;
+3m. ``chunked_groupby`` of the first 2^28 rows of 3i's left table (read
+   from 3i's data) by ``k`` with SUM, MEAN and COUNT of the value, in 16
+   passes (``pipeline.out_of_core_groupby``), against their numpy
+   ``bincount``s with and without weights: groups and counts exact, float
+   sums and means within rtol 1e-5 of float64; both scan kernels must
+   launch in every pass;
 3n. ``chunked_unique`` of the first 2^28 keys of that table against the
    nonzero count of their ``bincount`` (the distinct keys as a set);
 3o. ``chunked_sort`` of its first 2^28 rows by ``k`` in 16 passes: keys
@@ -105,7 +106,7 @@ Phases, each of which fails the run on error:
    rows, every target's keys re-hash to it under the card's
    ``hash_partition`` (in chunks), the bincount of the output keys equals
    the input's; the hash kernel launches at least once per pass;
-3q. ``chunked_distributed_join_groupby`` of 2^27 rows per side over 4
+3q. ``chunked_distributed_join_groupby`` of 2^26 rows per side over 4
    in-process shards on the one card, in 8 passes, against phase 3's
    numpy oracle; the hash kernel must launch in every pass (4 shards on
    one card, not a multi-card number);
@@ -115,7 +116,26 @@ Phases, each of which fails the run on error:
    them, ``Table.join`` must fall back (a ``table.oneshot_fallback``
    instant) and give the uncapped rows; the same for the hash
    ``Table.groupby`` against a 4-pass ``chunked_groupby``; the cap is
-   lifted even when the phase fails.
+   lifted even when the phase fails;
+3s. the front door at TPC-H SF-1 (BASELINE config 2's scale), in a
+   temporary directory on an emptied card: lineitem (6,000,000 rows of
+   Q1's columns and an ``l_orderkey``) and orders (1,500,000 rows) built
+   with ``Table.from_numpy`` on 4 shards; (a) ``to_csv`` per shard and to
+   one file, the orders file and the first lineitem file read back by
+   pyarrow as an independent check (floats exactly, ``%.17g``); (b)
+   ``Table.from_csv`` of the 4 files and of the one file onto 4 shards,
+   every shard equal on the card to the rows written from it; (c) Q1
+   through ``DataFrame`` (filter, derived columns, group-by,
+   ``to_pandas``) against the numpy oracle of 3h; (d) the distributed
+   orders x lineitem ``DataFrame.merge``: 6,000,000 rows and the sum of
+   ``o_orderdate`` equal to numpy's; (e) ``to_parquet`` per shard of the
+   Q1-filtered table and ``from_parquet`` of the files, shard for shard
+   equal; (f) ``set_index`` / ``loc`` of 1,000 seeded keys / ``loc[lo:hi]``
+   / ``iloc[a:b]`` on a one-shard orders table against numpy.  The native
+   reader and writer must serve every CSV (``io.reader_counts``), the scan
+   kernels must launch in (c) and the hash kernel in (d); each step prints
+   its seconds, launches, peak device memory and reader counts, (a) and
+   (b) their MB/s and rows/s.
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -136,7 +156,7 @@ hash join's included), of the set ops, of the distributed sorts, of the
 string paths, of Q1, of a second out-of-core sweep (whose device busy
 share of its wall time is the engine's idle measure) and of a second run
 of 3m, 3o, 3p and 3q, and a stage breakdown of one distributed run.
-Phases 3i-3r run after phase 4, once the earlier phases' tensors are
+Phases 3i-3s run after phase 4, once the earlier phases' tensors are
 freed.
 """
 from __future__ import annotations
@@ -202,7 +222,9 @@ def cuda_time_ms(fn, reps: int = 10) -> float:
 def phase_build(report: dict) -> None:
     import torch
 
+    from cylon_tpu_torch import native
     from cylon_tpu_torch.cuda import build
+    from cylon_tpu_torch.native import build as native_build
 
     report["smi"] = smi_line()
     log(f"[1] card: {report['smi']}")
@@ -211,10 +233,15 @@ def phase_build(report: dict) -> None:
     sources = sorted(p for p in os.listdir(os.path.dirname(build.__file__))
                      if p.endswith(".cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        host_lib = pool.submit(native_build.build)
         list(pool.map(build.build, sources))
+        host_lib = host_lib.result()
     report["build_s"] = time.perf_counter() - t0
-    log(f"[1] built {sources} in {report['build_s']:.1f} s")
+    if not native.available():
+        raise AssertionError(f"native library: {native.load_error()}")
+    log(f"[1] built {sources} and the host library {host_lib.name} (g++) "
+        f"in {report['build_s']:.1f} s")
     for src in sources:
         regs = [int(w) for line in build.BUILD_INFO[src][1].splitlines()
                 if "registers" in line
@@ -490,12 +517,10 @@ def _float_key_checks(dev, case, passed, checks) -> None:
 
 # -- phase 3 ------------------------------------------------------------------
 
-def _oracle(data, rows: int, keep_left: bool = False) -> dict:
+def _oracle(data, rows: int) -> dict:
     """numpy bincount oracle of the join -> SUM/MEAN group-by on
     ``pipeline.make_data`` tables: join count, group keys (ascending),
-    float64 SUM(lv) and MEAN(rv) per group; with ``keep_left`` also the
-    left side's per-key counts and float64 value sums (dense over
-    ``[0, rows)``), the group-by oracle of phase 3m."""
+    float64 SUM(lv) and MEAN(rv) per group."""
     import numpy as np
 
     lk, lv, rk, rv = data
@@ -511,8 +536,6 @@ def _oracle(data, rows: int, keep_left: bool = False) -> dict:
     out = {"join": int(np.dot(cl, cr)), "groups": len(keys),
            "keys": keys.astype(np.int32),
            "sum": sl[keys] * cr_k, "mean": sr[keys] / cr_k}
-    if keep_left:
-        out.update(count_l=cl, sum_l=sl)
     return out
 
 
@@ -1271,12 +1294,13 @@ def _q1_oracle(data: dict) -> dict:
 
 def _check_q1(label: str, out, oracle: dict) -> float:
     """Group keys and counts exact, every sum and mean within rtol of the
-    float64 oracle; returns the max relative error."""
+    float64 oracle; returns the max relative error.  ``out`` is a Table or
+    a dict of host columns."""
     import numpy as np
 
     from cylon_tpu_torch import pipeline
 
-    got = out.to_numpy()
+    got = out if isinstance(out, dict) else out.to_numpy()
     rf = np.array([pipeline.RETURNFLAGS.index(x.encode())
                    for x in got["l_returnflag"]])
     ls = np.array([pipeline.LINESTATUSES.index(x.encode())
@@ -1688,8 +1712,7 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
                       passes: int = OOC_PASSES, profile: bool = False) -> list:
     """Phase 3i: the main path past the card's memory, one sweep of the
     out-of-core engine, counters zeroed just before it.  Returns the
-    generated ``[lk, lv, rk, rv]`` for phases 3m-3p and the left side's
-    numpy per-key counts and sums (3m's oracle)."""
+    generated ``[lk, lv, rk, rv]`` for phases 3m-3p."""
     import torch
 
     from cylon_tpu_torch import pipeline
@@ -1703,7 +1726,7 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
     log(f"[3i] {rows} rows per side generated in {gen_s:.1f} s; host "
         f"{_host_memory()}")
     t0 = time.perf_counter()
-    oracle = _oracle(data, rows, keep_left=True)
+    oracle = _oracle(data, rows)
     oracle_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -1723,7 +1746,6 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
         raise AssertionError(f"the sweep did not run both scan kernels in "
                              f"every pass: {launches}")
     sum_err, mean_err = _check_out_of_core("out of core", res, sweep, oracle)
-    left = {"count": oracle["count_l"], "sum": oracle["sum_l"]}
     del res, oracle
     gc.collect()
     if profile:
@@ -1743,7 +1765,7 @@ def phase_out_of_core(report: dict, rows: int = OOC_ROWS,
         f"cold {out['cold_rows_per_s']:.6g} rows/s, peak device "
         f"{out['peak_device_bytes'] / 2**30:.2f} GiB over "
         f"{base / 2**30:.2f} GiB resident")
-    return list(data), left
+    return list(data)
 
 
 def _sorted_groups(res: dict):
@@ -1884,17 +1906,18 @@ def _card_rtol(label: str, got, want) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def phase_ooc_groupby(report: dict, data, left: dict, rows: int = OOC_ROWS,
+def phase_ooc_groupby(report: dict, data, prefix: dict,
                       passes: int = OOC_PASSES, profile: bool = False) -> None:
-    """Phase 3m: ``chunked_groupby`` of 3i's left table by ``k`` with
-    SUM, MEAN and COUNT of the value, against 3i's numpy ``bincount``s
-    with and without weights (``left``); both scan kernels must launch in
-    every pass."""
+    """Phase 3m: ``chunked_groupby`` of the first ``prefix["rows"]`` rows
+    of 3i's left table by ``k`` with SUM, MEAN and COUNT of the value,
+    against their numpy ``bincount``s with and without weights
+    (``_prefix_oracle``); both scan kernels must launch in every pass."""
     import torch
 
     from cylon_tpu_torch import pipeline
 
-    lk, lv = data[0], data[1]
+    rows = prefix["rows"]
+    lk, lv = data[0][:rows], data[1][:rows]
     res, stats, rec = _ooc_call("3m", lambda: pipeline.out_of_core_groupby(
         lk, lv, passes))
     launches = rec["launches"]
@@ -1903,13 +1926,14 @@ def phase_ooc_groupby(report: dict, data, left: dict, rows: int = OOC_ROWS,
         raise AssertionError(f"3m: the scan kernels did not launch in every "
                              f"pass: {launches}")
     t0 = time.perf_counter()
-    cnt, sums = _card(left["count"]), _card(left["sum"])
+    cnt, sums = _card(prefix["cnt"]), _card(prefix["sums"])
     want_groups = int((cnt > 0).sum())
     if stats["groups"] != want_groups:
         raise AssertionError(f"3m: {stats['groups']} groups, oracle "
                              f"{want_groups}")
     present, (g_cnt, g_sum, g_mean) = _card_dense(
-        "3m", res["k"], rows, res["count_v"], res["sum_v"], res["mean_v"])
+        "3m", res["k"], OOC_ROWS, res["count_v"], res["sum_v"],
+        res["mean_v"])
     del res
     if not torch.equal(present, cnt > 0):
         raise AssertionError("3m: the group keys differ from the oracle")
@@ -2023,8 +2047,8 @@ def phase_ooc_sort(report: dict, data, oracle: dict,
         f"max abs err {sum_err:.3g}; {rec['call_s']:.2f} s")
 
 
-# 3n and 3o run on the first 2^28 rows of 3i's left table, cut from 2^29
-# for the script's time (PERF.md §4)
+# 3m, 3n and 3o run on the first 2^28 rows of 3i's left table, cut from
+# 2^29 for the script's time (PERF.md §4)
 OOC_PREFIX_ROWS = 1 << 28
 REPARTITION_WORLD = 4
 REPARTITION_PASSES = 16
@@ -2101,14 +2125,14 @@ def phase_ooc_repartition(report: dict, data, rows: int = OOC_ROWS,
         f"{rec['cold_rows_per_s']:.6g} rows/s, {rec['call_s']:.2f} s")
 
 
-DIST_OOC_ROWS = 1 << 27  # cut from 2^28 for the script's time (PERF.md §4)
+DIST_OOC_ROWS = 1 << 26  # cut from 2^28 for the script's time (PERF.md §4)
 DIST_OOC_PASSES = 8
 
 
 def phase_ooc_distributed(report: dict, rows: int = DIST_OOC_ROWS,
                           passes: int = DIST_OOC_PASSES,
                           profile: bool = False) -> None:
-    """Phase 3q: ``chunked_distributed_join_groupby`` of 2^27 rows per
+    """Phase 3q: ``chunked_distributed_join_groupby`` of 2^26 rows per
     side over SHARDS in-process shards on the one card, in 8 passes,
     against the numpy ``bincount`` oracle; the hash kernel must launch in
     every pass.  4 shards on one card, not a multi-card number."""
@@ -2326,6 +2350,265 @@ def phase_oneshot_fallback(report: dict, rows: int = ROWS) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     report["oneshot_fallback"] = out
+
+
+# -- phase 3s: the front door -------------------------------------------------
+
+FRONT_SF = 1  # BASELINE config 2's scale: TPC-H SF-1
+ORDERS_ROWS = 1_500_000  # TPC-H orders rows at SF-1
+LOC_KEYS = 1000
+
+
+def _front_door_data():
+    """Q1's lineitem columns at SF-1 (``pipeline.lineitem``) with an
+    ``l_orderkey`` from its own generator, and the orders columns; the
+    flags as S1 arrays, so ``Table.from_numpy`` takes them as strings."""
+    import numpy as np
+
+    from cylon_tpu_torch import pipeline
+
+    data = pipeline.lineitem(FRONT_SF, seed=0)
+    n = len(data["l_shipdate"])
+    arrays = {k: v for k, v in data.items()
+              if k not in ("l_returnflag", "l_linestatus")}
+    for k in ("l_returnflag", "l_linestatus"):
+        arrays[k] = data[k][0].reshape(n).view("S1")
+    arrays["l_orderkey"] = np.random.default_rng(1).integers(
+        0, ORDERS_ROWS, n).astype(np.int64)
+    orders = {"o_orderkey": np.arange(ORDERS_ROWS, dtype=np.int64),
+              "o_orderdate": np.random.default_rng(2).integers(
+                  pipeline.DATE_LO, pipeline.DATE_HI,
+                  ORDERS_ROWS).astype(np.int32)}
+    return data, arrays, orders
+
+
+def _same_rows(label: str, got, want) -> None:
+    """Two tables of one shard layout hold the same live rows, shard for
+    shard, checked on the card: integers as int64 values, floats as the
+    float64 of the written values, strings byte for byte (the narrower
+    byte matrix padded with zeros), and no nulls."""
+    import torch
+
+    if list(got.names) != list(want.names):
+        raise AssertionError(f"{label}: columns {got.names} != {want.names}")
+    for s, (gc_, wc, gn, wn) in enumerate(zip(got.shards, want.shards,
+                                              got.counts, want.counts)):
+        n = int(gn)
+        if n != int(wn):
+            raise AssertionError(f"{label} shard {s}: {n} rows, wrote "
+                                 f"{int(wn)}")
+        for name, g, w in zip(got.names, gc_, wc):
+            where = f"{label} shard {s} column {name}"
+            if not (bool(g.validity[:n].all()) and bool(w.validity[:n].all())):
+                raise AssertionError(f"{where}: nulls")
+            if w.is_string:
+                width = max(g.string_width, w.string_width)
+                gd = torch.nn.functional.pad(g.data[:n],
+                                             (0, width - g.string_width))
+                wd = torch.nn.functional.pad(w.data[:n],
+                                             (0, width - w.string_width))
+                same = torch.equal(gd, wd) and torch.equal(
+                    g.lengths[:n], w.lengths[:n])
+            else:
+                same = torch.equal(g.data[:n], w.data[:n].to(g.data.dtype))
+            if not same:
+                raise AssertionError(f"{where}: values differ")
+
+
+def _csv_bytes(paths) -> int:
+    return sum(os.path.getsize(p) for p in paths)
+
+
+def _step(report: dict, name: str, fn):
+    """Run ``fn`` with the launch counters zeroed just before and read
+    just after, and the peak device memory reset; record its seconds,
+    launches and peak, and return its result."""
+    import torch
+
+    from cylon_tpu_torch import io
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    report[name] = {"s": time.perf_counter() - t0,
+                    "launches": _launch_counts(),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                    "reader_counts": io.reader_counts()}
+    return out
+
+
+def phase_front_door(report: dict) -> None:
+    """Phase 3s: the Quickstart's path at TPC-H SF-1, through the port's
+    front door, in a temporary directory: (a) ``to_csv`` of lineitem per
+    shard and of orders to one file (the orders file read back by pyarrow
+    as an independent check); (b) ``from_csv`` of both onto 4 shards, each
+    shard equal to the rows written from it; (c) Q1 through ``DataFrame``
+    against the numpy oracle; (d) the distributed orders x lineitem
+    ``merge`` (6,000,000 rows, the ``o_orderdate`` checksum); (e) a
+    per-shard Parquet round trip of the Q1-filtered table; (f)
+    ``set_index`` / ``loc`` / ``iloc`` on a one-shard orders table.  The
+    native reader and writer must serve every CSV; the hash kernel must
+    launch in (d) and both scan kernels in (c)."""
+    import tempfile
+
+    import numpy as np
+    import pyarrow.csv as pacsv
+    import torch
+
+    from cylon_tpu_torch import (CylonContext, DataFrame, MeshConfig, Table,
+                                 io, native, pipeline)
+
+    if not native.available():
+        raise AssertionError(f"3s: the native library did not load: "
+                             f"{native.load_error()}")
+    t0 = time.perf_counter()
+    data, arrays, orders = _front_door_data()
+    oracle = _q1_oracle(data)
+    rows = len(arrays["l_orderkey"])
+    ctx = CylonContext.InitDistributed(MeshConfig(world_size=SHARDS))
+    li_t = Table.from_numpy(list(arrays), list(arrays.values()), ctx=ctx)
+    or_t = Table.from_numpy(list(orders), list(orders.values()), ctx=ctx)
+    torch.cuda.synchronize()
+    out: dict = {"rows": rows, "orders_rows": ORDERS_ROWS,
+                 "setup_s": time.perf_counter() - t0}
+    log(f"[3s] TPC-H SF-{FRONT_SF}: {rows} lineitem rows, {ORDERS_ROWS} "
+        f"orders, {SHARDS} shards; data, oracle and tables in "
+        f"{out['setup_s']:.1f} s")
+    steps: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        li_paths = [os.path.join(tmp, f"lineitem_{s}.csv")
+                    for s in range(SHARDS)]
+        or_path = os.path.join(tmp, "orders.csv")
+        io.reset_reader_counts()
+
+        # (a) write
+        _step(steps, "a_write", lambda: (
+            li_t.to_csv(os.path.join(tmp, "lineitem_{shard}.csv"),
+                        per_shard=True),
+            or_t.to_csv(or_path)))
+        nbytes = _csv_bytes(li_paths + [or_path])
+        steps["a_write"].update(bytes=nbytes)
+        got = pacsv.read_csv(or_path)
+        for name, want in orders.items():
+            if not np.array_equal(got.column(name).to_numpy(), want):
+                raise AssertionError(f"3s (a) pyarrow reads {name} back "
+                                     "different")
+        first = pacsv.read_csv(li_paths[0])
+        n0 = int(li_t.counts[0])
+        for name in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"):
+            back = first.column(name).to_numpy()
+            if not np.array_equal(back, arrays[name][:n0].astype(np.float64)):
+                raise AssertionError(f"3s (a) {name} does not read back "
+                                     "exactly (%.17g)")
+        counts = io.reader_counts()
+        if counts["csv_write_native"] != SHARDS + 1 \
+                or counts["csv_write_pandas"]:
+            raise AssertionError(f"3s (a) writers: {counts}")
+
+        # (b) read
+        li, od = _step(steps, "b_read", lambda: (
+            Table.from_csv(li_paths, ctx=ctx),
+            Table.from_csv(or_path, ctx=ctx)))
+        steps["b_read"].update(bytes=nbytes)
+        counts = io.reader_counts()
+        if counts["csv_read_native"] != SHARDS + 1 or counts["csv_read_arrow"]:
+            raise AssertionError(f"3s (b) readers: {counts}")
+        for t in (li, od):
+            for c in t.shards[0]:
+                if c.dtype.numpy_dtype() not in (np.int64, np.float64) \
+                        and not c.is_string:
+                    raise AssertionError(f"3s (b) read type {c.dtype}")
+        _same_rows("3s (b) lineitem", li, li_t)
+        _same_rows("3s (b) orders", od, or_t)
+        del li_t
+
+        # (c) Q1 through DataFrame
+        def q1():
+            df = DataFrame(li)
+            f = df[df["l_shipdate"] <= pipeline.Q1_CUTOFF]
+            f["disc_price"] = (f["l_extendedprice"]
+                               * (f["l_discount"] * -1.0 + 1.0))
+            f["charge"] = f["disc_price"] * (f["l_tax"] + 1.0)
+            return f, f.groupby(["l_returnflag", "l_linestatus"],
+                                pipeline.Q1_AGGS).to_pandas()
+
+        filtered, q1_pdf = _step(steps, "c_q1", q1)
+        err = _check_q1("3s (c)", {c: q1_pdf[c].to_numpy()
+                                   for c in q1_pdf.columns}, oracle)
+        steps["c_q1"].update(max_rel_err=err, groups=len(q1_pdf))
+
+        # (d) the CSV join, distributed
+        merged = _step(steps, "d_merge", lambda: DataFrame(od).merge(
+            DataFrame(li), left_on="o_orderkey",
+            right_on="l_orderkey").to_table())
+        want_sum = int(orders["o_orderdate"][arrays["l_orderkey"]]
+                       .astype(np.int64).sum())
+        got_sum = int(merged.sum("o_orderdate"))
+        if merged.row_count != rows or got_sum != want_sum:
+            raise AssertionError(f"3s (d) merge: {merged.row_count} rows, "
+                                 f"checksum {got_sum}; want {rows}, "
+                                 f"{want_sum}")
+        steps["d_merge"].update(rows=merged.row_count, checksum=got_sum)
+        del merged
+
+        # (e) Parquet round trip of the Q1-filtered table
+        ft = filtered.to_table()
+        pq_paths = [os.path.join(tmp, f"q1_{s}.parquet")
+                    for s in range(SHARDS)]
+        back = _step(steps, "e_parquet", lambda: (
+            ft.to_parquet(os.path.join(tmp, "q1_{shard}.parquet"),
+                          per_shard=True),
+            Table.from_parquet(pq_paths, ctx=ctx))[1])
+        _same_rows("3s (e) parquet", back, ft)
+        steps["e_parquet"].update(rows=ft.row_count,
+                                  bytes=_csv_bytes(pq_paths))
+        del back, ft, filtered
+
+        # (f) row access on a one-shard orders table
+        keys = np.random.default_rng(3).integers(0, ORDERS_ROWS, LOC_KEYS)
+        lo, hi = 1000, 1999
+        a, b = ORDERS_ROWS // 2, ORDERS_ROWS // 2 + 1000
+
+        def rows_of():
+            one = Table.from_csv(or_path, ctx=CylonContext.Init())
+            one.set_index("o_orderkey")
+            return one.loc[list(keys)], one.loc[lo:hi], one.iloc[a:b]
+
+        by_key, by_range, by_pos = _step(steps, "f_rows", rows_of)
+        for label, t, want_keys in (("loc[keys]", by_key, keys),
+                                    ("loc[lo:hi]", by_range,
+                                     np.arange(lo, hi + 1)),
+                                    ("iloc[a:b]", by_pos, np.arange(a, b))):
+            got = t.to_numpy()
+            if not (np.array_equal(got["o_orderkey"], want_keys)
+                    and np.array_equal(got["o_orderdate"],
+                                       orders["o_orderdate"][want_keys])):
+                raise AssertionError(f"3s (f) {label} differs from numpy")
+        if io.reader_counts()["csv_read_native"] != SHARDS + 2:
+            raise AssertionError(f"3s (f) readers: {io.reader_counts()}")
+        del li, od, by_key, by_range, by_pos
+    for name, st in steps.items():
+        if "bytes" in st and name != "e_parquet":
+            st["mb_per_s"] = st["bytes"] / st["s"] / 1e6
+            st["rows_per_s"] = (rows + ORDERS_ROWS) / st["s"]
+        log(f"[3s] {name}: {json.dumps(st)}")
+    for step, kernels in (("c_q1", ("scan_1d", "segmented_scan")),
+                          ("d_merge", ("hash_partition",))):
+        for k in kernels:
+            if not steps[step]["launches"].get(k):
+                raise AssertionError(f"3s {step}: {k} never launched")
+    out.update(steps=steps, reader_counts=io.reader_counts(),
+               wall_s=time.perf_counter() - t0)
+    log(f"[3s] passed in {out['wall_s']:.1f} s: the native reader and "
+        f"writer served every CSV, every shard read back equal, Q1 groups "
+        f"and counts exact (max rel err {steps['c_q1']['max_rel_err']:.3g}),"
+        f" the merge gave {rows} rows with the oracle's checksum")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["front_door"] = out
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -2559,10 +2842,9 @@ def main(argv=None) -> int:
         del main_state, dist
         gc.collect()
         torch.cuda.empty_cache()
-        data, left = phase_out_of_core(report, profile=args.profile)
-        phase_ooc_groupby(report, data, left, profile=args.profile)
-        del left
+        data = phase_out_of_core(report, profile=args.profile)
         prefix = _prefix_oracle(data, OOC_PREFIX_ROWS)
+        phase_ooc_groupby(report, data, prefix, profile=args.profile)
         phase_ooc_unique(report, data, prefix)
         phase_ooc_sort(report, data, prefix, profile=args.profile)
         del prefix
@@ -2572,6 +2854,9 @@ def main(argv=None) -> int:
         phase_ooc_distributed(report, profile=args.profile)
         phase_oom_refinement(report)
         phase_oneshot_fallback(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_front_door(report)
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
@@ -2583,6 +2868,9 @@ def main(argv=None) -> int:
             r["launches_out_of_core_rest"]["oneshot_fallback"] = sum(
                 c["launches"].get(r["name"], 0)
                 for c in report["oneshot_fallback"].values())
+            r["launches_front_door"] = {
+                step: v["launches"].get(r["name"], 0)
+                for step, v in report["front_door"]["steps"].items()}
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:

@@ -12,21 +12,31 @@ distributed rung (``parallel/``): sort-merge and hash joins, hash and
 pipeline group-bys, NUNIQUE, sorts, set ops and broadcasts.  ``exec``
 streams key-domain passes of a join (and group-by) over host frames
 larger than the card's memory, splitting passes that run out of it
-(``resilience``).
+(``resilience``).  ``io`` reads and writes CSV (through the port's own
+native C++ reader, ``native/``) and Parquet, and ``DataFrame``,
+``Series`` and the ``Index`` classes are the pandas-like facade over
+``Table``.  pandas and pyarrow are imported only inside the functions
+that need them.
 """
 from __future__ import annotations
 
-from . import (column, config, context, dtypes, durable, exec, interop, obs,
-               pipeline, precision, resilience, status, table)
+from . import (column, config, context, dtypes, durable, exec, interop, io,
+               native, obs, pipeline, precision, resilience, status, table)
 from .column import Column, default_device
 from .config import JoinConfig, JoinType
 from .context import CylonContext, MeshConfig
+from .frame import DataFrame
+from .index import (CategoricalIndex, ColumnIndex, Index, Int64Index,
+                    IntegerIndex, NumericIndex, RangeIndex)
 from .ops.groupby import AggOp
+from .series import Series
 from .status import Code, CylonError, Status
 from .table import Table
 
-__all__ = ["AggOp", "Code", "Column", "CylonContext", "CylonError",
-           "JoinConfig", "JoinType", "MeshConfig", "Status", "Table",
+__all__ = ["AggOp", "CategoricalIndex", "Code", "Column", "ColumnIndex",
+           "CylonContext", "CylonError", "DataFrame", "Index", "Int64Index",
+           "IntegerIndex", "JoinConfig", "JoinType", "MeshConfig",
+           "NumericIndex", "RangeIndex", "Series", "Status", "Table",
            "column", "config", "context", "default_device", "dtypes",
-           "durable", "exec", "interop", "obs", "pipeline", "precision",
-           "resilience", "status", "table"]
+           "durable", "exec", "interop", "io", "native", "obs", "pipeline",
+           "precision", "resilience", "status", "table"]

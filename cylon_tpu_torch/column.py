@@ -470,6 +470,10 @@ def to_arrow(col: Column, row_count):
     valid = col.validity[:n].cpu().numpy()
     mask = None if valid.all() else ~valid
     at = dtypes.to_arrow_type(col.dtype)
+    if col.dtype.type in (Type.STRING, Type.BINARY):
+        arr = _ragged_arrow(col, n, valid, at)
+        if arr is not None:
+            return arr
     if col.is_string:
         rows = _bytes_rows(col.data[:n].cpu().numpy(),
                            col.lengths[:n].cpu().numpy())
@@ -480,3 +484,32 @@ def to_arrow(col: Column, row_count):
             vals = rows
         return pa.array(vals, type=at, mask=mask)
     return pa.array(col.data[:n].cpu().numpy(), type=at, mask=mask)
+
+
+def _ragged_arrow(col: Column, n: int, valid: np.ndarray, at):
+    """A string or binary column's live rows as an Arrow array built from
+    buffers (offsets from the lengths, the payload bytes gathered from the
+    byte matrix in row order), or None where that array would differ from
+    the per-row path's: invalid utf-8 (which that path replaces) or a
+    payload past 32-bit offsets."""
+    import pyarrow as pa
+
+    mat = col.data[:n].cpu().numpy()
+    lens = col.lengths[:n].cpu().numpy().astype(np.int64)
+    offsets = np.zeros((n + 1,), np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    if offsets[-1] >= 2**31:
+        return None
+    payload = mat[np.arange(mat.shape[1])[None, :] < lens[:, None]]
+    nulls = int(n - valid.sum())
+    bitmap = (pa.py_buffer(np.packbits(valid, bitorder="little"))
+              if nulls else None)
+    arr = pa.Array.from_buffers(
+        at, n, [bitmap, pa.py_buffer(offsets.astype(np.int32)),
+                pa.py_buffer(np.ascontiguousarray(payload))],
+        null_count=nulls)
+    try:
+        arr.validate(full=True)
+    except pa.ArrowInvalid:
+        return None
+    return arr

@@ -97,6 +97,11 @@ KNOBS = {k.name: k for k in [
     _K("CYLON_TPU_MAX_STRING_WIDTH", "int", 4096,
        "Widest byte matrix a string column may ingest without an explicit "
        "string_width= (device memory = capacity x width)."),
+    # -- the host C++ library (native/) and the I/O layer (io/) ------------
+    _K("CYLON_TPU_NO_NATIVE_IO", "bool", False,
+       "Disable the native (C++) CSV reader and writer; use pyarrow."),
+    _K("CYLON_TPU_NO_NATIVE", "bool", False,
+       "Disable loading the native host library entirely."),
     # -- the out-of-core engine (exec.py) and its resilience layer --------
     _K("CYLON_TPU_ONESHOT_FALLBACK", "bool", True,
        "Allow a single-shard one-shot op that dies of device OOM to "

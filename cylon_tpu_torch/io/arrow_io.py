@@ -1,0 +1,436 @@
+"""CSV / Parquet ingest and egress.
+
+The port of ``cylon_tpu/io/arrow_io.py`` (reference:
+cpp/src/cylon/io/arrow_io.cpp:33-116 read_csv/ReadParquet/WriteParquet and
+the Table factory paths cpp/src/cylon/table.cpp:803-855 FromCSV /
+:1049-1132 FromParquet/WriteParquet):
+
+- CSV is parsed on the host by the port's native C++ reader
+  (``cylon_tpu_torch/native``) when the options allow it, else by
+  pyarrow; Parquet by pyarrow.  Either way the output is host buffers,
+  uploaded once per shard to the shard's device;
+- multi-file reads fan out over a thread pool when
+  ``options.ConcurrentFileReads`` (reference: table.cpp:824-844 spawns a
+  std::thread + promise/future per file);
+- ``reader_counts()`` says which reader and writer served each file, so a
+  silent fallback to pyarrow shows.
+
+Distribution semantics:
+- one path + distributed ctx  -> rows split contiguously across shards
+- list of paths (len == world) -> file i becomes shard i, read concurrently
+
+pyarrow and pandas are imported only inside the functions that need them.
+"""
+from __future__ import annotations
+
+import concurrent.futures as _futures
+import threading
+from typing import Dict, Optional, Sequence, Union
+
+from ..status import Code, CylonError
+from .csv_config import CSVReadOptions, CSVWriteOptions, ParquetOptions
+
+PathLike = Union[str, "os.PathLike[str]"]
+
+
+# pyarrow ConvertOptions default null sentinels, passed to the native
+# parser so both paths agree on null semantics
+_DEFAULT_NULLS = ["", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
+                  "-NaN", "-nan", "1.#IND", "1.#QNAN", "N/A", "NA", "NULL",
+                  "NaN", "n/a", "nan", "null"]
+
+
+_COUNTS_LOCK = threading.Lock()
+_COUNTS: Dict[str, int] = {}
+COUNT_NAMES = ("csv_read_native", "csv_read_arrow", "csv_write_native",
+               "csv_write_pandas", "parquet_read", "parquet_write")
+
+
+def reader_counts() -> Dict[str, int]:
+    """Files served by each reader and writer since the last
+    ``reset_reader_counts``: ``csv_read_native`` / ``csv_read_arrow`` (the
+    C++ reader or pyarrow), ``csv_write_native`` / ``csv_write_pandas``,
+    ``parquet_read`` / ``parquet_write``."""
+    with _COUNTS_LOCK:
+        return {k: _COUNTS.get(k, 0) for k in COUNT_NAMES}
+
+
+def reset_reader_counts() -> None:
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
+
+
+def _count(name: str) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def _read_csv_arrow(path: PathLike, options: CSVReadOptions):
+    import pyarrow.csv as pc
+
+    _count("csv_read_arrow")
+    read, parse, convert = options.to_pyarrow()
+    return pc.read_csv(str(path), read_options=read, parse_options=parse,
+                       convert_options=convert)
+
+
+def _native_csv_compatible(options: CSVReadOptions) -> bool:
+    """The native parser handles the common-case option envelope; anything
+    else falls back to the pyarrow reader (same outputs either way)."""
+    from .. import config
+
+    if config.knob("CYLON_TPU_NO_NATIVE_IO"):
+        return False
+    from .. import native
+
+    return (not options.column_types
+            and options.include_columns is None
+            and options.true_values is None
+            and options.false_values is None
+            and not options.use_escaping
+            and options.double_quote
+            and len(options.delimiter) == 1
+            and native.available())
+
+
+def _read_csv_native(path: PathLike, options: CSVReadOptions):
+    """Read over the native (C++) threaded parser into Column-shaped
+    buffers (cylon_tpu/native/src/csv.cpp)."""
+    from .. import native
+
+    has_header = not (options.autogenerate_column_names
+                      or options.column_names is not None)
+    _count("csv_read_native")
+    names, cols = native.csv_read(
+        str(path), delimiter=options.delimiter, has_header=has_header,
+        skip_rows=options.skip_rows,
+        string_width=options.string_width or 0,
+        null_values=(options.null_values if options.null_values is not None
+                     else _DEFAULT_NULLS),
+        use_quoting=options.use_quoting, quote_char=options.quote_char,
+        strings_can_be_null=options.strings_can_be_null)
+    if options.column_names is not None:
+        if len(options.column_names) != len(names):
+            raise CylonError(Code.Invalid,
+                             f"{len(options.column_names)} column names for "
+                             f"{len(names)} columns")
+        names = list(options.column_names)
+    return names, cols
+
+
+# ---------------------------------------------------------------------------
+# durable-execution frame spills (the run journal, ROADMAP A10)
+# ---------------------------------------------------------------------------
+#
+# A chunked-run pass frame is a dict of host numpy columns exactly as
+# ``column.to_numpy`` produced them: plain fixed-width arrays, or object
+# arrays of str/bytes/np-scalars with ``None`` under nulls.  The spill
+# must round-trip BIT-IDENTICALLY (dtype included) or a resumed run's
+# concatenated output would differ from an uninterrupted run's — so each
+# Arrow field carries the exact numpy dtype (and, for object columns,
+# the element kind) in its metadata, and fixed-width object columns are
+# restored straight from the Arrow buffers (NaN payloads preserved)
+# rather than through Python scalars.
+
+_META_DTYPE = b"cylon_numpy_dtype"
+_META_KIND = b"cylon_value_kind"     # object columns: str|bytes|fixed|null
+_META_VDT = b"cylon_value_dtype"     # object 'fixed' columns: element dtype
+
+
+def _obj_column_to_arrow(a, meta):
+    import numpy as np
+    import pyarrow as pa
+
+    isnull = np.fromiter((x is None for x in a), bool, count=len(a))
+    vals = a[~isnull]
+    if vals.size == 0:
+        meta[_META_KIND] = b"null"
+        return pa.array([None] * len(a), type=pa.null())
+    if all(isinstance(x, (str, np.str_)) for x in vals):
+        meta[_META_KIND] = b"str"
+        return pa.array([None if m else str(x) for x, m in zip(a, isnull)],
+                        type=pa.string())
+    if all(isinstance(x, (bytes, np.bytes_)) for x in vals):
+        meta[_META_KIND] = b"bytes"
+        return pa.array([None if m else bytes(x) for x, m in zip(a, isnull)],
+                        type=pa.binary())
+    # uniform numeric/temporal scalars under the nulls (the
+    # ``vals.astype(object)`` shape to_numpy emits).  Uniformity is
+    # CHECKED, not assumed: numpy assignment would silently cast a
+    # mixed column (f64 after f32 rounds, i64 after i32 wraps) and the
+    # checksum would bless the corrupted payload — raising here routes
+    # the column through the journal's skip-this-spill path instead
+    vdt = np.asarray(vals[0]).dtype
+    for x in vals:
+        if np.asarray(x).dtype != vdt:
+            raise CylonError(
+                Code.SerializationError,
+                f"mixed object-column element dtypes ({vdt} vs "
+                f"{np.asarray(x).dtype}): frame spill would not "
+                f"round-trip bit-exactly")
+    values = np.zeros(len(a), vdt)
+    values[~isnull] = vals
+    meta[_META_KIND] = b"fixed"
+    meta[_META_VDT] = vdt.str.encode()
+    return pa.array(values, mask=isnull)
+
+
+def frame_to_ipc_bytes(frame) -> bytes:
+    """Serialize one pass frame (dict of host numpy columns) to Arrow IPC
+    file bytes, tagging every field with the numpy dtype needed for an
+    exact restore."""
+    import numpy as np
+    import pyarrow as pa
+
+    arrays, fields = [], []
+    for name, arr in frame.items():
+        a = np.asarray(arr)
+        meta = {_META_DTYPE: a.dtype.str.encode()}
+        if a.dtype.kind == "O":
+            pa_arr = _obj_column_to_arrow(a, meta)
+        elif a.dtype.kind == "U":
+            pa_arr = pa.array(a.astype(object), type=pa.string())
+        elif a.dtype.kind == "S":
+            pa_arr = pa.array([bytes(x) for x in a], type=pa.binary())
+        else:
+            pa_arr = pa.array(a)
+        arrays.append(pa_arr)
+        fields.append(pa.field(str(name), pa_arr.type, metadata=meta))
+    schema = pa.schema(fields)
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_file(sink, schema) as writer:
+        writer.write_batch(pa.record_batch(arrays, schema=schema))
+    return sink.getvalue().to_pybytes()
+
+
+def _bitmap_to_bool(buf, n, offset):
+    import numpy as np
+
+    if buf is None:
+        return np.ones(n, bool)
+    bits = np.unpackbits(np.frombuffer(buf, np.uint8), bitorder="little")
+    return bits[offset:offset + n].astype(bool)
+
+
+def _obj_column_from_arrow(arr, meta):
+    import numpy as np
+
+    kind = meta.get(_META_KIND, b"").decode()
+    n = len(arr)
+    if kind in ("str", "bytes", "null"):
+        out = np.empty(n, object)
+        out[:] = arr.to_pylist()
+        return out
+    if kind == "fixed":
+        vdt = np.dtype(meta[_META_VDT].decode())
+        if arr.offset == 0 and vdt.kind not in "b":
+            vals = np.frombuffer(arr.buffers()[1], dtype=vdt)[:n]
+            valid = _bitmap_to_bool(arr.buffers()[0], n, 0)
+        else:  # sliced or bit-packed layouts take the scalar path
+            valid = np.asarray([v.is_valid for v in arr], bool)
+            vals = np.zeros(n, vdt)
+            lst = arr.to_pylist()
+            for i in np.nonzero(valid)[0]:
+                vals[i] = lst[i]
+        out = vals.astype(object)
+        out[~valid] = None
+        return out
+    raise CylonError(Code.SerializationError,
+                     f"unknown object-column kind {kind!r} in frame spill")
+
+
+def frame_from_ipc_bytes(payload: bytes):
+    """Inverse of :func:`frame_to_ipc_bytes`: Arrow IPC file bytes back to
+    the exact dict of numpy columns that was spilled."""
+    import numpy as np
+    import pyarrow as pa
+
+    table = pa.ipc.open_file(pa.BufferReader(payload)).read_all()
+    out = {}
+    for field in table.schema:
+        arr = table.column(field.name).combine_chunks()
+        meta = dict(field.metadata or {})
+        dt = np.dtype(meta[_META_DTYPE].decode())
+        if dt.kind == "O":
+            out[field.name] = _obj_column_from_arrow(arr, meta)
+        elif dt.kind in "US":
+            out[field.name] = np.array(arr.to_pylist(), dtype=dt)
+        else:
+            out[field.name] = arr.to_numpy(zero_copy_only=False) \
+                .astype(dt, copy=False)
+    return out
+
+
+def _read_parquet_arrow(path: PathLike):
+    import pyarrow.parquet as pq
+
+    _count("parquet_read")
+    return pq.read_table(str(path))
+
+
+def _read_many(paths: Sequence[PathLike], reader, concurrent: bool):
+    """Concurrent multi-file read (reference: table.cpp:824-844)."""
+    if not paths:
+        raise CylonError(Code.Invalid, "no input files")
+    if not concurrent or len(paths) == 1:
+        return [reader(p) for p in paths]
+    with _futures.ThreadPoolExecutor(max_workers=len(paths)) as pool:
+        return list(pool.map(reader, paths))
+
+
+def read_csv(paths: Union[PathLike, Sequence[PathLike]],
+             options: Optional[CSVReadOptions] = None, ctx=None,
+             capacity: Optional[int] = None):
+    """Read CSV file(s) into a (possibly distributed) Table on ``ctx``
+    (default: one shard on the card) (reference: io::read_csv,
+    io/arrow_io.cpp:33-61 + Table::FromCSV)."""
+    from ..context import CylonContext
+    from ..table import _table_from_arrow_tables
+
+    options = options or CSVReadOptions()
+    ctx = ctx or CylonContext.Init()
+    if _native_csv_compatible(options):
+        from ..table import _table_from_native_tables
+
+        reader = lambda p: _read_csv_native(p, options)  # noqa: E731
+        if isinstance(paths, (list, tuple)):
+            ntables = _read_many(paths, reader,
+                                 options.concurrent_file_reads)
+            return _table_from_native_tables(
+                ntables, ctx, capacity, per_shard=True,
+                string_width=options.string_width)
+        return _table_from_native_tables(
+            [reader(paths)], ctx, capacity, per_shard=False,
+            string_width=options.string_width)
+    if isinstance(paths, (list, tuple)):
+        atables = _read_many(paths, lambda p: _read_csv_arrow(p, options),
+                             options.concurrent_file_reads)
+        return _table_from_arrow_tables(atables, ctx, capacity,
+                                        per_shard=True,
+                                        string_width=options.string_width)
+    atable = _read_csv_arrow(paths, options)
+    return _table_from_arrow_tables([atable], ctx, capacity, per_shard=False,
+                                    string_width=options.string_width)
+
+
+def read_parquet(paths: Union[PathLike, Sequence[PathLike]],
+                 options: Optional[ParquetOptions] = None, ctx=None,
+                 capacity: Optional[int] = None):
+    """reference: io::ReadParquet (io/arrow_io.cpp:65-91), Table::FromParquet
+    (table.cpp:1049-1116)."""
+    from ..context import CylonContext
+    from ..table import _table_from_arrow_tables
+
+    options = options or ParquetOptions()
+    ctx = ctx or CylonContext.Init()
+    if isinstance(paths, (list, tuple)):
+        atables = _read_many(paths, _read_parquet_arrow,
+                             options.concurrent_file_reads)
+        return _table_from_arrow_tables(atables, ctx, capacity,
+                                        per_shard=True,
+                                        string_width=options.string_width)
+    atable = _read_parquet_arrow(paths)
+    return _table_from_arrow_tables([atable], ctx, capacity, per_shard=False,
+                                    string_width=options.string_width)
+
+
+def _shard_path(path: PathLike, shard: int) -> str:
+    p = str(path)
+    if "{shard}" not in p:
+        raise CylonError(Code.Invalid,
+                         "per_shard write needs a '{shard}' placeholder in "
+                         f"the path, got {p!r}")
+    # token replacement, not str.format: other braces in the path (legal on
+    # POSIX) must pass through literally, not raise KeyError mid-write
+    return p.replace("{shard}", str(shard))
+
+
+def _write_csv_columns(cols, total: int, names, path: str,
+                       options: CSVWriteOptions) -> None:
+    """One local column set -> one CSV file (native writer when possible)."""
+    from .. import column as column_mod
+    from .. import config
+    from .. import dtypes, native
+
+    # temporal columns need logical formatting (datetime strings, not raw
+    # int64 micros) — only the pandas path renders those
+    temporal = any(c.dtype.type in (dtypes.Type.TIMESTAMP, dtypes.Type.DATE32,
+                                    dtypes.Type.DATE64, dtypes.Type.TIME32,
+                                    dtypes.Type.TIME64)
+                   for c in cols)
+    if (native.available() and not temporal
+            and not config.knob("CYLON_TPU_NO_NATIVE_IO")):
+        def host(x):
+            return None if x is None else x[:total].cpu().numpy()
+
+        native.csv_write(path, names, [host(c.data) for c in cols],
+                         [host(c.validity) for c in cols],
+                         [host(c.lengths) for c in cols],
+                         delimiter=options.delimiter)
+        _count("csv_write_native")
+        return
+    import pyarrow as pa
+
+    df = pa.table([column_mod.to_arrow(c, total) for c in cols],
+                  names=names).to_pandas()
+    df.to_csv(path, sep=options.delimiter, index=False)
+    _count("csv_write_pandas")
+
+
+def _out_names(table, options) -> list:
+    names = list(table.column_names)
+    if getattr(options, "column_names", None) is not None:
+        if len(options.column_names) != len(names):
+            raise CylonError(Code.Invalid, "column_names length mismatch")
+        names = list(options.column_names)
+    return names
+
+
+def write_csv(table, path: PathLike, options: Optional[CSVWriteOptions] = None,
+              per_shard: bool = False) -> None:
+    """CSV write (reference: Table::WriteCSV, table.cpp:243-256 — each MPI
+    rank writes ITS OWN partition).
+
+    per_shard=False gathers the whole distributed table to this host (fine
+    for small exports, a dead end at scale); per_shard=True is the
+    reference-faithful scalable path: one file per process-local shard,
+    ``path`` carries a ``{shard}`` placeholder, and the file list round-trips
+    through the list-of-paths reader (file i -> shard i).  The shards'
+    files are written concurrently, one thread each (the native writer
+    runs without the GIL); each file's bytes are the sequential write's."""
+    options = options or CSVWriteOptions()
+    names = _out_names(table, options)
+    if per_shard:
+        jobs = [(cols, count, _shard_path(path, sid))
+                for sid, cols, count in table._addressable_host_shards()]
+        with _futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            list(pool.map(lambda j: _write_csv_columns(j[0], j[1], names,
+                                                       j[2], options), jobs))
+        return
+    cols, total = table._gathered_columns()
+    _write_csv_columns(cols, total, names, str(path), options)
+
+
+def write_parquet(table, path: PathLike,
+                  options: Optional[ParquetOptions] = None,
+                  per_shard: bool = False) -> None:
+    """reference: io::WriteParquet (io/arrow_io.cpp:94-116,
+    table.cpp:1118-1131); ``per_shard`` as in :func:`write_csv`."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from .. import column as column_mod
+
+    options = options or ParquetOptions()
+    if per_shard:
+        names = list(table.column_names)
+        for sid, cols, count in table._addressable_host_shards():
+            pq.write_table(
+                pa.table([column_mod.to_arrow(c, count) for c in cols],
+                         names=names),
+                _shard_path(path, sid), row_group_size=options.chunk_size)
+            _count("parquet_write")
+        return
+    pq.write_table(table.to_arrow(), str(path),
+                   row_group_size=options.chunk_size)
+    _count("parquet_write")

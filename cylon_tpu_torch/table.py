@@ -9,10 +9,20 @@ Every shard of a table has the same capacity.
 
 Ported, for fixed-width and string columns:
 
-- host boundary and metadata: ``from_numpy`` (contiguous chunks,
-  ``_shard_plan``; string columns at one width on every shard),
-  ``to_numpy`` (live rows gathered in shard order), ``__setitem__``,
-  ``project``, ``rename``, ``add_prefix``, ``add_suffix``, ``drop``;
+- host boundary and metadata: the constructors ``from_numpy``
+  (contiguous chunks, ``_shard_plan``; string columns at one width on
+  every shard), ``from_pydict``, ``from_pandas``, ``from_arrow``,
+  ``from_list``, ``from_columns``, ``from_csv`` and ``from_parquet``
+  (``io/``: parsed on the host, uploaded once per shard; a list of files
+  maps file i to shard i); the exports ``to_numpy``, ``to_arrow``,
+  ``to_pandas``, ``to_pydict``, ``to_string``, ``print``, ``show``,
+  ``to_csv`` and ``to_parquet`` (live rows gathered in shard order, or
+  with ``per_shard=True`` one file per shard); ``shape``, ``schema`` and
+  the other metadata; ``__setitem__``, ``project``, ``rename``,
+  ``add_prefix``, ``add_suffix``, ``drop``, ``applymap``;
+- row access over an index (``index.py``): ``set_index``,
+  ``reset_index``, ``loc``, ``iloc`` and ``take_rows``, which gathers on
+  the table's device and, as in the reference, needs one shard;
 - shard-local operators (``_shard_wise`` runs them shard by shard, as
   each MPI rank of the reference runs its own): ``sort``, ``merge``,
   ``select`` with its ``_RowEnv``, ``filter``, ``__getitem__``, ``join``,
@@ -34,7 +44,9 @@ Ported, for fixed-width and string columns:
 A one-shard ``join`` or hash ``groupby`` that runs out of device memory
 falls back to the chunked out-of-core engine (``exec.py``) on the table's
 own device.  The reference's adaptive join-capacity cache is not
-ported.
+ported, nor are ``plan`` (the planner, ROADMAP A9) and the cross-process
+gather of the exports (the multi-process backend, A8): each raises
+NotImplemented.
 """
 from __future__ import annotations
 
@@ -96,6 +108,36 @@ class Table:
     def row_count(self) -> int:
         return int(self.row_counts.sum())
 
+    @property
+    def capacity(self) -> int:
+        """Rows the table can hold over all its shards."""
+        return self.shard_capacity * self.num_shards
+
+    @property
+    def column_count(self) -> int:
+        return len(self.names)
+
+    @property
+    def column_names(self) -> List[str]:
+        return list(self.names)
+
+    @property
+    def schema(self) -> List[Tuple[str, dtypes.DataType]]:
+        return [(n, c.dtype) for n, c in zip(self.names, self.shards[0])]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """(rows, columns) — reference: python/pycylon/data/table.pyx:981."""
+        return (self.row_count, self.column_count)
+
+    @property
+    def context(self) -> CylonContext:
+        """The owning context — reference: data/table.pyx:207."""
+        return self.ctx
+
+    def is_distributed(self) -> bool:
+        return self.num_shards > 1
+
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}:{c.dtype}"
                          for n, c in zip(self.names, self.shards[0]))
@@ -145,43 +187,280 @@ class Table:
                 raise CylonError(Code.Invalid,
                                  f"column {name} length {len(a)} != {n}")
         world = ctx.GetWorldSize()
-        chunk, counts, shard_cap = _shard_plan(n, world)
-        if capacity:
-            shard_cap = max(int(capacity) // world, chunk)
-        cols = [_split_column(a, chunk, counts, shard_cap, ctx.devices)
-                for a in arrays]
-        shards = [tuple(c[s] for c in cols) for s in range(world)]
-        counts_t = tuple(torch.tensor(c, dtype=torch.int32, device=dev)
-                         for c, dev in zip(counts, ctx.devices))
-        return Table(tuple(shards), counts_t, tuple(names), ctx)
+        chunk, counts, shard_cap = _shard_plan(n, world, capacity)
+        return _assemble(
+            [[column_mod.from_numpy(a[s * chunk:s * chunk + c],
+                                    capacity=shard_cap, device=dev)
+              for s, (c, dev) in enumerate(zip(counts, ctx.devices))]
+             for a in arrays], counts, names, ctx)
+
+    @staticmethod
+    def from_columns(cols: Dict[str, Column], row_count: int,
+                     ctx: Optional[CylonContext] = None) -> "Table":
+        """One shard of ``cols`` (Columns of one capacity on the context's
+        first device) holding ``row_count`` live rows."""
+        ctx = ctx or CylonContext.Init()
+        return Table((tuple(cols.values()),),
+                     (torch.tensor(int(row_count), dtype=torch.int32,
+                                   device=ctx.devices[0]),),
+                     tuple(cols.keys()), ctx)
+
+    @staticmethod
+    def from_pydict(data: Dict[str, Sequence],
+                    ctx: Optional[CylonContext] = None,
+                    capacity: Optional[int] = None) -> "Table":
+        return Table.from_numpy([str(k) for k in data],
+                                [np.asarray(v) for v in data.values()], ctx,
+                                capacity)
+
+    @staticmethod
+    def from_pandas(df, ctx: Optional[CylonContext] = None,
+                    capacity: Optional[int] = None) -> "Table":
+        """Reads ``df.columns`` and each column's ``to_numpy()``; needs no
+        import of pandas."""
+        return Table.from_numpy([str(n) for n in df.columns],
+                                [df[n].to_numpy() for n in df.columns], ctx,
+                                capacity)
+
+    @staticmethod
+    def from_arrow(atable, ctx: Optional[CylonContext] = None,
+                   capacity: Optional[int] = None) -> "Table":
+        return _table_from_arrow(
+            {n: atable.column(n) for n in atable.column_names},
+            ctx or CylonContext.Init(), capacity)
+
+    @staticmethod
+    def from_list(col_names: Sequence[str], data_list: Sequence[Sequence],
+                  ctx: Optional[CylonContext] = None) -> "Table":
+        """Column-major lists (reference: data/table.pyx:811 from_list)."""
+        if len(col_names) != len(data_list):
+            raise CylonError(Code.Invalid, f"{len(col_names)} names for "
+                             f"{len(data_list)} columns")
+        return Table.from_pydict(dict(zip(col_names, data_list)), ctx=ctx)
+
+    @staticmethod
+    def from_csv(paths, options=None, ctx: Optional[CylonContext] = None,
+                 capacity: Optional[int] = None) -> "Table":
+        """Read CSV file(s); a list of paths maps file i -> shard i
+        (reference: Table::FromCSV, table.cpp:803-855)."""
+        from . import io as io_mod
+
+        return io_mod.read_csv(paths, options, ctx, capacity)
+
+    @staticmethod
+    def from_parquet(paths, options=None, ctx: Optional[CylonContext] = None,
+                     capacity: Optional[int] = None) -> "Table":
+        """reference: Table::FromParquet (table.cpp:1049-1116)."""
+        from . import io as io_mod
+
+        return io_mod.read_parquet(paths, options, ctx, capacity)
+
+    def to_csv(self, path, options=None, per_shard: bool = False) -> None:
+        """reference: Table::WriteCSV (table.cpp:243-256).  With
+        ``per_shard=True``, ``path`` must contain a ``{shard}`` placeholder
+        and each shard is written to its own file, with no gather: the
+        inverse of the list-of-paths read."""
+        from . import io as io_mod
+
+        io_mod.write_csv(self, path, options, per_shard=per_shard)
+
+    def to_parquet(self, path, options=None, per_shard: bool = False) -> None:
+        """reference: Table::WriteParquet (table.cpp:1118-1131); per-shard
+        mode as in ``to_csv``."""
+        from . import io as io_mod
+
+        io_mod.write_parquet(self, path, options, per_shard=per_shard)
+
+    def plan(self):
+        raise CylonError(Code.NotImplemented, "the query planner is not "
+                         "ported yet (ROADMAP.md queue A, item 9)")
+
+    # -- exporters ------------------------------------------------------------
+    def _addressable_host_shards(self) -> List[Tuple[int, List[Column],
+                                                     int]]:
+        """Every shard's live rows as host (CPU) Columns, without a gather:
+        ``[(shard id, columns, live count)]`` in shard order
+        (``cylon_tpu/table.py:255``; one process holds every shard)."""
+        if self.ctx.multi_process():
+            raise CylonError(Code.NotImplemented, "a gather across processes "
+                             "needs the multi-process backend (ROADMAP.md "
+                             "queue A, item 8)")
+        return [(s, [_host_column(c, int(n)) for c in cols], int(n))
+                for s, (cols, n) in enumerate(zip(self.shards,
+                                                  self.row_counts))]
+
+    def _gathered_columns(self) -> Tuple[List[Column], int]:
+        """The live rows of every shard in shard order as one column set
+        (``cylon_tpu/table.py:222``): a one-shard table's own columns, else
+        host Columns."""
+        if self.num_shards == 1:
+            return list(self.shards[0]), int(self.row_counts[0])
+        parts = self._addressable_host_shards()
+        cols = []
+        for j, c0 in enumerate(self.shards[0]):
+            def cat(buf):
+                return torch.cat([getattr(p[1][j], buf) for p in parts])
+
+            cols.append(Column(cat("data"), cat("validity"),
+                               cat("lengths") if c0.is_string else None,
+                               c0.dtype))
+        return cols, sum(p[2] for p in parts)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Live rows of every shard, in shard order; nulls become None in
         an object array, strings str (``column.to_numpy``)."""
-        counts = self.row_counts
-        out = {}
-        for j, name in enumerate(self.names):
-            live = [(s[j], int(n)) for s, n in zip(self.shards, counts)]
+        cols, total = self._gathered_columns()
+        return {n: column_mod.to_numpy(c, total)
+                for n, c in zip(self.names, cols)}
 
-            def cat(buf):
-                return torch.cat([getattr(c, buf)[:n].cpu()
-                                  for c, n in live])
+    def to_arrow(self):
+        import pyarrow as pa
 
-            col = Column(cat("data"), cat("validity"),
-                         cat("lengths") if live[0][0].is_string else None,
-                         self.shards[0][j].dtype)
-            out[name] = column_mod.to_numpy(col, int(counts.sum()))
-        return out
+        cols, total = self._gathered_columns()
+        return pa.table([column_mod.to_arrow(c, total) for c in cols],
+                        names=list(self.names))
+
+    def to_pandas(self):
+        return self.to_arrow().to_pandas()
+
+    def to_pydict(self) -> Dict[str, list]:
+        return self.to_arrow().to_pydict()
+
+    def print(self, limit: int = 20) -> None:
+        """CSV-ish row dump (reference: table.cpp Print/PrintToOStream)."""
+        print(self.to_string(limit))
+
+    def to_string(self, row_limit: int = 10) -> str:
+        """reference: pycylon Table.to_string (data/table.pyx:1602)."""
+        d = self.to_pydict()
+        names = list(d.keys())
+        lines = [",".join(names)]
+        for i in range(min(row_limit, self.row_count)):
+            lines.append(",".join(str(d[c][i]) for c in names))
+        return "\n".join(lines)
+
+    def show(self, row1: int = -1, row2: int = -1, col1: int = -1,
+             col2: int = -1) -> None:
+        """Print a row/column range; -1 bounds mean "to the end"
+        (reference: data/table.pyx:101 show)."""
+        if row1 == -1 and col1 == -1:
+            self.print()
+            return
+        t = self
+        if col1 != -1:
+            hi_c = len(self.names) if col2 == -1 else col2
+            t = t.project(list(range(col1, hi_c)))
+        lo = max(row1, 0)
+        hi = t.row_count if row2 == -1 else min(row2, t.row_count)
+        d = t.to_pydict()
+        names = list(d.keys())
+        print(",".join(names))
+        for i in range(lo, hi):
+            print(",".join(str(d[c][i]) for c in names))
 
     def shard_frames(self) -> List[Tuple[int, Dict[str, np.ndarray], int]]:
         """Every shard's live rows on the host, without a gather:
-        ``[(shard id, {name: host column}, live count)]`` in shard order
-        (the counterpart of ``cylon_tpu/table.py:255
-        _addressable_host_shards``; one process holds every shard)."""
-        counts = self.row_counts
-        return [(s, {name: column_mod.to_numpy(c, int(n))
-                     for name, c in zip(self.names, cols)}, int(n))
-                for s, (cols, n) in enumerate(zip(self.shards, counts))]
+        ``[(shard id, {name: host column}, live count)]`` in shard order."""
+        return [(s, {name: column_mod.to_numpy(c, n)
+                     for name, c in zip(self.names, cols)}, n)
+                for s, cols, n in self._addressable_host_shards()]
+
+    def clear(self) -> None:
+        """Drop all rows (reference: data/table.pyx:130 clear); padding
+        rows hold zero, so the buffers are zeroed too."""
+        self.shards = tuple(
+            tuple(Column(torch.zeros_like(c.data),
+                         torch.zeros_like(c.validity),
+                         None if c.lengths is None
+                         else torch.zeros_like(c.lengths), c.dtype)
+                  for c in cols) for cols in self.shards)
+        self.counts = tuple(torch.zeros_like(c) for c in self.counts)
+
+    def retain_memory(self, retain: bool) -> None:
+        """Parity no-op (reference: data/table.pyx:136 — whether ops free
+        their inputs; torch frees tensors by reference count)."""
+
+    def is_retain(self) -> bool:
+        return True
+
+    # -- index surface (reference: data/table.pyx:1977-2036) ----------------
+    @property
+    def index(self):
+        from .index import RangeIndex
+
+        idx = getattr(self, "_index", None)
+        return idx if idx is not None else RangeIndex(0, self.row_count)
+
+    def set_index(self, key) -> None:
+        """Route row lookups through ``key`` (reference: table.pyx:1992-2022
+        — an Index object, a column name / list of names, or row_count
+        labels).  Unlike the reference's stubbed loc engine
+        (_libs/index.pyx get_loc: pass), the resulting index resolves
+        ``loc`` lookups, on the host."""
+        from .index import process_index_by_value
+
+        self._index = process_index_by_value(key, self)
+
+    def reset_index(self, key=None) -> None:
+        from .index import RangeIndex
+
+        self._index = RangeIndex(0, self.row_count)
+
+    @property
+    def loc(self) -> "_TableIndexer":
+        """Label-based row access over the active index: ``t.loc[label]``,
+        ``t.loc[[l1, l2]]``, ``t.loc[lo:hi]`` (inclusive), boolean masks,
+        and ``t.loc[rows, cols]`` column selection."""
+        return _TableIndexer(self, "loc")
+
+    @property
+    def iloc(self) -> "_TableIndexer":
+        """Position-based row access: int (negatives ok), slice, int
+        list/array, boolean mask, and ``t.iloc[rows, cols]``."""
+        return _TableIndexer(self, "iloc")
+
+    def take_rows(self, positions) -> "Table":
+        """Gather rows by position into a new one-shard table on this
+        table's device (the gather behind loc/iloc); the active index's
+        labels follow their rows."""
+        if self.num_shards != 1:
+            raise CylonError(Code.Invalid,
+                             "row access requires a local (1-shard) table; "
+                             "gather or repartition first")
+        from .index import (CategoricalIndex, ColumnIndex, Int64Index,
+                            RangeIndex)
+
+        idx = np.asarray(positions, np.int64)
+        n = idx.shape[0]
+        cap = max(8, n)
+        dev = self.counts[0].device
+        pad = torch.zeros(cap, dtype=torch.int64)
+        pad[:n] = torch.from_numpy(idx)
+        valid = compact.live_mask(cap, n, dev)
+        pad = pad.to(dev)
+        out = self._like([tuple(c.take(pad, valid_mask=valid)
+                                for c in self.shards[0])], [n])
+        idx_obj = getattr(self, "_index", None)
+        if isinstance(idx_obj, CategoricalIndex):
+            out._index = CategoricalIndex(
+                np.asarray(idx_obj.index_values, object)[idx])
+        elif isinstance(idx_obj, ColumnIndex):
+            vals = idx_obj.index_values
+            if len(idx_obj.names) == 1:
+                out._index = ColumnIndex(idx_obj.names[0],
+                                         np.asarray(vals)[idx])
+            else:
+                out._index = ColumnIndex(list(idx_obj.names),
+                                         [np.asarray(v)[idx] for v in vals])
+        elif idx_obj is None or isinstance(idx_obj, RangeIndex):
+            # positional labels survive selection (pandas: iloc[[5,7]]
+            # keeps labels 5,7, not a fresh 0..n-1 range)
+            labels = (np.asarray(idx_obj.index_values) if idx_obj is not None
+                      else np.arange(self.row_count, dtype=np.int64))
+            out._index = Int64Index(labels[idx])
+        else:  # NumericIndex and friends: gather their labels
+            out._index = type(idx_obj)(np.asarray(idx_obj.index_values)[idx])
+        return out
 
     # -- column assignment ----------------------------------------------------
     def __setitem__(self, key: str, value) -> None:
@@ -254,6 +533,23 @@ class Table:
         drop_idx = set(self._resolve_many(column_names))
         return self.project([i for i in range(len(self.names))
                              if i not in drop_idx])
+
+    def applymap(self, fn) -> "Table":
+        """Apply a vectorized function to every column's data tensor; null
+        rows hold zero in the result (``cylon_tpu/table.py:966``)."""
+        shards = []
+        for cols in self.shards:
+            out = []
+            for c in cols:
+                if c.is_string:
+                    raise CylonError(Code.Invalid, "applymap on string column")
+                data = fn(c.data)
+                out.append(Column(
+                    column_mod.zero_unless(c.validity, data), c.validity,
+                    None, dtypes.from_numpy_dtype(
+                        torch.empty(0, dtype=data.dtype).numpy().dtype)))
+            shards.append(tuple(out))
+        return self._like(shards, self.counts)
 
     # -- shard-local row operators ------------------------------------------
     def select(self, predicate) -> "Table":
@@ -614,6 +910,66 @@ class _RowEnv:
         return self._cols[name].validity
 
 
+class _TableIndexer:
+    """loc/iloc row access, one implementation parameterized by kind
+    (``cylon_tpu/table.py:1091``; loc: the working analog of the
+    reference's stubbed _libs/index.pyx LocIndexr.get_loc; iloc: pandas
+    positional semantics).  Positions resolve on the host; the rows are
+    gathered on the table's device."""
+
+    def __init__(self, table: Table, kind: str):
+        self._t = table
+        self._kind = kind
+
+    def __getitem__(self, key) -> Table:
+        from .index import iloc_positions, loc_positions
+
+        key, cols = _split_row_col_key(key, self._t.names,
+                                       split_always=self._kind == "iloc")
+        try:
+            if self._kind == "loc":
+                pos = loc_positions(self._t.index, key, self._t.row_count)
+            else:
+                pos = iloc_positions(key, self._t.row_count)
+        except KeyError as e:
+            raise CylonError(Code.KeyError, str(e))
+        except IndexError as e:
+            raise CylonError(Code.IndexError, str(e))
+        out = self._t.take_rows(pos)
+        if cols is not None:
+            sub = out.project(cols)
+            sub._index = out._index  # project builds a fresh Table
+            out = sub
+        return out
+
+
+def _split_row_col_key(key, names, split_always: bool = False):
+    """``indexer[rows, cols]`` support (``cylon_tpu/table.py:1122``): a
+    2-tuple whose second element selects columns.  For iloc
+    (``split_always``) a 2-tuple is ALWAYS (rows, cols) — iloc has no tuple
+    labels, and pandas' ``iloc[0, 1]`` means cell access, never rows
+    (0, 1).  For loc a tuple is also how multi-index labels spell, so the
+    second element only counts as a column selection when it names table
+    columns (or is a positional int with non-scalar rows)."""
+    if isinstance(key, tuple) and len(key) == 2:
+        rows, cols = key
+        if split_always:
+            if isinstance(cols, (int, np.integer, str)):
+                return rows, [cols if isinstance(cols, str) else int(cols)]
+            if isinstance(cols, slice):
+                return rows, list(names[cols])
+            return rows, cols  # lists pass through; project() validates
+        if isinstance(cols, str) and cols in names:
+            return rows, [cols]
+        if isinstance(cols, list) and cols and \
+                all(isinstance(c, str) and c in names for c in cols):
+            return rows, cols
+        if isinstance(cols, (int, np.integer)) and \
+                not isinstance(rows, (int, np.integer, str)):
+            return rows, [int(cols)]
+    return key, None
+
+
 # ---------------------------------------------------------------------------
 # internals
 # ---------------------------------------------------------------------------
@@ -719,21 +1075,201 @@ def _dist_set_op(a: Table, b: Table, op: str) -> Table:
                          par_ops.shuffle(b, all_cols), op)
 
 
-def _split_column(a: np.ndarray, chunk: int, counts, shard_cap: int,
-                  devices) -> List[Column]:
-    """One host array as per-shard Columns of contiguous chunks; a string
-    column at the width of its widest shard on every shard."""
-    cols = [column_mod.from_numpy(a[s * chunk:s * chunk + n],
-                                  capacity=shard_cap, device=dev)
-            for s, (n, dev) in enumerate(zip(counts, devices))]
-    width = max(c.string_width for c in cols)
-    return [common_mod.pad_width(c, width) for c in cols]
+def _assemble(per_column: Sequence[Sequence[Column]], counts, names,
+              ctx: CylonContext) -> Table:
+    """A Table from, per column, its per-shard Columns (shard ``i`` on
+    ``ctx.devices[i]``) and the per-shard live counts; a string column at
+    the width of its widest shard on every shard."""
+    cols = []
+    for shard_cols in per_column:
+        width = max(c.string_width for c in shard_cols)
+        cols.append([common_mod.pad_width(c, width) for c in shard_cols])
+    shards = [tuple(c[s] for c in cols) for s in range(len(counts))]
+    counts_t = tuple(torch.tensor(int(c), dtype=torch.int32, device=dev)
+                     for c, dev in zip(counts, ctx.devices))
+    return Table(tuple(shards), counts_t, tuple(names), ctx)
 
 
-def _shard_plan(n: int, world: int):
+def _host_column(c: Column, n: int) -> Column:
+    """The first ``n`` rows of ``c`` on the host."""
+    return Column(c.data[:n].cpu(), c.validity[:n].cpu(),
+                  None if c.lengths is None else c.lengths[:n].cpu(), c.dtype)
+
+
+def _shard_plan(n: int, world: int, capacity: Optional[int] = None):
+    """Contiguous chunks of ``ceil(n/world)`` rows at shard capacity
+    ``max(8, chunk)``, or ``capacity // world`` when a total ``capacity``
+    is given (never below the chunk), as ``cylon_tpu/table.py:1640``."""
     chunk = math.ceil(n / world) if n else 0
     counts = [max(0, min(chunk, n - s * chunk)) for s in range(world)]
-    return chunk, counts, max(8, chunk)
+    shard_cap = max(8, chunk)
+    if capacity:
+        shard_cap = max(int(capacity) // world, chunk)
+    return chunk, counts, shard_cap
+
+
+def _per_shard_capacity(counts, world: int, capacity: Optional[int]) -> int:
+    """Shard capacity of a read that maps file i to shard i
+    (``cylon_tpu/table.py:1505``): ``capacity // world``, which must hold
+    the largest file, else ``max(8, largest)``."""
+    shard_cap = capacity // world if capacity else max(8, max(counts))
+    if shard_cap < max(counts):
+        big = counts.index(max(counts))
+        raise CylonError(
+            Code.Invalid,
+            f"capacity {capacity} gives {shard_cap} rows per shard but file "
+            f"{big} has {counts[big]} rows")
+    return shard_cap
+
+
+def _table_from_arrow(arrays: Dict[str, object], ctx: CylonContext,
+                      capacity: Optional[int],
+                      string_width: Optional[int] = None) -> Table:
+    """A Table of pyarrow (Chunked)Arrays split into contiguous chunks, one
+    per shard (``cylon_tpu/table.py:1430``)."""
+    import pyarrow as pa
+
+    sw = string_width or column_mod.DEFAULT_STRING_WIDTH
+    vals = [a.combine_chunks() if isinstance(a, pa.ChunkedArray) else a
+            for a in arrays.values()]
+    n = len(vals[0]) if vals else 0
+    chunk, counts, shard_cap = _shard_plan(n, ctx.GetWorldSize(), capacity)
+    return _assemble(
+        [[column_mod.from_arrow(a.slice(s * chunk, c), capacity=shard_cap,
+                                string_width=sw, device=dev)
+          for s, (c, dev) in enumerate(zip(counts, ctx.devices))]
+         for a in vals], counts, arrays.keys(), ctx)
+
+
+def _table_from_arrow_tables(atables, ctx: CylonContext,
+                             capacity: Optional[int], *, per_shard: bool,
+                             string_width: Optional[int] = None) -> Table:
+    """Build a Table from host Arrow tables (``cylon_tpu/table.py:1461``).
+
+    per_shard=True: table i becomes shard i (the reference's
+    one-file-per-rank FromCSV semantics, table.cpp:810-855); requires
+    ``len(atables) == world``.  per_shard=False: the tables' rows,
+    concatenated, are split contiguously across shards.
+    """
+    import pyarrow as pa
+
+    sw = string_width or column_mod.DEFAULT_STRING_WIDTH
+    if not atables:
+        raise CylonError(Code.Invalid, "no input files")
+    names = tuple(atables[0].column_names)
+    schema0 = atables[0].schema
+    for i, at in enumerate(atables[1:], 1):
+        if tuple(at.column_names) != names:
+            raise CylonError(Code.Invalid,
+                             f"schema mismatch across files: {at.column_names} "
+                             f"vs {list(names)}")
+        if at.schema != schema0:
+            # unify inferred types (int64 in one file, double in another)
+            # rather than corrupting buffers downstream
+            try:
+                unified = pa.unify_schemas([schema0, at.schema],
+                                           promote_options="permissive")
+                atables = [t.cast(unified) for t in atables]
+                schema0 = unified
+            except Exception as e:
+                raise CylonError(
+                    Code.Invalid,
+                    f"column type mismatch between file 0 and file {i}: "
+                    f"{schema0} vs {at.schema}") from e
+    world = ctx.GetWorldSize()
+    if not per_shard or world == 1:
+        combined = pa.concat_tables(atables) if len(atables) > 1 else atables[0]
+        return _table_from_arrow({n: combined.column(n) for n in names}, ctx,
+                                 capacity, string_width=sw)
+    if len(atables) != world:
+        raise CylonError(Code.Invalid,
+                         f"{len(atables)} files for a {world}-shard mesh; "
+                         "per-shard reads need one file per mesh position")
+    counts = [at.num_rows for at in atables]
+    shard_cap = _per_shard_capacity(counts, world, capacity)
+    return _assemble(
+        [[column_mod.from_arrow(at.column(name), capacity=shard_cap,
+                                string_width=sw, device=dev)
+          for at, dev in zip(atables, ctx.devices)] for name in names],
+        counts, names, ctx)
+
+
+def _table_from_native_tables(ntables, ctx: CylonContext,
+                              capacity: Optional[int], *, per_shard: bool,
+                              string_width: Optional[int] = None) -> Table:
+    """Build a Table from the native CSV reader's ``(names, cols)``
+    outputs, each col a dict of ``data`` / ``validity`` / optional
+    ``lengths`` numpy buffers (``cylon_tpu/table.py:1526``): the mirror of
+    ``_table_from_arrow_tables``."""
+    if not ntables:
+        raise CylonError(Code.Invalid, "no input files")
+    names = tuple(ntables[0][0])
+    ncols = len(names)
+    for nm, _ in ntables[1:]:
+        if tuple(nm) != names:
+            raise CylonError(Code.Invalid,
+                             f"schema mismatch across files: {nm} vs "
+                             f"{list(names)}")
+    # unify numeric dtypes across files (int64 in one, float64 in another)
+    for c in range(ncols):
+        kinds = {nt[1][c]["data"].dtype.kind if nt[1][c]["data"].ndim == 1
+                 else "S" for nt in ntables}
+        if "S" in kinds and kinds != {"S"}:
+            raise CylonError(Code.Invalid,
+                             f"column {names[c]} is string in some files, "
+                             "numeric in others")
+        if "f" in kinds and "i" in kinds:
+            for nt in ntables:
+                nt[1][c]["data"] = nt[1][c]["data"].astype(np.float64)
+    world = ctx.GetWorldSize()
+
+    def build(col, lo, hi, cap, dev):
+        lengths = col.get("lengths")
+        return column_mod.from_native_buffers(
+            col["data"][lo:hi], col["validity"][lo:hi],
+            None if lengths is None else lengths[lo:hi], capacity=cap,
+            string_width=string_width, device=dev)
+
+    if per_shard and world > 1:
+        if len(ntables) != world:
+            raise CylonError(Code.Invalid,
+                             f"{len(ntables)} files for a {world}-shard "
+                             "mesh; per-shard reads need one file per mesh "
+                             "position")
+        counts = [len(nt[1][0]["data"]) if nt[1] else 0 for nt in ntables]
+        shard_cap = _per_shard_capacity(counts, world, capacity)
+        return _assemble(
+            [[build(nt[1][c], 0, n, shard_cap, dev)
+              for nt, n, dev in zip(ntables, counts, ctx.devices)]
+             for c in range(ncols)], counts, names, ctx)
+    if len(ntables) == 1:
+        cols = ntables[0][1]
+    else:
+        cols = [_concat_native([nt[1][c] for nt in ntables])
+                for c in range(ncols)]
+    n = len(cols[0]["data"]) if cols else 0
+    chunk, counts, shard_cap = _shard_plan(n, world, capacity)
+    return _assemble(
+        [[build(col, s * chunk, s * chunk + c, shard_cap, dev)
+          for s, (c, dev) in enumerate(zip(counts, ctx.devices))]
+         for col in cols], counts, names, ctx)
+
+
+def _concat_native(parts: List[Dict[str, np.ndarray]]
+                   ) -> Dict[str, np.ndarray]:
+    """One native column from several files' parts, string matrices
+    padded to the widest."""
+    merged: Dict[str, np.ndarray] = {}
+    if parts[0]["data"].ndim == 2:
+        w = max(p["data"].shape[1] for p in parts)
+        merged["data"] = np.concatenate(
+            [np.pad(p["data"], ((0, 0), (0, w - p["data"].shape[1])))
+             for p in parts])
+        merged["lengths"] = np.concatenate([p["lengths"] for p in parts])
+    else:
+        merged["data"] = np.concatenate([p["data"] for p in parts])
+    merged["validity"] = np.concatenate([p["validity"] for p in parts])
+    return merged
 
 
 def cap_round(n: int) -> int:

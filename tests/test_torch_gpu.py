@@ -683,3 +683,79 @@ def test_oneshot_join_falls_back_on_the_card(gen):
     bo = np.lexsort(tuple(base[n] for n in names))
     for n in names:
         np.testing.assert_array_equal(got[n][go], base[n][bo])
+
+
+def _frame_csv(tmp_path, n=5000, seed=5):
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    df = pd.DataFrame({"id": np.arange(n, dtype=np.int64),
+                       "v": rng.random(n),
+                       "name": [f"row_{i % 37}" for i in range(n)]})
+    df.loc[3, "v"] = np.nan
+    path = tmp_path / "t.csv"
+    df.to_csv(path, index=False)
+    return df, path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [1, 4])
+def test_csv_read_on_the_card_equals_the_cpu_read(gen, tmp_path, world):
+    """The native reader's buffers uploaded to the card hold what the same
+    read puts on the CPU, slot for slot."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, Table, interop, io
+
+    _, path = _frame_csv(tmp_path)
+
+    def ctx(dev):
+        return (CylonContext.Init(dev) if world == 1 else
+                CylonContext.InitDistributed(MeshConfig(devices=[dev],
+                                                        world_size=world)))
+
+    io.reset_reader_counts()
+    card = Table.from_csv(path, ctx=ctx("cuda"))
+    cpu = Table.from_csv(path, ctx=ctx("cpu"))
+    assert io.reader_counts()["csv_read_native"] == 2
+    assert all(c.device.type == "cuda" for s in card.shards for c in s)
+    n1, s1, c1 = interop.table_shards_to_arrays(card)
+    n2, s2, c2 = interop.table_shards_to_arrays(cpu)
+    assert n1 == n2 and list(c1) == list(c2)
+    for a, b in zip(s1, s2):
+        for x, y in zip(a, b):
+            for u, v in zip(x[:3], y[:3]):
+                if u is None:
+                    assert v is None
+                else:
+                    np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.gpu
+def test_to_pandas_from_the_card(gen, tmp_path):
+    import pandas as pd
+
+    from cylon_tpu_torch import CylonContext, MeshConfig, Table
+
+    df, path = _frame_csv(tmp_path)
+    ctx = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                  world_size=4))
+    t = Table.from_csv(path, ctx=ctx)
+    pd.testing.assert_frame_equal(t.to_pandas(), df)
+    pd.testing.assert_frame_equal(Table.from_pandas(df, ctx=ctx).to_pandas(),
+                                  df)
+
+
+@pytest.mark.gpu
+def test_loc_and_iloc_on_the_card(gen, tmp_path):
+    from cylon_tpu_torch import CylonContext, Table
+
+    df, path = _frame_csv(tmp_path)
+    t = Table.from_csv(path, ctx=CylonContext.Init("cuda"))
+    t.set_index("name")
+    got = t.loc["row_5"]
+    assert got.shards[0][0].device.type == "cuda"
+    assert got.to_pydict()["id"] == df.index[df["name"] == "row_5"].tolist()
+    assert t.iloc[10:20].to_pydict()["id"] == list(range(10, 20))
+    assert t.iloc[[7, 3, -1]].to_pydict()["id"] == [7, 3, len(df) - 1]
+    t.set_index("id")
+    assert t.loc[100:104].to_pydict()["name"] == \
+        df["name"][100:105].tolist()

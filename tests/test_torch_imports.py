@@ -43,6 +43,39 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert int(out.stdout.split()[-1]) >= 41
 
 
+def test_import_loads_neither_pandas_nor_pyarrow():
+    """``import cylon_tpu_torch`` (its I/O layer, native library bindings
+    and frames included) loads neither pandas nor pyarrow: each is imported
+    only inside the functions that need it."""
+    code = (
+        "import sys\n"
+        "import cylon_tpu_torch\n"
+        "from cylon_tpu_torch import frame, index, io, native, series\n"
+        "from cylon_tpu_torch.io import arrow_io, csv_config\n"
+        "from cylon_tpu_torch.native import build\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('pandas', 'pyarrow', 'jax',\n"
+        "                                    'cylon_tpu'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", ["io", "io/arrow_io", "io/csv_config",
+                                    "native", "native/build", "frame",
+                                    "series", "index"])
+def test_front_door_modules_import_no_jax(module):
+    """The I/O layer, the native bindings and the frames are copies of the
+    JAX package's modules, never imports of them."""
+    path = PKG / f"{module}.py"
+    if not path.exists():
+        path = PKG / module / "__init__.py"
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), roots
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
