@@ -73,6 +73,24 @@ Phases, each of which fails the run on error:
    ``shuffle("k")``, equal to the shuffled path; (f) ``broadcast_gather``
    of a 2^20-row table: every shard holds every row in source-rank order.
    The hash kernel must launch in (a)-(e);
+3t. the shuffle's three exchange realizations, each selected by setting
+   ``CYLON_TPU_SHUFFLE_PACK`` / ``CYLON_TPU_SHUFFLE_COMPRESS`` in the
+   environment around its calls: per buffer, one packed plane, the plane
+   compressed.  (a) 3b's join -> group-by under each: shard for shard
+   bit-identical, the first equal to phase 3's oracle, 3 exchanges of 1
+   collective each when packed, and the join's two exchanges alone
+   (``shuffle.collective_launches`` 2 packed, 2 x ``buffer_count`` per
+   buffer; ``shuffle.compress_ratio`` 1.5 compressed); (b) ``shuffle`` by
+   ``l_orderkey`` of TPC-H SF-10 lineitem (3h's 60,000,000 rows and an
+   int64 ``l_orderkey``): both flags take the dictionary encoding, the
+   shards are bit-identical, Q1 on the shuffled table equals 3h's
+   oracle; (c) ``task_shuffle`` of two 2^24-row tables split into four
+   logical tables on four workers: each output on its worker holding its
+   input's rows, packed equal to per buffer; (d) ``broadcast_gather`` of
+   3l (f)'s table, packed equal to per buffer in one all-gather.  Each
+   first run with the counters and metrics zeroed just before and read
+   just after, then best-of-3 ms, bytes sent, collective launches, the
+   compress ratio and peak device memory;
 3i. the main path past the card's memory: ``pipeline.make_data(OOC_ROWS)``
    (2^29 rows per side, 2^30 in all) through ``exec.chunked_join_groupby``
    in 16 key-domain passes (``pipeline.out_of_core_join_groupby``), one
@@ -90,15 +108,15 @@ Phases, each of which fails the run on error:
    capped between the two peaks: it must split at least once and equal
    the uncapped run (keys and group count exact, sums and means rtol
    1e-5); the cap is lifted even when the phase fails;
-3m. ``chunked_groupby`` of the first 2^28 rows of 3i's left table (read
+3m. ``chunked_groupby`` of the first 2^27 rows of 3i's left table (read
    from 3i's data) by ``k`` with SUM, MEAN and COUNT of the value, in 16
    passes (``pipeline.out_of_core_groupby``), against their numpy
    ``bincount``s with and without weights: groups and counts exact, float
    sums and means within rtol 1e-5 of float64; both scan kernels must
    launch in every pass;
-3n. ``chunked_unique`` of the first 2^28 keys of that table against the
+3n. ``chunked_unique`` of the first 2^27 keys of that table against the
    nonzero count of their ``bincount`` (the distinct keys as a set);
-3o. ``chunked_sort`` of its first 2^28 rows by ``k`` in 16 passes: keys
+3o. ``chunked_sort`` of its first 2^27 rows by ``k`` in 16 passes: keys
    never decrease, per-key counts equal the ``bincount``, per-key float64
    value sums match it (rtol 1e-5), with no host sort;
 3p. ``chunked_repartition`` of 3i's two sides as one 2^30-row ``{k, v}``
@@ -1321,7 +1339,7 @@ def _check_q1(label: str, out, oracle: dict) -> float:
     return worst
 
 
-def phase_tpch_q1(report: dict, profile: bool = False) -> None:
+def phase_tpch_q1(report: dict, profile: bool = False) -> dict:
     """Phase 3h: TPC-H Q1 at SF10 (60,000,000 lineitem rows), on one shard
     and on SHARDS shards of the one card, against a numpy oracle."""
     import torch
@@ -1361,6 +1379,7 @@ def phase_tpch_q1(report: dict, profile: bool = False) -> None:
     report["tpch_q1"] = {"sf": Q1_SF, "rows": rows,
                          "rows_selected": oracle["rows_selected"],
                          **results}
+    return {"data": data, "oracle": oracle}
 
 
 # kernel family -> substrings of the profiler's kernel names (first match
@@ -1677,6 +1696,281 @@ def phase_distributed_surface(report: dict, main: dict, dist: dict,
             f"first run {first_s:.3f} s, peak "
             f"{r['peak_device_bytes'] / 2**30:.2f} GiB, launches {launches}")
     report["distributed_surface"] = results
+
+
+# -- phase 3t: the shuffle's exchange realizations ----------------------------
+
+# (label, CYLON_TPU_SHUFFLE_PACK, CYLON_TPU_SHUFFLE_COMPRESS)
+EXCHANGE_ARMS = (("per_buffer", "0", "0"), ("packed", "1", "0"),
+                 ("compressed", "1", "1"))
+TASK_ROWS = 1 << 24  # rows of each of 3t (c)'s two tables
+
+
+def _l_orderkey(n: int, seed: int):
+    """int64 l_orderkey of ``n`` lineitem rows as dbgen draws them: orders
+    1, 2, ... with 1-7 consecutive lines each (uniform), and each order's
+    key made sparse by ``mk_sparse`` (only the first 8 of every 32 keys
+    used, TPC-H 4.2.3), so SF-10's 15,000,000 orders span keys up to
+    60,000,000.  The lines past row ``n`` are cut (3h's table holds
+    60,000,000 rows; dbgen's SF-10 lineitem 59,986,052), and orders past
+    15,000,000 enter only where the draw runs short."""
+    import numpy as np
+
+    lines = np.random.default_rng(seed).integers(1, 8, n // 4 + n // 400 + 8)
+    order = np.repeat(np.arange(1, len(lines) + 1, dtype=np.int64),
+                      lines)[:n]
+    return ((order >> 3) << 5) | (order & 7)
+
+
+def _arm_env(pack: str, comp: str):
+    from cylon_tpu_torch import config
+
+    return config.knob_env(CYLON_TPU_SHUFFLE_PACK=pack,
+                           CYLON_TPU_SHUFFLE_COMPRESS=comp)
+
+
+def _exchange_metrics() -> dict:
+    """The shuffle accounting since the last ``metrics.reset()``."""
+    from cylon_tpu_torch.obs import metrics
+
+    snap = metrics.snapshot()
+    c = snap["counters"]
+    return {k: c.get(f"shuffle.{k}", 0) for k in (
+        "exchanges", "broadcasts", "collective_launches", "bytes_sent",
+        "bytes_saved")} | {
+        "compress_ratio": snap["gauges"].get("shuffle.compress_ratio")}
+
+
+def _same_bits(label: str, got, want) -> None:
+    """Two tables hold the same bits, shard for shard, over every
+    capacity (floats by their bits), checked on the card."""
+    import torch
+
+    if got.names != want.names or \
+            got.row_counts.tolist() != want.row_counts.tolist():
+        raise AssertionError(f"{label}: names or row counts differ")
+    for s, (gs, ws) in enumerate(zip(got.shards, want.shards)):
+        for name, g, w in zip(got.names, gs, ws):
+            same = (torch.equal(g.validity, w.validity) and torch.equal(
+                g.data.contiguous().view(torch.uint8),
+                w.data.contiguous().view(torch.uint8))
+                and (g.lengths is None or torch.equal(g.lengths, w.lengths)))
+            if not same:
+                raise AssertionError(f"{label}: shard {s} column {name} "
+                                     "differs")
+
+
+def _arm_runs(fn, rows: int):
+    """(first-run result, record) of ``fn`` under the knobs already set:
+    a first run with the launch counters and the metrics zeroed just
+    before it and read just after, then best-of-3 ms and peak memory."""
+    from cylon_tpu_torch.obs import metrics
+
+    metrics.reset()
+    out, first_s, launches = _first_run(fn)
+    rec = {"first_run_ms": first_s * 1e3, "launches": launches,
+           **_exchange_metrics()}
+    rec.update(_time_op(fn, rows, runs=3))
+    return out, rec
+
+
+def _log_arm(tag: str, label: str, rec: dict) -> None:
+    log(f"[3t] {tag} {label}: best-of-3 {rec['best_ms']:.2f} ms, first "
+        f"run {rec['first_run_ms']:.2f} ms, bytes_sent {rec['bytes_sent']}"
+        f", collective launches {rec['collective_launches']}, compress "
+        f"ratio {rec['compress_ratio']}, peak "
+        f"{rec['peak_device_bytes'] / 2**30:.2f} GiB, kernel launches "
+        f"{rec['launches']}")
+
+
+def phase_exchange(report: dict, main: dict, dist: dict, q1: dict,
+                   rows: int, profile: bool = False) -> None:
+    """Phase 3t: the shuffle's three exchange realizations (per buffer,
+    one packed plane, the plane compressed) on (a) 3b's distributed join
+    -> group-by, (b) a hash repartition of TPC-H SF-10 lineitem, (c)
+    ``task_shuffle`` and (d) ``broadcast_gather``, each against the
+    others bit for bit and against numpy."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import Table, pipeline
+    from cylon_tpu_torch.obs import metrics
+    from cylon_tpu_torch.parallel import ops as par_ops
+    from cylon_tpu_torch.parallel import partition, plane
+    from cylon_tpu_torch.parallel import shuffle as shuffle_mod
+    from cylon_tpu_torch.parallel.task import LogicalTaskPlan, task_shuffle
+
+    left, right, ctx = dist["left"], dist["right"], dist["ctx"]
+    out: dict = {}
+    t_phase = time.perf_counter()
+
+    # (a) 3b's main path under each realization
+    res, base = {}, None
+    per_buffer_launches = shuffle_mod.buffer_count(left.shards[0])
+    for label, pack, comp in EXCHANGE_ARMS:
+        with _arm_env(pack, comp):
+            (groups, joined), rec = _arm_runs(
+                lambda: pipeline.distributed_join_groupby(left, right),
+                2 * rows)
+            if profile and comp == "0":
+                phase_profile(report, f"exchange_{label}",
+                              lambda: pipeline.distributed_join_groupby(
+                                  left, right))
+            # the join's two shuffles alone: the gauge keeps only the last
+            # exchange, so it is read before a group-by's shuffle overwrites
+            metrics.reset()
+            left.distributed_join(right, on="k")
+            rec["join_alone"] = _exchange_metrics()
+        ja = rec["join_alone"]
+        want_launches = 2 * (1 if pack == "1" else per_buffer_launches)
+        want_bytes = 2 * rows * par_ops._row_bytes(
+            left.shards[0], pack == "1") if comp == "0" else None
+        if ja["exchanges"] != 2 or ja["collective_launches"] != want_launches \
+                or (want_bytes is not None and ja["bytes_sent"] != want_bytes):
+            raise AssertionError(f"3t (a) {label}: join accounting {ja}, "
+                                 f"want 2 exchanges, {want_launches} "
+                                 f"launches, {want_bytes} bytes")
+        # three exchanges: the join's two and the group-by's partials'
+        if rec["exchanges"] != 3 or (pack == "1") != (
+                rec["collective_launches"] == 3):
+            raise AssertionError(f"3t (a) {label}: accounting {rec}")
+        if comp == "1" and ja["compress_ratio"] != 1.5:
+            raise AssertionError(f"3t (a) {label}: compress ratio "
+                                 f"{ja['compress_ratio']}, want 1.5")
+        if rec["launches"]["hash_partition"] < 3 * SHARDS:
+            raise AssertionError(f"3t (a) {label}: hash kernel launches "
+                                 f"{rec['launches']}")
+        if base is None:
+            g = _groups_of(groups, "l_k", ["sum_lv", "mean_rv"])
+            rec["max_abs_err"] = max(_check_groups(
+                main["oracle"], g["l_k"], g["sum_lv"], g["mean_rv"],
+                f"3t (a) {label}"))
+            base = (groups, joined)
+        else:
+            _same_bits(f"3t (a) {label} groups", groups, base[0])
+            _same_bits(f"3t (a) {label} joined", joined, base[1])
+        res[label] = rec
+        _log_arm("(a)", label, rec)
+        del groups, joined
+    out["join_groupby"] = res
+    del base
+
+    # (b) a low-cardinality hash repartition: TPC-H SF-10 lineitem
+    data = dict(q1["data"])
+    n = len(data["l_shipdate"])
+    data["l_orderkey"] = _l_orderkey(n, seed=1)
+    t = pipeline.lineitem_table(ctx, data)
+    spec = plane.build_spec(
+        t.shards[0], partition.column_stats(t.shards, t.counts, ctx.devices),
+        t.num_shards, t.shard_capacity)
+    encodings = dict(zip(t.names, spec))
+    for flag in ("l_returnflag", "l_linestatus"):
+        if encodings[flag][0] != "dict":
+            raise AssertionError(f"3t (b): {flag} encodes as "
+                                 f"{encodings[flag]}, not a dictionary")
+    res, base = {}, None
+    for label, pack, comp in EXCHANGE_ARMS:
+        with _arm_env(pack, comp):
+            shuffled, rec = _arm_runs(lambda: t.shuffle("l_orderkey"), n)
+        if rec["exchanges"] != 1 or rec["collective_launches"] != (
+                1 if pack == "1" else shuffle_mod.buffer_count(t.shards[0])):
+            raise AssertionError(f"3t (b) {label}: {rec}")
+        if base is None:
+            rec["q1_max_rel_err"] = _check_q1(
+                f"3t (b) {label}", pipeline.tpch_q1(shuffled), q1["oracle"])
+            base = shuffled
+        else:
+            _same_bits(f"3t (b) {label}", shuffled, base)
+        res[label] = rec
+        _log_arm("(b)", label, rec)
+        del shuffled
+    out["lineitem_shuffle"] = {"rows": n, "spec": [list(e) for e in spec],
+                               **res}
+    log(f"[3t] (b) {n} lineitem rows, spec {encodings}; Q1 on the "
+        f"shuffled table equals 3h's oracle")
+    del t, base, data
+
+    # (c) task_shuffle: two 2^24-row tables, each split into two logical
+    # tables, four task ids on four workers
+    lk, lv, rk, rv = main["data"]
+    half = TASK_ROWS // 2
+    parts = [(lk[:half], lv[:half]), (lk[half:TASK_ROWS], lv[half:TASK_ROWS]),
+             (rk[:half], rv[:half]), (rk[half:TASK_ROWS], rv[half:TASK_ROWS])]
+    tables = [Table.from_numpy(["k", "v"], list(p), ctx=ctx) for p in parts]
+    mapping = {0: 3, 1: 2, 2: 1, 3: 0}
+    tplan = LogicalTaskPlan(mapping, SHARDS)
+    res, base = {}, None
+    for label, pack, comp in EXCHANGE_ARMS[:2]:
+        with _arm_env(pack, comp):
+            outs, rec = _arm_runs(lambda: task_shuffle(tables, [0, 1, 2, 3],
+                                                       tplan), 2 * TASK_ROWS)
+        if rec["exchanges"] != 1 or rec["collective_launches"] != (
+                1 if pack == "1" else 6):
+            raise AssertionError(f"3t (c) {label}: {rec}")
+        if base is None:
+            for task, (o, (k, v)) in enumerate(zip(outs, parts)):
+                counts = o.row_counts.tolist()
+                if counts[mapping[task]] != len(k) or sum(counts) != len(k):
+                    raise AssertionError(f"3t (c) task {task}: rows "
+                                         f"{counts}")
+                cols, cnt = o.shards[mapping[task]], counts[mapping[task]]
+                got = torch.sort((cols[0].data[:cnt].to(torch.int64) << 32)
+                                 | (cols[1].data[:cnt].view(torch.int32)
+                                    .to(torch.int64) & 0xFFFFFFFF)).values
+                want = np.sort(_packed(k, v)).view(np.int64)
+                if not torch.equal(got.cpu(), torch.from_numpy(want)):
+                    raise AssertionError(f"3t (c) task {task}: rows differ "
+                                         "from its input's")
+            base = outs
+        else:
+            for task, (o, b) in enumerate(zip(outs, base)):
+                _same_bits(f"3t (c) {label} task {task}", o, b)
+        res[label] = rec
+        _log_arm("(c)", label, rec)
+        del outs
+    out["task_shuffle"] = res
+    del base, tables
+
+    # (d) broadcast_gather of 3l (f)'s 2^20-row table
+    bc_rows = min(1 << 20, rows)
+    small = Table.from_numpy(["k", "lv"], [lk[:bc_rows], lv[:bc_rows]],
+                             ctx=ctx)
+    res, base = {}, None
+    for label, pack, comp in EXCHANGE_ARMS[:2]:
+        with _arm_env(pack, comp):
+            bc, rec = _arm_runs(lambda: par_ops.broadcast_gather(small),
+                                bc_rows)
+        want = 1 if pack == "1" else 1 + shuffle_mod.buffer_count(
+            small.shards[0])
+        if rec["broadcasts"] != 1 or rec["collective_launches"] != want:
+            raise AssertionError(f"3t (d) {label}: {rec}, want {want} "
+                                 "all-gathers")
+        if base is None:
+            if bc.row_counts.tolist() != [bc_rows] * SHARDS:
+                raise AssertionError(f"3t (d): rows {bc.row_counts}")
+            _expect_equal("3t (d) k", bc.shards[0][0].data[:bc_rows]
+                          .cpu().numpy(), lk[:bc_rows])
+            base = bc
+        else:
+            _same_bits(f"3t (d) {label}", bc, base)
+        res[label] = rec
+        _log_arm("(d)", label, rec)
+    out["broadcast_gather"] = res
+    report["exchange"] = out
+    report["exchange_seconds"] = time.perf_counter() - t_phase
+    log(f"[3t] passed in {report['exchange_seconds']:.1f} s: every "
+        "realization bit-identical, the accounting as predicted")
+
+
+def exchange_launches(report: dict) -> dict:
+    """Per kernel, its launches summed over the first runs of phase 3t."""
+    total: dict = {}
+    for case in report.get("exchange", {}).values():
+        for rec in case.values():
+            if isinstance(rec, dict) and "launches" in rec:
+                for k, n in rec["launches"].items():
+                    total[k] = total.get(k, 0) + n
+    return total
 
 
 # -- phases 3i and 3j: out of core --------------------------------------------
@@ -2047,9 +2341,9 @@ def phase_ooc_sort(report: dict, data, oracle: dict,
         f"max abs err {sum_err:.3g}; {rec['call_s']:.2f} s")
 
 
-# 3m, 3n and 3o run on the first 2^28 rows of 3i's left table, cut from
+# 3m, 3n and 3o run on the first 2^27 rows of 3i's left table, cut from
 # 2^29 for the script's time (PERF.md §4)
-OOC_PREFIX_ROWS = 1 << 28
+OOC_PREFIX_ROWS = 1 << 27
 REPARTITION_WORLD = 4
 REPARTITION_PASSES = 16
 
@@ -2756,6 +3050,7 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     report["segmented_inputs"] = {"n": m, "resets": int(reset.sum())}
     op_launches = operator_launches(report)
     str_launches = string_launches(report)
+    exchange = exchange_launches(report)
     surface: dict = {}
     for r in report["distributed_surface"].values():
         for k, n in r["launches"].items():
@@ -2766,6 +3061,7 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
         r["launches_hash_join"] = report["hash_join"]["launches"].get(
             r["name"], 0)
         r["launches_distributed_surface"] = surface.get(r["name"], 0)
+        r["launches_exchange"] = exchange.get(r["name"], 0)
     for r in rows_out:
         log(f"[4] {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
             f"ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']}) "
@@ -2835,9 +3131,11 @@ def main(argv=None) -> int:
         del ops
         phase_string_join(report, main_state, ROWS, args.profile)
         phase_string_distributed(report, main_state, ROWS, args.profile)
-        phase_tpch_q1(report, args.profile)
+        q1 = phase_tpch_q1(report, args.profile)
         phase_hash_join(report, main_state, ROWS, args.profile)
         phase_distributed_surface(report, main_state, dist, ROWS)
+        phase_exchange(report, main_state, dist, q1, ROWS, args.profile)
+        del q1
         kernels = phase_timings(report, main_state, dist, ROWS)
         del main_state, dist
         gc.collect()

@@ -89,6 +89,20 @@ class Knob:
 _K = Knob
 
 KNOBS = {k.name: k for k in [
+    # -- the shuffle's exchange (parallel/plane.py) ------------------------
+    _K("CYLON_TPU_SHUFFLE_PACK", "enum", "auto",
+       "Shuffle exchange realization: one bit-packed plane of 32-bit words "
+       "per collective (packed) or one collective per buffer per column "
+       "(perbuf); auto packs only on TPU-family backends, so it is perbuf "
+       "on CUDA and on the CPU.",
+       ("1", "on", "packed", "0", "off", "perbuf", "auto")),
+    _K("CYLON_TPU_SHUFFLE_COMPRESS", "enum", "auto",
+       "Compress the packed plane before it travels: integer columns "
+       "narrow to their observed range, string columns truncate to their "
+       "observed byte extent, low-cardinality string columns travel as "
+       "codes into one all-gathered dictionary; bit-exact.  Rides "
+       "CYLON_TPU_SHUFFLE_PACK; auto is off on CUDA and on the CPU.",
+       ("1", "on", "0", "off", "auto")),
     _K("CYLON_TPU_ACCUM", "enum", "auto",
        "Accumulation precision: wide (f64/int64 accumulators), narrow "
        "(f32/int32, scans through the CUDA scan kernels), or auto "

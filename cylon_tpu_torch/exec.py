@@ -65,6 +65,7 @@ from .obs import spans as obs_spans
 from .ops import groupby as groupby_mod
 from .ops import join as join_mod
 from .ops.groupby import AggOp
+from .parallel import plane as plane_mod
 from .parallel.shuffle import pow2ceil
 from .status import Code, CylonError, Status
 
@@ -1336,10 +1337,9 @@ def _chunked_distributed(arrs_l, names_l, arrs_r, names_r, lon, ron, cfg,
                                           arrs_l, arrs_r, names_l, names_r,
                                           joined, ddof, ctx)
     t_run = time.perf_counter() - t_run0
-    # the port exchanges per buffer only (no packed plane yet)
     stats = {"passes": n_passes, "mode": mode_used, "world": world,
              "shard_cap": shard_cap, "retries": retries,
-             "shuffle_pack": False,
+             "shuffle_pack": plane_mod.pack_enabled(),
              "groups" if gb_names is not None else "rows": total,
              "plan_seconds": t_plan, "run_seconds": t_run,
              "total_seconds": t_plan + t_run}
@@ -1622,7 +1622,7 @@ def chunked_repartition(data, keys, world: int, *, passes: int = 4,
             for sid, frame, n in t.shuffle(key_names).shard_frames():
                 store(sid, p, frame, n)
                 total += n
-        extra["shuffle_pack"] = False
+        extra["shuffle_pack"] = plane_mod.pack_enabled()
     else:
         from .parallel import partition as partition_mod
         from .parallel import shuffle as shuffle_mod

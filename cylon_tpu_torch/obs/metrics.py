@@ -1,6 +1,10 @@
-"""Process-local metrics: counters and gauges.
+"""Process-local metrics: counters, gauges and histograms.
 
-A copy of ``cylon_tpu/obs/metrics.py``: out-of-core refinements
+A copy of ``cylon_tpu/obs/metrics.py``: the shuffle's accounting
+(``shuffle.exchanges``, ``shuffle.collective_launches``,
+``shuffle.bytes_sent``, ``shuffle.bytes_saved``, the
+``shuffle.compress_ratio`` gauge, ``shuffle.broadcasts`` and the
+``shuffle.bytes_per_exchange`` histogram), out-of-core refinements
 (``oom.refinements``), transient retries (``retry.attempts``), parts run
 (``exec.parts_run``), injected faults (``fault.injected``) and the device
 memory watermark (``hbm.live_bytes``).  Plain dict arithmetic on the host;
@@ -10,12 +14,41 @@ sums ``jax.live_arrays``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 _counters: Dict[str, float] = {}
 _gauges: Dict[str, float] = {}
+_hists: Dict[str, "_Hist"] = {}
+
+class _Hist:
+    """count/sum/min/max and power-of-two bucket counts (bucket i holds
+    [2**i, 2**(i+1)); values below 1 land in bucket 0)."""
+
+    __slots__ = ("count", "sum", "min", "max", "buckets")
+
+    def __init__(self):
+        self.count = 0
+        self.sum = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self.buckets: Dict[int, int] = {}
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        self.count += 1
+        self.sum += v
+        self.min = v if self.min is None else min(self.min, v)
+        self.max = v if self.max is None else max(self.max, v)
+        b = max(0, int(v).bit_length() - 1) if v >= 1 else 0
+        self.buckets[b] = self.buckets.get(b, 0) + 1
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"count": self.count, "sum": self.sum,
+                "min": self.min, "max": self.max,
+                "buckets": {str(k): self.buckets[k]
+                            for k in sorted(self.buckets)}}
 
 
 def counter_add(name: str, value: float = 1) -> None:
@@ -26,12 +59,23 @@ def counter_value(name: str) -> float:
     return _counters.get(name, 0)
 
 
+def gauge_set(name: str, value: float) -> None:
+    _gauges[name] = float(value)
+
+
 def gauge_max(name: str, value: float) -> None:
     """Watermark gauge: keeps the maximum ever set."""
     v = float(value)
     cur = _gauges.get(name)
     if cur is None or v > cur:
         _gauges[name] = v
+
+
+def hist_observe(name: str, value: float) -> None:
+    h = _hists.get(name)
+    if h is None:
+        h = _hists[name] = _Hist()
+    h.observe(value)
 
 
 def record_hbm_watermark(device=None) -> int:
@@ -47,14 +91,16 @@ def record_hbm_watermark(device=None) -> int:
 
 
 def snapshot() -> Dict[str, object]:
-    """Deterministic flat snapshot: {"counters": {...}, "gauges": {...}}
-    with every key level sorted."""
+    """Deterministic flat snapshot: {"counters": {...}, "gauges": {...},
+    "histograms": {...}} with every key level sorted."""
     return {
         "counters": {k: _counters[k] for k in sorted(_counters)},
         "gauges": {k: _gauges[k] for k in sorted(_gauges)},
+        "histograms": {k: _hists[k].as_dict() for k in sorted(_hists)},
     }
 
 
 def reset() -> None:
     _counters.clear()
     _gauges.clear()
+    _hists.clear()

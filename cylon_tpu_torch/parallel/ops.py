@@ -4,22 +4,28 @@ distributed group-bys, scalar aggregates.
 
 The port of ``cylon_tpu/parallel/ops.py``: ``_shuffled:378`` with
 ``_targets:162`` (hash and range modes), ``shuffle:486``,
-``hash_partition:501``, ``broadcast_gather:295`` (its per-buffer path),
+``hash_partition:501``, ``broadcast_gather:295``,
 ``distributed_sort:576``, ``groupby_partial_plan:601``,
 ``finalize_groupby_columns:621``, ``distributed_groupby:662`` (hash and
 pipeline, pre-partitioned, NUNIQUE and salted) and
-``distributed_scalar_agg:836``.  Each keeps the reference's partition ->
-exchange -> local kernel shape; where the reference runs one
-``shard_map`` program per phase, the port runs the phase for every shard
-in turn.  The shuffle's exchange and the broadcast's gather retry a
-transient failure under ``ctx.collective_retry_policy()``
-(``resilience.retry_call``, sites ``shuffle`` and ``broadcast``, which are
-also fault-injection points).  Not ported: the packed-plane broadcast
-(``parallel/plane.py``) and the ``_partitioning`` stamp the reference's
-planner reads.
+``distributed_scalar_agg:836``, with the exchange accounting
+``_row_bytes:234``, ``_record_exchange:249`` and ``_record_broadcast:279``.
+Each keeps the reference's partition -> exchange -> local kernel shape;
+where the reference runs one ``shard_map`` program per phase, the port
+runs the phase for every shard in turn.
+
+The exchange realization (``plane.pack_enabled()``, packed or per buffer,
+and ``plane.compress_enabled()`` on the packed plane) is read inside the
+retried exchange, as the reference reads it.  The shuffle's exchange and
+the broadcast's gather retry a transient failure under
+``ctx.collective_retry_policy()`` (``resilience.retry_call``, sites
+``shuffle`` and ``broadcast``, which are also fault-injection points).
+Not ported: the ``_partitioning`` stamp the reference's planner reads
+(with the planner).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,6 +33,8 @@ import torch
 from .. import dtypes, precision, resilience
 from ..column import Column
 from ..config import SortOptions
+from ..obs import metrics as obs_metrics
+from ..obs import spans as obs_spans
 from ..ops import aggregates as agg_mod
 from ..ops import compact
 from ..ops import groupby as groupby_mod
@@ -35,7 +43,8 @@ from ..ops import sort as sort_mod
 from ..ops import unique as unique_mod
 from ..ops.groupby import AggOp
 from ..status import Code, CylonError
-from . import collectives, partition, shuffle as shuffle_mod
+from . import collectives, partition, plane as plane_mod
+from . import shuffle as shuffle_mod
 
 
 def _targets(t, key_idx: Tuple[int, ...], mode: str,
@@ -57,23 +66,96 @@ def _targets(t, key_idx: Tuple[int, ...], mode: str,
         ascending=opts.ascending, nulls_first=opts.nulls_first)
 
 
+def _row_bytes(cols, packed: bool, spec=None) -> int:
+    """Bytes one row moves: plane words when packed (compressed words
+    under ``spec``); data, one validity byte and a string's lengths per
+    buffer otherwise."""
+    if packed:
+        return plane_mod.plane_words(cols, spec) * 4
+    total = 0
+    for c in cols:
+        total += c.data.dtype.itemsize * int(
+            math.prod(c.data.shape[1:])) + 1  # data row + 1 validity byte
+        if c.lengths is not None:
+            total += c.lengths.dtype.itemsize
+    return total
+
+
+def _record_exchange(cols, packed: bool, family: str, rows_exchanged: int,
+                     spec=None) -> None:
+    """Account one exchange that ran: its data-collective launches (1
+    packed, ``buffer_count`` per buffer), the count-matrix gather and the
+    bytes moved.  Under a spec ``shuffle.bytes_sent`` is what travelled;
+    the uncompressed bytes less it go to ``shuffle.bytes_saved`` and their
+    ratio to the ``shuffle.compress_ratio`` gauge (the last exchange's)."""
+    launches = 1 if packed else shuffle_mod.buffer_count(cols)
+    bytes_sent = rows_exchanged * _row_bytes(cols, packed, spec)
+    obs_metrics.counter_add("shuffle.exchanges")
+    obs_metrics.counter_add("shuffle.collective_launches", launches)
+    obs_metrics.counter_add("shuffle.counts_gathers")
+    obs_metrics.counter_add("shuffle.bytes_sent", bytes_sent)
+    if spec is not None:
+        raw_bytes = rows_exchanged * _row_bytes(cols, packed)
+        obs_metrics.counter_add("shuffle.bytes_saved",
+                                max(0, raw_bytes - bytes_sent))
+        if bytes_sent > 0:
+            obs_metrics.gauge_set("shuffle.compress_ratio",
+                                  raw_bytes / bytes_sent)
+    obs_metrics.hist_observe("shuffle.bytes_per_exchange", bytes_sent)
+    obs_spans.instant("shuffle.exchange_done", family=family, packed=packed,
+                      compressed=spec is not None,
+                      collective_launches=launches, rows=rows_exchanged)
+
+
+def _record_broadcast(cols, packed: bool, world: int, rows_buf: int) -> None:
+    """Account one broadcast: its own counter, not ``shuffle.exchanges``
+    (a broadcast is the strategy that avoided an exchange); 1 all-gather
+    packed, the counts' and one per buffer otherwise."""
+    launches = 1 if packed else 1 + shuffle_mod.buffer_count(cols)
+    bytes_sent = rows_buf * world * _row_bytes(cols, packed)
+    obs_metrics.counter_add("shuffle.broadcasts")
+    obs_metrics.counter_add("shuffle.collective_launches", launches)
+    obs_metrics.counter_add("shuffle.bytes_sent", bytes_sent)
+    obs_metrics.hist_observe("shuffle.bytes_per_exchange", bytes_sent)
+    obs_spans.instant("shuffle.broadcast_done", packed=packed,
+                      collective_launches=launches, rows=rows_buf * world)
+
+
 def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
               opts: Optional[SortOptions] = None):
     """partition -> exchange; returns the shuffled Table.  A transient
     failure (classified retryable) retries the whole plan and exchange
     under ``ctx.collective_retry_policy()``: the input table is untouched,
-    so the retry is exact."""
+    so the retry is exact.  Compressing, the plan also observes every
+    column (``partition.column_stats``) and the host folds the stats into
+    the spec (``plane.build_spec``)."""
     world = t.num_shards
+    devices = t.ctx.devices
 
     def exchange():
         # the named injection site of the collective exchange
         resilience.fault_point("shuffle")
-        targets = _targets(t, key_idx, mode, opts)
-        cm = shuffle_mod.count_matrix([shuffle_mod.target_counts(tg, world)
-                                       for tg in targets])
-        out_cap = shuffle_mod.plan_shuffle(cm)
-        shards, totals = shuffle_mod.shuffle_shard_ragged(
-            t.shards, targets, cm, world, out_cap, t.ctx.devices)
+        pack = plane_mod.pack_enabled()
+        compress = pack and plane_mod.compress_enabled()
+        with obs_spans.span("shuffle.plan", mode=mode, world=world,
+                            family="ragged"):
+            targets = _targets(t, key_idx, mode, opts)
+            cm = shuffle_mod.count_matrix(
+                [shuffle_mod.target_counts(tg, world) for tg in targets])
+            spec = None
+            if compress:
+                stats = partition.column_stats(t.shards, t.counts, devices)
+                spec = plane_mod.build_spec(t.shards[0], stats, world,
+                                            t.shard_capacity)
+            out_cap = shuffle_mod.plan_shuffle(cm)
+        with obs_spans.span("shuffle.exchange", packed=pack, family="ragged",
+                            world=world, compressed=spec is not None):
+            shards, totals = shuffle_mod.shuffle_shard_ragged(
+                t.shards, targets, cm, world, out_cap, devices,
+                packed=pack, spec=spec)
+        # the exact-traffic exchange moves exactly the rows that exist
+        _record_exchange(t.shards[0], pack, "ragged", int(cm.sum()),
+                         spec=spec)
         return t._like(shards, totals)
 
     out, _attempts = resilience.retry_call(
@@ -90,8 +172,10 @@ def hash_partition(t, key_idx: Tuple[int, ...], num_partitions: int):
     """Public HashPartition: split rows into ``num_partitions`` tables by
     key hash, shard-locally (no exchange).  Partition ``p``'s table holds,
     on every shard, that shard's rows hashing to ``p``, front-packed, at
-    capacity ``min(pow2ceil(max count), shard capacity)``.  Returns
-    ``{partition_id: Table}``."""
+    capacity ``min(pow2ceil(max count), shard capacity)``.  The split
+    gathers each buffer with ``Column.take`` under either exchange
+    realization: it moves nothing between shards, so a plane would save
+    no collective.  Returns ``{partition_id: Table}``."""
     key_idx = tuple(key_idx)
     targets = [partition.hash_targets(cols, n, key_idx, num_partitions)
                for cols, n in zip(t.shards, t.counts)]
@@ -114,12 +198,13 @@ def hash_partition(t, key_idx: Tuple[int, ...], num_partitions: int):
 
 
 def broadcast_gather(t):
-    """Every shard receives the whole table: each shard's row count and
-    each of its buffers (data, validity, a string's lengths) are gathered,
-    and the live rows are packed to the front in source-rank order, at
-    capacity ``shard capacity * world``.  A world of 1 returns ``t``.  The
-    gather retries under ``ctx.collective_retry_policy()``, as the
-    shuffle's exchange does."""
+    """Every shard receives the whole table, live rows packed to the front
+    in source-rank order, at capacity ``shard capacity * world``.  Packed:
+    ONE all-gather of each shard's plane plus one meta row holding its
+    live count in word 0.  Per buffer: the counts and each buffer (data,
+    validity, a string's lengths) gathered one by one.  A world of 1
+    returns ``t``.  The gather retries under
+    ``ctx.collective_retry_policy()``, as the shuffle's exchange does."""
     world = t.num_shards
     if world == 1:
         return t
@@ -127,18 +212,35 @@ def broadcast_gather(t):
     cap = t.shard_capacity
     out_cap = cap * world
 
-    def gather():
-        resilience.fault_point("broadcast")
+    def compaction(dev, cnt):
+        live = (torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+                < cnt[:, None]).reshape(out_cap)
+        perm, m = compact.compact_indices(live)
+        return perm, compact.live_mask(out_cap, m, dev), m.to(torch.int32)
+
+    def gather_packed():
+        planes = []
+        for cols, n in zip(t.shards, t.counts):
+            plane = plane_mod.pack_plane(cols)
+            meta = torch.zeros((1, plane.shape[1]), dtype=plane.dtype,
+                               device=plane.device)
+            meta[0, 0] = n.to(plane.dtype)
+            planes.append(torch.cat([plane, meta]))
+        shards, totals = [], []
+        for dev, cols, g in zip(devices, t.shards,
+                                collectives.allgather(planes, devices)):
+            g3 = g.reshape(world, cap + 1, -1)
+            perm, valid, m = compaction(dev, g3[:, cap, 0])
+            rows = g3[:, :cap].reshape(out_cap, -1)
+            shards.append(plane_mod.unpack_plane(rows[perm], cols,
+                                                 valid_mask=valid))
+            totals.append(m)
+        return shards, totals
+
+    def gather_per_buffer():
         counts = collectives.allgather([c.reshape(1) for c in t.counts],
                                        devices)
-        perms, valids, totals = [], [], []
-        for dev, cnt in zip(devices, counts):
-            live = (torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
-                    < cnt[:, None]).reshape(out_cap)
-            perm, m = compact.compact_indices(live)
-            perms.append(perm)
-            valids.append(compact.live_mask(out_cap, m, dev))
-            totals.append(m.to(torch.int32))
+        plans = [compaction(dev, cnt) for dev, cnt in zip(devices, counts)]
         cols_per_shard = [[] for _ in devices]
         for i, c0 in enumerate(t.shards[0]):
             data = collectives.allgather([s[i].data for s in t.shards],
@@ -148,11 +250,19 @@ def broadcast_gather(t):
             lengths = ([None] * world if c0.lengths is None else
                        collectives.allgather([s[i].lengths for s in t.shards],
                                              devices))
-            for d in range(world):
+            for d, (perm, vmask, _) in enumerate(plans):
                 cols_per_shard[d].append(
                     Column(data[d], valid[d], lengths[d], c0.dtype).take(
-                        perms[d], valid_mask=valids[d]))
-        return t._like(cols_per_shard, totals)
+                        perm, valid_mask=vmask))
+        return cols_per_shard, [m for _, _, m in plans]
+
+    def gather():
+        resilience.fault_point("broadcast")
+        pack = plane_mod.pack_enabled()
+        with obs_spans.span("shuffle.broadcast", packed=pack, world=world):
+            shards, totals = gather_packed() if pack else gather_per_buffer()
+        _record_broadcast(t.shards[0], pack, world, cap + 1 if pack else cap)
+        return t._like(shards, totals)
 
     out, _attempts = resilience.retry_call(
         gather, policy=t.ctx.collective_retry_policy(), site="broadcast")

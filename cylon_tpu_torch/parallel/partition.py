@@ -10,19 +10,25 @@ reference does on a TPU; a key set holding a string takes
 ``ops/hashing.py``, the jnp hash's copy, so it places those rows as the
 reference does everywhere.  The range partitioner takes the same samples,
 bins and collectives as the reference, so its targets agree with the
-reference's on every device.  ``column_stats`` waits for the packed plane
-(``plane.py``).
+reference's on every device.
+
+``column_stats`` (``partition.py:150 stats_arity``, ``:157
+column_stats``) observes what the compressed exchange needs of every
+column: value ranges, string extents and distinct counts, reduced across
+shards with ``collectives.allreduce_min`` / ``allreduce_max`` so every
+shard sees the same values and derives the same ``plane.build_spec``.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from .. import precision
 from ..column import Column
-from ..ops import compact, hash_kernels, hashing
+from ..ops import compact, hash_kernels, hashing, keys
 from . import collectives
+from . import plane as plane_mod
 
 
 def hash_targets(cols: Sequence[Column], count, key_idx: Sequence[int],
@@ -135,3 +141,82 @@ def range_targets(cols: Sequence[Column], counts, devices, *, num_bins: int,
                                torch.full((), world, dtype=torch.int32,
                                           device=dev)))
     return out
+
+
+# -- the compression pre-pass ----------------------------------------------
+
+def stats_arity(cols: Sequence[Column]) -> int:
+    """How many stats ``column_stats`` returns for this schema."""
+    lay = plane_mod.stats_layout(cols)
+    return sum(2 if k == "int" else 3 if k == "str" else 0 for k in lay)
+
+
+def _value_range(dtype: torch.dtype) -> Tuple[int, int]:
+    w = dtype.itemsize * 8
+    if dtype.is_signed:
+        return -(1 << (w - 1)), (1 << (w - 1)) - 1
+    return 0, (1 << w) - 1
+
+
+def column_stats(shards: Sequence[Sequence[Column]], counts,
+                 devices) -> Tuple[int, ...]:
+    """The observed stats of every LIVE row, the same on every shard, as
+    host integers in ``plane.stats_layout``'s order: (min, max) per
+    integer column; (nonzero byte extent, max length, max per-shard
+    distinct count) per string column.
+
+    A row is live by ``row < count``, not by validity: a null row's raw
+    bits travel through the exchange and must lie inside the observed
+    range, while padding rows are never sent.  Unsigned columns reduce
+    through ``keys.signed_carrier`` (the CPU has no unsigned min/max);
+    uint64's carrier is the value less 2^63, which the host adds back.
+    The distinct count collapses non-live rows into one sentinel group,
+    as the reference's does, so it bounds the codec's local
+    dictionary."""
+    cols0 = shards[0]
+    lives = [compact.live_mask(cols[0].capacity, n, cols[0].device)
+             for cols, n in zip(shards, counts)]
+    stats: List[torch.Tensor] = []
+    biases: List[int] = []
+    for j, kind in enumerate(plane_mod.stats_layout(cols0)):
+        if kind == "int":
+            dt = cols0[j].data.dtype
+            bias = (1 << 63) if dt == torch.uint64 else 0
+            lo, hi = (v - bias for v in _value_range(dt))
+            mins, maxs = [], []
+            for cols, live in zip(shards, lives):
+                carrier = keys.signed_carrier(cols[j].data)[0]
+                mins.append(torch.where(live, carrier, hi).min()
+                            .to(torch.int64))
+                maxs.append(torch.where(live, carrier, lo).max()
+                            .to(torch.int64))
+            stats += [collectives.allreduce_min(mins, devices)[0],
+                      collectives.allreduce_max(maxs, devices)[0]]
+            biases += [bias, bias]
+        elif kind == "str":
+            extents, maxlens, distinct = [], [], []
+            for cols, live in zip(shards, lives):
+                c = cols[j]
+                w = c.string_width
+                if w:
+                    nz = ((c.data != 0) & live[:, None]).any(dim=0)
+                    pos = torch.arange(1, w + 1, dtype=torch.int64,
+                                       device=c.device)
+                    extents.append(torch.where(nz, pos, 0).max())
+                else:
+                    extents.append(torch.zeros((), dtype=torch.int64,
+                                               device=c.device))
+                maxlens.append(torch.where(live, c.lengths, 0).max()
+                               .to(torch.int64))
+                kws = [torch.where(live, wv, plane_mod._SENT64)
+                       for wv in plane_mod.string_key_words(c)]
+                flag = plane_mod.sorted_distinct_flags(kws)[1]
+                distinct.append(flag.sum(dtype=torch.int64))
+            stats += [collectives.allreduce_max(x, devices)[0]
+                      for x in (extents, maxlens, distinct)]
+            biases += [0, 0, 0]
+    if not stats:
+        return ()
+    dev = stats[0].device
+    host = torch.stack([x.to(dev) for x in stats]).cpu().tolist()
+    return tuple(int(v) + b for v, b in zip(host, biases))

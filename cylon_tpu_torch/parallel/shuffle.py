@@ -1,7 +1,8 @@
 """The all-to-all table shuffle, in its exact-traffic form.
 
 The port of ``cylon_tpu/parallel/shuffle.py``'s ragged shuffle
-(``shuffle_shard_ragged:255``, its per-buffer branch ``:320-343``), with
+(``shuffle_shard_ragged:255``: the packed branch ``:292-318`` and the
+per-buffer branch ``:320-343``), with ``buffer_count:48``,
 ``target_counts:63``, ``_remap_oob_targets:90``, ``_perm_by_target:99``
 and ``plan_shuffle:226``; ``ragged_plan:239``'s offsets are computed by
 ``collectives.all_to_all``.  The reference's shard body
@@ -11,17 +12,21 @@ shard's function halfway, so the body is split around the exchange:
 1. before it, for every shard: counts per target and the stable grouping
    of rows by target (``target_counts``, ``_perm_by_target``), each
    buffer gathered into that order;
-2. one exchange per buffer across the list of shards
-   (``collectives.all_to_all``), which lands every shard's rows
-   front-packed in source-rank order.  A string column moves three
-   buffers: its ``[n, width]`` byte matrix, validity and lengths
-   (``cylon_tpu/parallel/shuffle.py:217-218, 340``).
+2. the exchange across the list of shards (``collectives.all_to_all``),
+   which lands every shard's rows front-packed in source-rank order:
+   per buffer, one exchange for each buffer (a string column moves three:
+   its ``[n, width]`` byte matrix, validity and lengths,
+   ``cylon_tpu/parallel/shuffle.py:217-218, 340``); packed, every shard's
+   columns packed into one plane (``plane.py``, compressed under a spec),
+   grouped by target with one gather and moved in ONE exchange, then
+   decoded.
 
 A shard receives into zeroed buffers of ``plan_shuffle``'s capacity, so
 rows past its count hold zero data (bytes and lengths) and validity False:
 slot for slot what the reference's bucketed ``shuffle_shard`` gives on its
-CPU mesh, where null rows hold zero data too.  The packed plane
-(``plane.py``) and its compression are not ported yet.
+CPU mesh, where null rows hold zero data too.  A zeroed plane decodes to
+the same, and under a spec the rows past the count are masked
+(``tail_mask``), so all three realizations give bit-identical shards.
 """
 from __future__ import annotations
 
@@ -32,7 +37,16 @@ import torch
 
 from .. import column
 from ..column import Column
+from ..obs import spans as obs_spans
+from ..ops import compact
 from . import collectives
+from . import plane as plane_mod
+
+
+def buffer_count(cols: Sequence[Column]) -> int:
+    """Buffers a per-buffer exchange moves: data and validity per column,
+    and a string's lengths; the per-buffer collective launch count."""
+    return sum(2 + (1 if c.lengths is not None else 0) for c in cols)
 
 
 def pow2ceil(n: int, min_size: int = 8) -> int:
@@ -81,15 +95,20 @@ def count_matrix(counts: Sequence[torch.Tensor]) -> np.ndarray:
 def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
                          targets: Sequence[torch.Tensor], cm: np.ndarray,
                          world: int, out_capacity: int,
-                         devices: Sequence[torch.device]
+                         devices: Sequence[torch.device],
+                         packed: bool = False, spec=None
                          ) -> Tuple[List[Tuple[Column, ...]], List[int]]:
     """Shuffle every shard's rows to their targets: per-shard columns of
     capacity ``out_capacity``, rows front-packed in source-rank order, and
     each shard's received row count.  ``cm`` is the count matrix of these
-    ``targets``."""
+    ``targets``.  ``packed`` moves one plane (compressed under ``spec``)
+    instead of every buffer; the shards are bit-identical either way."""
     perms = [_perm_by_target(t, world) for t in targets]
     totals = [int(n) for n in np.asarray(cm).sum(axis=0)]
     ncols = len(shards[0])
+    if packed:
+        return _packed_exchange(shards, perms, cm, totals, out_capacity,
+                                devices, spec), totals
     recv: List[List[Column]] = [[] for _ in range(world)]
 
     def exchange(bufs):
@@ -100,14 +119,49 @@ def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
                for dev in devices]
         return collectives.all_to_all(bufs, cm, out)
 
-    for j in range(ncols):
-        cols = [s[j] for s in shards]
-        data = exchange([column.gather(c.data, p)
-                         for c, p in zip(cols, perms)])
-        valid = exchange([c.validity[p] for c, p in zip(cols, perms)])
-        lengths = ([None] * world if cols[0].lengths is None else
-                   exchange([c.lengths[p] for c, p in zip(cols, perms)]))
-        for d in range(world):
-            recv[d].append(Column(data[d], valid[d], lengths[d],
-                                  cols[0].dtype))
+    with obs_spans.span("shuffle.collective", family="all_to_all",
+                        packed=False, launches=buffer_count(shards[0])):
+        for j in range(ncols):
+            cols = [s[j] for s in shards]
+            data = exchange([column.gather(c.data, p)
+                             for c, p in zip(cols, perms)])
+            valid = exchange([c.validity[p] for c, p in zip(cols, perms)])
+            lengths = ([None] * world if cols[0].lengths is None else
+                       exchange([c.lengths[p] for c, p in zip(cols,
+                                                               perms)]))
+            for d in range(world):
+                recv[d].append(Column(data[d], valid[d], lengths[d],
+                                      cols[0].dtype))
     return [tuple(cols) for cols in recv], totals
+
+
+def _packed_exchange(shards, perms, cm, totals, out_capacity, devices,
+                     spec) -> List[Tuple[Column, ...]]:
+    """The packed branch: each shard's plane (under ``spec``) grouped by
+    target with one gather, ONE exchange into zeroed receive planes, and
+    the decode.  No validity mask on decode: a null row's bits travel as
+    the per-buffer branch moves them, and a zero plane row decodes to
+    validity False and zero data, as the per-buffer branch's unwritten
+    tail.  Under a spec a zero field no longer decodes to zero (to the
+    offset, or to dictionary entry 0), so the rows past each received
+    total are masked (``tail_mask``)."""
+    codec = plane_mod.PlaneCodec(shards, spec, devices)
+    with obs_spans.span("shuffle.pack", columns=len(shards[0])) as sp:
+        planes = [codec.pack(s)[p] for s, p in enumerate(perms)]
+        sp.set(words=int(planes[0].shape[1]), compressed=spec is not None)
+    with obs_spans.span("shuffle.collective", family="all_to_all",
+                        packed=True, launches=1):
+        out = [torch.zeros((out_capacity, planes[0].shape[1]),
+                           dtype=planes[0].dtype, device=dev)
+               for dev in devices]
+        got = list(collectives.all_to_all(planes, cm, out))
+    del planes, out  # the sent planes are freed before any decode
+    with obs_spans.span("shuffle.unpack", columns=len(shards[0])):
+        recv = []
+        for d, (total, dev) in enumerate(zip(totals, devices)):
+            g, got[d] = got[d], None  # each received plane freed once decoded
+            tail = (None if spec is None else
+                    compact.live_mask(out_capacity, total, dev))
+            recv.append(codec.unpack(g, d, tail_mask=tail))
+            del g
+    return recv

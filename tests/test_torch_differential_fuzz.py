@@ -2,14 +2,13 @@
 pandas oracles of ``tests/test_differential_fuzz.py``, on the same seeded
 random inputs (variable cardinality, negative keys, nulls, NaN floats,
 empty sides, heavy skew), each distributed op checked against its pandas
-mirror on a 4-shard CPU mesh.  Where the JAX package's case runs a path
-the port does not have yet, its counterpart runs the same oracle through
-the port's path for the same result:
+mirror on a 4-shard CPU mesh; the ``*_compressed`` cases run it through
+the packed, compressed exchange (``CYLON_TPU_SHUFFLE_PACK=1``,
+``CYLON_TPU_SHUFFLE_COMPRESS=1``), as the JAX package's do.  Where the
+JAX package's case runs a path the port does not have yet, its
+counterpart runs the same oracle through the port's path for the same
+result:
 
-- the packed, compressed exchange (``CYLON_TPU_SHUFFLE_PACK`` /
-  ``_COMPRESS``, ROADMAP A6): the port has one exchange, per buffer; the
-  ``*_compressed`` cases run their grid on a 2-shard mesh, so that grid
-  meets a second placement;
 - the planner's broadcast hash join (A9): ``broadcast_gather`` of the
   dimension table, then the shard-local join, which is what that plan
   runs;
@@ -47,9 +46,11 @@ def pctx4():
     return _mesh(4)
 
 
-@pytest.fixture(scope="module")
-def pctx2():
-    return _mesh(2)
+@pytest.fixture()
+def compressed(monkeypatch):
+    """The packed, compressed exchange for one test."""
+    monkeypatch.setenv("CYLON_TPU_SHUFFLE_PACK", "1")
+    monkeypatch.setenv("CYLON_TPU_SHUFFLE_COMPRESS", "1")
 
 
 def _rand_frame(rng, allow_empty=True):
@@ -239,19 +240,22 @@ def test_hash_algorithm_join_differential(pctx4, seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS[:6])
-def test_join_differential_compressed(pctx2, seed):
-    """The compressed exchange's grid (the join grid) on a 2-shard mesh."""
-    _join_case(pctx2, seed)
+def test_join_differential_compressed(pctx4, seed, compressed):
+    """The compressed exchange under the join grid's random nulls, skew
+    and negative keys agrees with pandas."""
+    _join_case(pctx4, seed)
 
 
 @pytest.mark.parametrize("seed", SEEDS[:6])
-def test_groupby_differential_compressed(pctx2, seed):
-    _groupby_case(pctx2, seed, "wide")
+def test_groupby_differential_compressed(pctx4, seed, compressed):
+    """The compressed partial shuffle of the group-by."""
+    _groupby_case(pctx4, seed, "wide")
 
 
 @pytest.mark.parametrize("seed", SEEDS[:4])
-def test_string_key_compressed_differential(pctx2, seed):
-    _string_case(pctx2, seed, "narrow")
+def test_string_key_compressed_differential(pctx4, seed, compressed):
+    """Dictionary-coded string keys through the join and group-by."""
+    _string_case(pctx4, seed, "narrow")
 
 
 @pytest.mark.parametrize("seed", SEEDS[:6])

@@ -759,3 +759,95 @@ def test_loc_and_iloc_on_the_card(gen, tmp_path):
     t.set_index("id")
     assert t.loc[100:104].to_pydict()["name"] == \
         df["name"][100:105].tolist()
+
+
+# -- the exchange plane (parallel/plane.py) -----------------------------------
+
+def _mixed_frame(n, seed=21):
+    """Every physical layout: 64/32/16/8-bit ints, unsigned ones, floats
+    of three widths with NaN and -0.0, bool, low-cardinality and wide
+    strings with nulls."""
+    rng = np.random.default_rng(seed)
+    f32 = rng.random(n).astype(np.float32)
+    f32[:2] = (np.nan, -0.0)
+    cats = np.array(["AA", "B", None, "CCC", ""], object)
+    wide = np.array(["alpha", None, "z" * 37, "beta", "été"], object)
+    return {
+        "k": rng.integers(0, 1 << 20, n).astype(np.int32),
+        "i64": rng.integers(-2**62, 2**62, n).astype(np.int64),
+        "u64": rng.integers(0, 2**62, n).astype(np.uint64)
+        + np.uint64(2**63),
+        "u32": rng.integers(0, 2**32, n).astype(np.uint32),
+        "i16": rng.integers(-2**15, 2**15, n).astype(np.int16),
+        "u8": rng.integers(0, 256, n).astype(np.uint8),
+        "f32": f32,
+        "f64": rng.random(n),
+        "f16": rng.random(n).astype(np.float16),
+        "b": rng.integers(0, 2, n).astype(bool),
+        "cat": cats[rng.integers(0, 5, n)],
+        "wide": wide[rng.integers(0, 5, n)],
+    }
+
+
+def _assert_same_bits(got, want):
+    """Two tables of one layout, bit for bit (floats by their bits, NaN
+    and -0.0 included): counts, and every shard's validity, data and
+    lengths over the whole capacity, wherever each lies."""
+    assert got.names == want.names
+    assert got.row_counts.tolist() == want.row_counts.tolist()
+    for gs, ws in zip(got.shards, want.shards):
+        for g, w in zip(gs, ws):
+            assert torch.equal(g.validity.cpu(), w.validity.cpu())
+            assert torch.equal(g.data.cpu().contiguous().view(torch.uint8),
+                               w.data.cpu().contiguous().view(torch.uint8))
+            assert (g.lengths is None) == (w.lengths is None)
+            if g.lengths is not None:
+                assert torch.equal(g.lengths.cpu(), w.lengths.cpu())
+
+
+@pytest.mark.gpu
+def test_packed_compressed_and_per_buffer_shuffles_on_the_card(gen):
+    """A mixed-dtype table of 2^16 rows on 4 shards of the card: per
+    buffer, packed and packed + compressed shuffles are bit-identical to
+    each other and to the CPU's per-buffer shuffle; the packed exchange
+    launches one all_to_all, the plane of a shard is the CPU's bit for bit
+    (64-bit columns split low word first), and the broadcast and
+    HashPartition agree across realizations."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, Table, config
+    from cylon_tpu_torch.obs import metrics
+    from cylon_tpu_torch.parallel import ops as par_ops, plane, shuffle
+
+    frame = _mixed_frame(1 << 16)
+    tables = {dev: Table.from_pydict(frame, ctx=CylonContext.InitDistributed(
+        MeshConfig(devices=[dev], world_size=4))) for dev in ("cuda", "cpu")}
+    cuda_plane = plane.pack_plane(tables["cuda"].shards[0])
+    assert cuda_plane.is_cuda
+    assert torch.equal(cuda_plane.cpu(),
+                       plane.pack_plane(tables["cpu"].shards[0]))
+    with config.knob_env(CYLON_TPU_SHUFFLE_PACK="0"):
+        want = tables["cpu"].shuffle(["k"])
+    arms = {"perbuf": ("0", "0"), "packed": ("1", "0"), "comp": ("1", "1")}
+    for label, (pack, comp) in arms.items():
+        metrics.reset()
+        hash_kernels.reset_launches()
+        with config.knob_env(CYLON_TPU_SHUFFLE_PACK=pack,
+                             CYLON_TPU_SHUFFLE_COMPRESS=comp):
+            got = tables["cuda"].shuffle(["k"])
+            bc = par_ops.broadcast_gather(tables["cuda"].project(["k", "cat"]))
+            hp = tables["cuda"].hash_partition(["k"], 3)
+        assert hash_kernels.LAUNCHES["hash_partition"] == 8, label
+        c = metrics.snapshot()["counters"]
+        per_buffer = (shuffle.buffer_count(tables["cuda"].shards[0]) + 1
+                      + shuffle.buffer_count(bc.shards[0]))
+        assert c["shuffle.collective_launches"] == (
+            per_buffer if pack == "0" else 2), (label, c)
+        if comp == "1":
+            assert metrics.snapshot()["gauges"]["shuffle.compress_ratio"] > 1
+        _assert_same_bits(got, want)
+        assert bc.row_counts.tolist() == [1 << 16] * 4
+        if label == "perbuf":
+            bc0, hp0 = bc, hp
+        else:
+            _assert_same_bits(bc, bc0)
+            for p in hp0:
+                _assert_same_bits(hp[p], hp0[p])
