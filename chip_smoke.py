@@ -91,6 +91,15 @@ Phases, each of which fails the run on error:
    first run with the counters and metrics zeroed just before and read
    just after, then best-of-3 ms, bytes sent, collective launches, the
    compress ratio and peak device memory;
+3u. 3b's tables on a context over an NCCL process group of one rank
+   (``MeshConfig(num_processes=1)``) holding SHARDS shards on the card:
+   ``distributed_join_groupby`` through the group's collectives (a count
+   all-gather and one ``all_to_all_single`` per buffer, self included),
+   counters zeroed just before and read just after (the hash kernel at
+   least 3 x SHARDS times, both scans), join and group counts and
+   SUM/MEAN against 3b's oracle on the card, every shard equal to 3b's bit
+   for bit; best-of-3 ms and rows/s, peak device memory, the phase's own
+   seconds; it ends by leaving the group (``Finalize``);
 3i. the main path past the card's memory: ``pipeline.make_data(OOC_ROWS)``
    (2^29 rows per side, 2^30 in all) through ``exec.chunked_join_groupby``
    in 16 key-domain passes (``pipeline.out_of_core_join_groupby``), one
@@ -1973,6 +1982,113 @@ def exchange_launches(report: dict) -> dict:
     return total
 
 
+# -- phase 3u: the distributed path through a process group ------------------
+
+def _live_on_card(t, name: str):
+    """Column ``name``'s live rows of every shard, concatenated on the
+    card in shard order."""
+    import torch
+
+    j = t.names.index(name)
+    return torch.cat([cols[j].data[:int(n)]
+                      for cols, n in zip(t.shards, t._local_row_counts())])
+
+
+def phase_process_group(report: dict, main: dict, dist: dict,
+                        rows: int) -> None:
+    """Phase 3u: 3b's tables on a context over an NCCL group of one rank
+    (``MeshConfig(num_processes=1)``, a free port on this host) holding
+    SHARDS shards on the card: ``distributed_join_groupby`` through the
+    group's collectives (the count all-gather, one ``all_to_all_single``
+    per exchanged buffer, self included), checked against 3b's oracle on
+    the card and shard for shard against 3b's output; the launch counters
+    and the exchange metrics zeroed just before the first run and read
+    just after; best-of-3 ms and rows/s, peak device memory.  Ends with
+    ``Finalize()``, which leaves the group."""
+    import torch
+
+    from cylon_tpu_torch import CylonContext, MeshConfig, pipeline
+    from cylon_tpu_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    oracle = main["oracle"]
+    ctx = CylonContext.InitDistributed(MeshConfig(world_size=SHARDS,
+                                                  num_processes=1))
+    try:
+        if ctx.group.backend != "nccl" or ctx.GetWorldSize() != SHARDS:
+            raise AssertionError(f"3u: {ctx!r} is not one NCCL rank of "
+                                 f"{SHARDS} shards")
+        left, right = pipeline.distributed_tables(ctx, *main["data"])
+        ctx.Barrier()
+        metrics.reset()
+        _reset_launches()
+        t0 = time.perf_counter()
+        groups, joined = pipeline.distributed_join_groupby(left, right)
+        ctx.Barrier()
+        first_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        counters = metrics.snapshot()["counters"]
+        exch = {k: counters.get(f"shuffle.{k}", 0) for k in (
+            "exchanges", "collective_launches", "counts_gathers",
+            "bytes_sent")}
+        log(f"[3u] one NCCL rank, {SHARDS} shards on "
+            f"{sorted({str(d) for d in ctx.devices})}: first run "
+            f"{first_s:.3f} s launches={launches} exchange={exch}")
+        if launches["hash_partition"] < 3 * SHARDS \
+                or launches["scan_1d"] < 1 or launches["segmented_scan"] < 1:
+            raise AssertionError(f"3u did not go through the kernels: "
+                                 f"{launches}")
+        if exch["exchanges"] != 3 or exch["counts_gathers"] != 3:
+            raise AssertionError(f"3u: not three exchanges with their count "
+                                 f"gathers: {exch}")
+
+        jm, g = joined.row_count, groups.row_count
+        if (jm, g) != (oracle["join"], oracle["groups"]):
+            raise AssertionError(f"3u counts: join {jm} group {g}, oracle "
+                                 f"join {oracle['join']} group "
+                                 f"{oracle['groups']}")
+        k = _live_on_card(groups, "l_k")
+        order = torch.argsort(k)
+        if not torch.equal(k[order].long(), _card(oracle["keys"]).long()):
+            raise AssertionError("3u: group keys differ from the oracle")
+        sum_err = _card_rtol("3u SUM", _live_on_card(groups, "sum_lv")[order],
+                             _card(oracle["sum"]))
+        mean_err = _card_rtol("3u MEAN",
+                              _live_on_card(groups, "mean_rv")[order],
+                              _card(oracle["mean"]))
+        del k, order
+        want_groups, want_joined = pipeline.distributed_join_groupby(
+            dist["left"], dist["right"])
+        for label, got, want in (("groups", groups, want_groups),
+                                 ("joined", joined, want_joined)):
+            _same_bits(f"3u {label} against 3b's", got, want)
+        per_shard = joined.row_counts.tolist()
+        log(f"[3u] oracle: join {jm} groups {g} exact; SUM max abs err "
+            f"{sum_err:.3g}, MEAN max abs err {mean_err:.3g} (rtol "
+            f"{F32_SUM_RTOL}); join rows per shard {per_shard}, shard for "
+            "shard equal to 3b's (joined and groups, every buffer's bits)")
+        del groups, joined, want_groups, want_joined
+        resident = torch.cuda.memory_allocated()
+        timed = _time_op(lambda: pipeline.distributed_join_groupby(
+            left, right), 2 * rows, runs=3)
+        del left, right
+    finally:
+        ctx.Finalize()
+    report["process_group"] = {
+        "backend": "nccl", "ranks": 1, "shards": SHARDS,
+        "rows_per_side": rows, "join_count": jm, "groups": g,
+        "launches": launches, "exchange": exch, "first_run_s": first_s,
+        "join_rows_per_shard": per_shard, "sum_max_abs_err": sum_err,
+        "mean_max_abs_err": mean_err, "resident_bytes_before": resident,
+        **timed, "phase_seconds": time.perf_counter() - t_phase}
+    log(f"[3u] best-of-3 {timed['best_ms']:.2f} ms -> "
+        f"{timed['rows_per_s']:.6g} rows/s (one NCCL rank, {SHARDS} shards "
+        f"on one card); times {[round(t, 2) for t in timed['times_ms']]} ms;"
+        f" peak device memory {timed['peak_device_bytes'] / 2**30:.2f} GiB"
+        f" ({resident / 2**30:.2f} GiB resident before the runs); phase "
+        f"{report['process_group']['phase_seconds']:.1f} s")
+
+
 # -- phases 3i and 3j: out of core --------------------------------------------
 
 def _host_memory() -> dict:
@@ -3062,6 +3178,8 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
             r["name"], 0)
         r["launches_distributed_surface"] = surface.get(r["name"], 0)
         r["launches_exchange"] = exchange.get(r["name"], 0)
+        r["launches_process_group"] = report["process_group"][
+            "launches"].get(r["name"], 0)
     for r in rows_out:
         log(f"[4] {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
             f"ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']}) "
@@ -3136,6 +3254,7 @@ def main(argv=None) -> int:
         phase_distributed_surface(report, main_state, dist, ROWS)
         phase_exchange(report, main_state, dist, q1, ROWS, args.profile)
         del q1
+        phase_process_group(report, main_state, dist, ROWS)
         kernels = phase_timings(report, main_state, dist, ROWS)
         del main_state, dist
         gc.collect()

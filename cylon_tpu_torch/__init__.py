@@ -7,8 +7,8 @@ they raise.  Relational kernels run wherever their input tensors live.
 The JAX package's Pallas TPU kernels become hand-written CUDA kernels
 (``cuda/``), built with ``nvcc`` at first use; each has a plain PyTorch
 version beside it that CPU tensors take.  A ``CylonContext`` holds an
-in-process mesh of shards (``context.py``), over which a ``Table`` runs the
-distributed rung (``parallel/``): sort-merge and hash joins, hash and
+mesh of shards, in one process or over a ``torch.distributed`` process
+group (``context.py``), over which a ``Table`` runs the distributed rung (``parallel/``): sort-merge and hash joins, hash and
 pipeline group-bys, NUNIQUE, sorts, set ops and broadcasts.  ``exec``
 streams key-domain passes of a join (and group-by) over host frames
 larger than the card's memory, splitting passes that run out of it
@@ -20,11 +20,12 @@ that need them.
 """
 from __future__ import annotations
 
-from . import (column, config, context, dtypes, durable, exec, interop, io,
-               native, obs, pipeline, precision, resilience, status, table)
+from . import (column, compute, config, context, dtypes, durable, exec,
+               interop, io, native, obs, pipeline, precision, resilience,
+               status, table)
 from .column import Column, default_device
-from .config import JoinConfig, JoinType
-from .context import CylonContext, MeshConfig
+from .config import JoinAlgorithm, JoinConfig, JoinType, SortOptions
+from .context import CommType, CylonContext, LocalConfig, MeshConfig
 from .frame import DataFrame
 from .index import (CategoricalIndex, ColumnIndex, Index, Int64Index,
                     IntegerIndex, NumericIndex, RangeIndex)
@@ -33,10 +34,14 @@ from .series import Series
 from .status import Code, CylonError, Status
 from .table import Table
 
+__version__ = "0.1.0"
+
 __all__ = ["AggOp", "CategoricalIndex", "Code", "Column", "ColumnIndex",
-           "CylonContext", "CylonError", "DataFrame", "Index", "Int64Index",
-           "IntegerIndex", "JoinConfig", "JoinType", "MeshConfig",
-           "NumericIndex", "RangeIndex", "Series", "Status", "Table",
-           "column", "config", "context", "default_device", "dtypes",
-           "durable", "exec", "interop", "io", "native", "obs", "pipeline",
-           "precision", "resilience", "status", "table"]
+           "CommType", "CylonContext", "CylonError", "DataFrame", "Index",
+           "Int64Index", "IntegerIndex", "JoinAlgorithm", "JoinConfig",
+           "JoinType", "LocalConfig", "MeshConfig", "NumericIndex",
+           "RangeIndex", "Series", "SortOptions", "Status", "Table",
+           "__version__", "column", "compute", "config", "context",
+           "default_device", "dtypes", "durable", "exec", "interop", "io",
+           "native", "obs", "pipeline", "precision", "resilience", "status",
+           "table"]

@@ -1,8 +1,8 @@
 """Join types and configs, sort options, and the environment-knob registry.
 
-``JoinType``, ``JoinConfig`` and ``SortOptions`` mirror the JAX package's
-``cylon_tpu/config.py:29``, ``:67`` and ``:107`` (reference:
-join/join_config.hpp, table.hpp).
+``JoinType``, ``JoinAlgorithm``, ``JoinConfig`` and ``SortOptions`` mirror
+the JAX package's ``cylon_tpu/config.py:29``, ``:38``, ``:67`` and ``:107``
+(reference: join/join_config.hpp, table.hpp).
 ``KNOBS`` is the one place this package reads a
 ``CYLON_TPU_*`` environment variable; ``knob()`` and ``knob_raw()`` are its
 accessors, as in ``cylon_tpu/config.py:649``.  It holds only the knobs the
@@ -14,7 +14,7 @@ import contextlib
 import enum
 import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 class JoinType(enum.IntEnum):
@@ -26,36 +26,80 @@ class JoinType(enum.IntEnum):
     FULL_OUTER = 3
 
 
+class JoinAlgorithm(enum.IntEnum):
+    """reference: join/join_config.hpp JoinAlgorithm {SORT, HASH}: the
+    sort-merge join (``ops/join.py``) or the hash join
+    (``ops/hash_join.py``)."""
+
+    SORT = 0
+    HASH = 1
+
+
 _JOIN_TYPE_OF = {
     "inner": JoinType.INNER, "left": JoinType.LEFT, "right": JoinType.RIGHT,
     "fullouter": JoinType.FULL_OUTER, "full_outer": JoinType.FULL_OUTER,
     "outer": JoinType.FULL_OUTER,
 }
+_ALGO_OF = {"sort": JoinAlgorithm.SORT, "hash": JoinAlgorithm.HASH}
+
+
+def join_algorithm(algorithm) -> JoinAlgorithm:
+    """THE normalizer of a join algorithm: a ``JoinAlgorithm``, or
+    ``"sort"`` / ``"hash"`` in any case.  Every reader compares the enum,
+    so a string never silently picks the sort join."""
+    if isinstance(algorithm, str):
+        try:
+            return _ALGO_OF[algorithm.lower()]
+        except KeyError:
+            raise ValueError(f"join algorithm must be sort/hash, got "
+                             f"{algorithm!r}") from None
+    return JoinAlgorithm(algorithm)
 
 
 @dataclass(frozen=True)
 class JoinConfig:
     """Join type x algorithm x key columns x output-name prefixes
     (``cylon_tpu/config.py:67``; reference: join/join_config.hpp:29-89).
-    The algorithm is ``"sort"`` or ``"hash"``."""
+    ``algorithm`` is stored as a ``JoinAlgorithm``; ``"sort"`` and
+    ``"hash"`` are accepted and normalized."""
 
     join_type: JoinType = JoinType.INNER
-    algorithm: str = "sort"
+    algorithm: JoinAlgorithm = JoinAlgorithm.SORT
     left_on: Tuple = ()
     right_on: Tuple = ()
     left_prefix: str = "l_"
     right_prefix: str = "r_"
 
+    def __post_init__(self):
+        object.__setattr__(self, "join_type", JoinType(self.join_type))
+        object.__setattr__(self, "algorithm",
+                           join_algorithm(self.algorithm))
+
     @staticmethod
-    def of(join_type, algorithm: str = "sort", left_on=(), right_on=(),
-           left_prefix: str = "l_", right_prefix: str = "r_") -> "JoinConfig":
+    def of(join_type, algorithm: Union[str, JoinAlgorithm] = "sort",
+           left_on=(), right_on=(), left_prefix: str = "l_",
+           right_prefix: str = "r_") -> "JoinConfig":
         if isinstance(join_type, str):
             join_type = _JOIN_TYPE_OF[join_type.lower().replace("-", "_")]
-        if algorithm not in ("sort", "hash"):
-            raise ValueError(f"join algorithm must be sort/hash, got "
-                             f"{algorithm!r}")
-        return JoinConfig(JoinType(join_type), algorithm, _as_tuple(left_on),
+        return JoinConfig(join_type, algorithm, _as_tuple(left_on),
                           _as_tuple(right_on), left_prefix, right_prefix)
+
+    # the factories of join_config.hpp (``cylon_tpu/config.py:88-104``)
+    @staticmethod
+    def InnerJoin(left_on, right_on, algorithm="sort") -> "JoinConfig":
+        return JoinConfig.of("inner", algorithm, left_on, right_on)
+
+    @staticmethod
+    def LeftJoin(left_on, right_on, algorithm="sort") -> "JoinConfig":
+        return JoinConfig.of("left", algorithm, left_on, right_on)
+
+    @staticmethod
+    def RightJoin(left_on, right_on, algorithm="sort") -> "JoinConfig":
+        return JoinConfig.of("right", algorithm, left_on, right_on)
+
+    @staticmethod
+    def FullOuterJoin(left_on, right_on, algorithm="sort") -> "JoinConfig":
+        return JoinConfig.of("full_outer", algorithm, left_on, right_on)
 
 
 def _as_tuple(v) -> Tuple:

@@ -1009,9 +1009,13 @@ def chunked_join_groupby_tables(left, right, *, on=None, left_on=None,
 def _engine_context(ctx: Optional[CylonContext]) -> CylonContext:
     """The context the passes run on: ``ctx`` (one shard, or a mesh whose
     shards every pass is split over), or the CUDA card (raising without
-    one)."""
+    one).  A mesh across processes raises NotImplemented (ROADMAP A8b)."""
     if ctx is None:
         return CylonContext.Init()
+    if ctx.multi_process():
+        raise CylonError(Code.NotImplemented, "the out-of-core engine across "
+                         "processes is not ported yet (ROADMAP.md queue A, "
+                         "item 8b)")
     return ctx
 
 

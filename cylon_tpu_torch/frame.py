@@ -10,7 +10,8 @@ drop_duplicates) that the reference exposes through Table.
 Context handling mirrors frame.py:56-61 _initialize_context: one shard on
 the card by default, and with ``distributed=True`` an in-process mesh of
 one shard per visible CUDA device (``MeshConfig``); a ``ctx`` given by the
-caller wins.  pandas and pyarrow are never imported here: a pandas or
+caller wins.  A context across processes raises NotImplemented (ROADMAP
+A8b).  pandas and pyarrow are never imported here: a pandas or
 Arrow input is recognised only when its package is already loaded.
 """
 from __future__ import annotations
@@ -50,6 +51,10 @@ class DataFrame:
                  ctx: Optional[CylonContext] = None):
         self._index: Index = RangeIndex()
         ctx = _resolve_ctx(distributed, ctx)
+        if ctx.multi_process():
+            raise CylonError(Code.NotImplemented, "a DataFrame across "
+                             "processes is not ported yet (ROADMAP.md queue "
+                             "A, item 8b); use Table")
         self._table = self._initialize_dataframe(data, columns, dtype, ctx)
         self._index = RangeIndex(0, self._table.row_count)
         if index is not None:

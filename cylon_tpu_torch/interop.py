@@ -71,7 +71,7 @@ def table_shards_to_arrays(t) -> Tuple[Tuple[str, ...], List[ShardArrays],
     """(names, per shard the ``column_to_arrays`` of every column, per-shard
     row counts) of a ``Table``, on the host, padding included."""
     return (t.names, [[column_to_arrays(c) for c in cols]
-                      for cols in t.shards], t.row_counts)
+                      for cols in t.shards], t._local_row_counts())
 
 
 def table_from_shard_arrays(names: Sequence[str],
@@ -80,9 +80,9 @@ def table_from_shard_arrays(names: Sequence[str],
     ``ctx.devices[i]``, holding exactly the given buffers."""
     from .table import Table
 
-    if len(shards) != ctx.GetWorldSize():
-        raise CylonError(Code.Invalid, f"{len(shards)} shards for a "
-                         f"{ctx.GetWorldSize()}-shard context")
+    if len(shards) != len(ctx.devices):
+        raise CylonError(Code.Invalid, f"{len(shards)} shards for a context "
+                         f"of {len(ctx.devices)} shards per process")
     cols = tuple(tuple(column_from_arrays(*arrs, device=dev) for arrs in shard)
                  for shard, dev in zip(shards, ctx.devices))
     cnts = tuple(torch.tensor(int(n), dtype=torch.int32, device=dev)

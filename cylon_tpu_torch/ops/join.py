@@ -23,7 +23,7 @@ import torch
 
 from .. import precision
 from ..column import Column
-from ..config import JoinType
+from ..config import JoinAlgorithm, JoinType, join_algorithm
 from ..status import Code, CylonError
 from . import common, compact, hash_join, scan, segments
 
@@ -86,15 +86,19 @@ def _emission(matches, live_l, join_type: JoinType):
 
 
 def _ranges(cols_l, count_l, cols_r, count_r, left_on, right_on,
-            join_type: JoinType, algorithm: str):
-    """``_match_ranges``' six outputs by ``algorithm``; the hash path has
-    no key order of the left rows (None)."""
-    if algorithm == "hash":
+            join_type: JoinType, algorithm):
+    """``_match_ranges``' six outputs by ``algorithm`` (a
+    ``JoinAlgorithm``, or ``"sort"`` / ``"hash"``); the hash path has no
+    key order of the left rows (None)."""
+    try:
+        algorithm = join_algorithm(algorithm)
+    except ValueError:
+        raise CylonError(Code.Invalid,
+                         f"bad join algorithm {algorithm!r}") from None
+    if algorithm == JoinAlgorithm.HASH:
         return hash_join.match_ranges_hash(
             cols_l, count_l, cols_r, count_r, left_on, right_on,
             join_type) + (None,)
-    if algorithm != "sort":
-        raise CylonError(Code.Invalid, f"bad join algorithm {algorithm!r}")
     return _match_ranges(cols_l, count_l, cols_r, count_r, left_on,
                          right_on, join_type)
 
@@ -102,7 +106,7 @@ def _ranges(cols_l, count_l, cols_r, count_r, left_on, right_on,
 def join_row_count(cols_l: Sequence[Column], count_l,
                    cols_r: Sequence[Column], count_r,
                    left_on: Tuple[int, ...], right_on: Tuple[int, ...],
-                   join_type: JoinType, algorithm: str = "sort"):
+                   join_type: JoinType, algorithm="sort"):
     """Exact output row count of the join (0-d int32 tensor)."""
     _, matches, _, live_l, unmatched_r, _ = _ranges(
         cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
@@ -123,7 +127,7 @@ def join_gather(cols_l: Sequence[Column], count_l,
                 cols_r: Sequence[Column], count_r,
                 left_on: Tuple[int, ...], right_on: Tuple[int, ...],
                 join_type: JoinType, out_capacity: int,
-                algorithm: str = "sort", key_grouped: bool = False,
+                algorithm="sort", key_grouped: bool = False,
                 project: Optional[Tuple[int, ...]] = None):
     """Gathered output columns (left columns ++ right columns, or the
     ``project`` subset in that order) of capacity ``out_capacity``, and

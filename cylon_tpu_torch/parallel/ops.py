@@ -1,6 +1,6 @@
-"""Distributed operators over the in-process mesh: hash and range
-shuffles, local HashPartition, broadcast, distributed sort, the
-distributed group-bys, scalar aggregates.
+"""Distributed operators over a mesh of shards (in one process, or over a
+process group): hash and range shuffles, local HashPartition, broadcast,
+distributed sort, the distributed group-bys, scalar aggregates.
 
 The port of ``cylon_tpu/parallel/ops.py``: ``_shuffled:378`` with
 ``_targets:162`` (hash and range modes), ``shuffle:486``,
@@ -12,7 +12,9 @@ pipeline, pre-partitioned, NUNIQUE and salted) and
 ``_row_bytes:234``, ``_record_exchange:249`` and ``_record_broadcast:279``.
 Each keeps the reference's partition -> exchange -> local kernel shape;
 where the reference runs one ``shard_map`` program per phase, the port
-runs the phase for every shard in turn.
+runs the phase for every local shard in turn.  ``world`` is always the
+global shard count (``Table.num_shards``), the hash modulus and the
+count matrix's size; the loops run over this process's shards.
 
 The exchange realization (``plane.pack_enabled()``, packed or per buffer,
 and ``plane.compress_enabled()`` on the packed plane) is read inside the
@@ -63,7 +65,8 @@ def _targets(t, key_idx: Tuple[int, ...], mode: str,
         [cols[key_idx[0]] for cols in t.shards], t.counts, t.ctx.devices,
         num_bins=opts.num_bins or 16 * world,
         num_samples=opts.num_samples or 4096,
-        ascending=opts.ascending, nulls_first=opts.nulls_first)
+        ascending=opts.ascending, nulls_first=opts.nulls_first,
+        group=t.ctx.group)
 
 
 def _row_bytes(cols, packed: bool, spec=None) -> int:
@@ -130,7 +133,7 @@ def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
     column (``partition.column_stats``) and the host folds the stats into
     the spec (``plane.build_spec``)."""
     world = t.num_shards
-    devices = t.ctx.devices
+    devices, group = t.ctx.devices, t.ctx.group
 
     def exchange():
         # the named injection site of the collective exchange
@@ -141,10 +144,12 @@ def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
                             family="ragged"):
             targets = _targets(t, key_idx, mode, opts)
             cm = shuffle_mod.count_matrix(
-                [shuffle_mod.target_counts(tg, world) for tg in targets])
+                [shuffle_mod.target_counts(tg, world) for tg in targets],
+                group)
             spec = None
             if compress:
-                stats = partition.column_stats(t.shards, t.counts, devices)
+                stats = partition.column_stats(t.shards, t.counts, devices,
+                                               group)
                 spec = plane_mod.build_spec(t.shards[0], stats, world,
                                             t.shard_capacity)
             out_cap = shuffle_mod.plan_shuffle(cm)
@@ -152,7 +157,7 @@ def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
                             world=world, compressed=spec is not None):
             shards, totals = shuffle_mod.shuffle_shard_ragged(
                 t.shards, targets, cm, world, out_cap, devices,
-                packed=pack, spec=spec)
+                packed=pack, spec=spec, group=group, shard_ids=t.shard_ids)
         # the exact-traffic exchange moves exactly the rows that exist
         _record_exchange(t.shards[0], pack, "ragged", int(cm.sum()),
                          spec=spec)
@@ -181,7 +186,7 @@ def hash_partition(t, key_idx: Tuple[int, ...], num_partitions: int):
                for cols, n in zip(t.shards, t.counts)]
     cm = shuffle_mod.count_matrix([shuffle_mod.target_counts(tg,
                                                              num_partitions)
-                                   for tg in targets])
+                                   for tg in targets], t.ctx.group)
     caps = [min(shuffle_mod.pow2ceil(c), t.shard_capacity)
             for c in cm.max(axis=0)]
     parts: Dict[int, object] = {}
@@ -208,7 +213,7 @@ def broadcast_gather(t):
     world = t.num_shards
     if world == 1:
         return t
-    devices = t.ctx.devices
+    devices, group = t.ctx.devices, t.ctx.group
     cap = t.shard_capacity
     out_cap = cap * world
 
@@ -228,7 +233,8 @@ def broadcast_gather(t):
             planes.append(torch.cat([plane, meta]))
         shards, totals = [], []
         for dev, cols, g in zip(devices, t.shards,
-                                collectives.allgather(planes, devices)):
+                                collectives.allgather(planes, devices,
+                                                      group)):
             g3 = g.reshape(world, cap + 1, -1)
             perm, valid, m = compaction(dev, g3[:, cap, 0])
             rows = g3[:, :cap].reshape(out_cap, -1)
@@ -239,17 +245,17 @@ def broadcast_gather(t):
 
     def gather_per_buffer():
         counts = collectives.allgather([c.reshape(1) for c in t.counts],
-                                       devices)
+                                       devices, group)
         plans = [compaction(dev, cnt) for dev, cnt in zip(devices, counts)]
         cols_per_shard = [[] for _ in devices]
         for i, c0 in enumerate(t.shards[0]):
             data = collectives.allgather([s[i].data for s in t.shards],
-                                         devices)
+                                         devices, group)
             valid = collectives.allgather([s[i].validity for s in t.shards],
-                                          devices)
-            lengths = ([None] * world if c0.lengths is None else
+                                          devices, group)
+            lengths = ([None] * len(devices) if c0.lengths is None else
                        collectives.allgather([s[i].lengths for s in t.shards],
-                                             devices))
+                                             devices, group))
             for d, (perm, vmask, _) in enumerate(plans):
                 cols_per_shard[d].append(
                     Column(data[d], valid[d], lengths[d], c0.dtype).take(
@@ -454,15 +460,16 @@ def distributed_scalar_agg(t, col_idx: int, op: agg_mod.ReduceOp):
     has no allreduce: the partials are gathered and multiplied.  Returns
     the 0-d result on shard 0's device."""
     op = agg_mod.ReduceOp(op)
-    devices = t.ctx.devices
+    devices, group = t.ctx.devices, t.ctx.group
     vals = [agg_mod.scalar_agg(cols[col_idx], n, op)[0]
             for cols, n in zip(t.shards, t.counts)]
     if op in (agg_mod.ReduceOp.SUM, agg_mod.ReduceOp.COUNT):
-        return collectives.allreduce_sum(vals, devices)[0]
+        return collectives.allreduce_sum(vals, devices, group)[0]
     if op in (agg_mod.ReduceOp.MIN, agg_mod.ReduceOp.MAX):
         carried = [keys.signed_carrier(v) for v in vals]
         combine = (collectives.allreduce_min if op == agg_mod.ReduceOp.MIN
                    else collectives.allreduce_max)
-        return carried[0][1](combine([c for c, _ in carried], devices)[0])
+        return carried[0][1](combine([c for c, _ in carried], devices,
+                                     group)[0])
     return torch.prod(collectives.allgather([v.reshape(1) for v in vals],
-                                            devices)[0])
+                                            devices, group)[0])

@@ -15,8 +15,9 @@ reference's on every device.
 ``column_stats`` (``partition.py:150 stats_arity``, ``:157
 column_stats``) observes what the compressed exchange needs of every
 column: value ranges, string extents and distinct counts, reduced across
-shards with ``collectives.allreduce_min`` / ``allreduce_max`` so every
-shard sees the same values and derives the same ``plane.build_spec``.
+shards (and processes) with ``collectives.allreduce_min`` /
+``allreduce_max`` so every shard sees the same values and derives the
+same ``plane.build_spec``.
 """
 from __future__ import annotations
 
@@ -69,10 +70,13 @@ def _clipped_int(x: torch.Tensor, hi: int) -> torch.Tensor:
 
 def range_targets(cols: Sequence[Column], counts, devices, *, num_bins: int,
                   num_samples: int, ascending: bool = True,
-                  nulls_first: bool = True) -> List[torch.Tensor]:
-    """Per shard, int32[cap] range-partition targets of its sort column
-    ``cols[s]``, globally monotone: every row of shard t orders before
-    every row of shard t+1.  Padding rows get ``world``.
+                  nulls_first: bool = True, group=None
+                  ) -> List[torch.Tensor]:
+    """Per local shard, int32[cap] range-partition targets of its sort
+    column ``cols[s]``, globally monotone: every row of shard t orders
+    before every row of shard t+1.  Padding rows get ``world``, the
+    global shard count (the local shards times the processes of
+    ``group``), over which the allreduces run.
 
     As the reference (arrow_partition_kernels.hpp:394-519
     RangePartitionKernel): global min and max by allreduce, a stride
@@ -84,7 +88,7 @@ def range_targets(cols: Sequence[Column], counts, devices, *, num_bins: int,
     in the same order as the reference.  A string column bins on its
     first 4 bytes (``string_prefix``): keys sharing them share a bin, which
     costs balance, never order."""
-    world = len(cols)
+    world = len(cols) * (group.size if group is not None else 1)
     facc = precision.float_acc(cols[0].device)
     big = torch.finfo(facc).max
     fdatas, lives, lmins, lmaxs = [], [], [], []
@@ -99,8 +103,8 @@ def range_targets(cols: Sequence[Column], counts, devices, *, num_bins: int,
         lmaxs.append(torch.where(live, fdata, -big).max())
         fdatas.append(fdata)
         lives.append(live)
-    gmins = collectives.allreduce_min(lmins, devices)
-    gmaxs = collectives.allreduce_max(lmaxs, devices)
+    gmins = collectives.allreduce_min(lmins, devices, group)
+    gmaxs = collectives.allreduce_max(lmaxs, devices, group)
 
     hists = []
     for fdata, live, gmin, gmax in zip(fdatas, lives, gmins, gmaxs):
@@ -119,7 +123,7 @@ def range_targets(cols: Sequence[Column], counts, devices, *, num_bins: int,
         sbin = _clipped_int((sample - gmin) / span * num_bins, num_bins - 1)
         hists.append(torch.zeros(num_bins, dtype=torch.int32, device=dev)
                      .index_add_(0, sbin, sample_ok.to(torch.int32)))
-    hists = collectives.allreduce_sum(hists, devices)
+    hists = collectives.allreduce_sum(hists, devices, group)
 
     out = []
     for col, count, fdata, gmin, gmax, hist in zip(cols, counts, fdatas,
@@ -159,9 +163,10 @@ def _value_range(dtype: torch.dtype) -> Tuple[int, int]:
 
 
 def column_stats(shards: Sequence[Sequence[Column]], counts,
-                 devices) -> Tuple[int, ...]:
-    """The observed stats of every LIVE row, the same on every shard, as
-    host integers in ``plane.stats_layout``'s order: (min, max) per
+                 devices, group=None) -> Tuple[int, ...]:
+    """The observed stats of every LIVE row, the same on every shard (of
+    every process of ``group``), as host integers in
+    ``plane.stats_layout``'s order: (min, max) per
     integer column; (nonzero byte extent, max length, max per-shard
     distinct count) per string column.
 
@@ -190,8 +195,8 @@ def column_stats(shards: Sequence[Sequence[Column]], counts,
                             .to(torch.int64))
                 maxs.append(torch.where(live, carrier, lo).max()
                             .to(torch.int64))
-            stats += [collectives.allreduce_min(mins, devices)[0],
-                      collectives.allreduce_max(maxs, devices)[0]]
+            stats += [collectives.allreduce_min(mins, devices, group)[0],
+                      collectives.allreduce_max(maxs, devices, group)[0]]
             biases += [bias, bias]
         elif kind == "str":
             extents, maxlens, distinct = [], [], []
@@ -212,7 +217,7 @@ def column_stats(shards: Sequence[Sequence[Column]], counts,
                        for wv in plane_mod.string_key_words(c)]
                 flag = plane_mod.sorted_distinct_flags(kws)[1]
                 distinct.append(flag.sum(dtype=torch.int64))
-            stats += [collectives.allreduce_max(x, devices)[0]
+            stats += [collectives.allreduce_max(x, devices, group)[0]
                       for x in (extents, maxlens, distinct)]
             biases += [0, 0, 0]
     if not stats:

@@ -563,10 +563,14 @@ class PlaneCodec:
     all-gather in all, before any shard packs: every shard's local sorted
     dictionary travels to every shard, and each derives the same global
     dictionary from them, so a sender's codes decode on any receiver.
-    ``codes[s]`` / ``dicts[s]`` are shard ``s``'s, on its device."""
+    ``shards`` are this process's; over a process ``group`` of ``world``
+    shards the gather crosses processes, and every shard's block has the
+    spec's fixed ``lcap`` rows, so the shapes agree on every process.
+    ``codes[s]`` / ``dicts[s]`` are local shard ``s``'s, on its device."""
 
     def __init__(self, shards: Sequence[Sequence[Column]], spec,
-                 devices: Sequence[torch.device]):
+                 devices: Sequence[torch.device], group=None,
+                 world: Optional[int] = None):
         self.shards = shards
         self.spec = spec
         self.codes: List[Dict[int, torch.Tensor]] = [{} for _ in shards]
@@ -577,7 +581,7 @@ class PlaneCodec:
         dcols = [(i, e) for i, e in enumerate(spec) if e[0] == "dict"]
         if not dcols:
             return
-        world = len(shards)
+        world = len(shards) if world is None else world
         with obs_spans.span("shuffle.dict_gather", columns=len(dcols)):
             keyed, bufs = [], []
             for cols in shards:
@@ -593,7 +597,7 @@ class PlaneCodec:
                     blocks.append(torch.stack(loc + pad, dim=1))
                 keyed.append(locs)
                 bufs.append(torch.cat(blocks))           # [rows, maxk]
-            gathered = collectives.allgather(bufs, devices)
+            gathered = collectives.allgather(bufs, devices, group)
         rows = bufs[0].shape[0]
         for s, (locs, g) in enumerate(zip(keyed, gathered)):
             g3 = g.reshape(world, rows, -1)

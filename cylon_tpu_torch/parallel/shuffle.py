@@ -9,11 +9,14 @@ and ``plan_shuffle:226``; ``ragged_plan:239``'s offsets are computed by
 calls the collective in its middle; a single controller cannot stop one
 shard's function halfway, so the body is split around the exchange:
 
-1. before it, for every shard: counts per target and the stable grouping
-   of rows by target (``target_counts``, ``_perm_by_target``), each
-   buffer gathered into that order;
+1. before it, for every shard of this process: counts per target and the
+   stable grouping of rows by target (``target_counts``,
+   ``_perm_by_target``), each buffer gathered into that order; the count
+   matrix is the global one (``count_matrix``: across processes, one
+   all-gather of the local rows, as the reference's);
 2. the exchange across the list of shards (``collectives.all_to_all``),
-   which lands every shard's rows front-packed in source-rank order:
+   which lands every shard's rows front-packed in global source-rank
+   order:
    per buffer, one exchange for each buffer (a string column moves three:
    its ``[n, width]`` byte matrix, validity and lengths,
    ``cylon_tpu/parallel/shuffle.py:217-218, 340``); packed, every shard's
@@ -85,31 +88,40 @@ def plan_shuffle(cm: np.ndarray) -> int:
     return pow2ceil(int(cm.sum(axis=0).max()) if cm.size else 0)
 
 
-def count_matrix(counts: Sequence[torch.Tensor]) -> np.ndarray:
-    """The [world, world] count matrix on the host, from every shard's
-    ``target_counts`` (the reference all-gathers it; one host copy here)."""
-    dev = counts[0].device
-    return torch.stack([c.to(dev) for c in counts]).cpu().numpy()
+def count_matrix(counts: Sequence[torch.Tensor], group=None) -> np.ndarray:
+    """The global count matrix on the host (a row per shard, a column per
+    target), from this process's shards' ``target_counts``: one host copy
+    in one process; over a process group, one all-gather of the local
+    rows, as the reference all-gathers it."""
+    dev = counts[0].device if group is None else group.device
+    local = torch.stack([c.to(dev) for c in counts])
+    if group is not None:
+        local = collectives.allgather([local], [dev], group)[0]
+    return local.cpu().numpy()
 
 
 def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
                          targets: Sequence[torch.Tensor], cm: np.ndarray,
                          world: int, out_capacity: int,
                          devices: Sequence[torch.device],
-                         packed: bool = False, spec=None
+                         packed: bool = False, spec=None, group=None,
+                         shard_ids: Sequence[int] = ()
                          ) -> Tuple[List[Tuple[Column, ...]], List[int]]:
-    """Shuffle every shard's rows to their targets: per-shard columns of
-    capacity ``out_capacity``, rows front-packed in source-rank order, and
-    each shard's received row count.  ``cm`` is the count matrix of these
-    ``targets``.  ``packed`` moves one plane (compressed under ``spec``)
-    instead of every buffer; the shards are bit-identical either way."""
+    """Shuffle this process's shards' rows to their targets: per local
+    shard, columns of capacity ``out_capacity``, rows front-packed in
+    global source-rank order, and its received row count.  ``cm`` is the
+    global count matrix of these ``targets``; over a process ``group``
+    the local shards are the global ``shard_ids``.  ``packed`` moves one
+    plane (compressed under ``spec``) instead of every buffer; the shards
+    are bit-identical either way."""
     perms = [_perm_by_target(t, world) for t in targets]
-    totals = [int(n) for n in np.asarray(cm).sum(axis=0)]
+    ids = list(shard_ids) or list(range(len(shards)))
+    totals = [int(n) for n in np.asarray(cm).sum(axis=0)[ids]]
     ncols = len(shards[0])
     if packed:
         return _packed_exchange(shards, perms, cm, totals, out_capacity,
-                                devices, spec), totals
-    recv: List[List[Column]] = [[] for _ in range(world)]
+                                devices, spec, group, world), totals
+    recv: List[List[Column]] = [[] for _ in shards]
 
     def exchange(bufs):
         """One buffer of every shard, each grouped by target, exchanged
@@ -117,7 +129,7 @@ def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
         out = [torch.zeros((out_capacity,) + tuple(bufs[0].shape[1:]),
                            dtype=bufs[0].dtype, device=dev)
                for dev in devices]
-        return collectives.all_to_all(bufs, cm, out)
+        return collectives.all_to_all(bufs, cm, out, group)
 
     with obs_spans.span("shuffle.collective", family="all_to_all",
                         packed=False, launches=buffer_count(shards[0])):
@@ -126,17 +138,17 @@ def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
             data = exchange([column.gather(c.data, p)
                              for c, p in zip(cols, perms)])
             valid = exchange([c.validity[p] for c, p in zip(cols, perms)])
-            lengths = ([None] * world if cols[0].lengths is None else
+            lengths = ([None] * len(shards) if cols[0].lengths is None else
                        exchange([c.lengths[p] for c, p in zip(cols,
                                                                perms)]))
-            for d in range(world):
+            for d in range(len(shards)):
                 recv[d].append(Column(data[d], valid[d], lengths[d],
                                       cols[0].dtype))
     return [tuple(cols) for cols in recv], totals
 
 
 def _packed_exchange(shards, perms, cm, totals, out_capacity, devices,
-                     spec) -> List[Tuple[Column, ...]]:
+                     spec, group, world) -> List[Tuple[Column, ...]]:
     """The packed branch: each shard's plane (under ``spec``) grouped by
     target with one gather, ONE exchange into zeroed receive planes, and
     the decode.  No validity mask on decode: a null row's bits travel as
@@ -145,7 +157,7 @@ def _packed_exchange(shards, perms, cm, totals, out_capacity, devices,
     tail.  Under a spec a zero field no longer decodes to zero (to the
     offset, or to dictionary entry 0), so the rows past each received
     total are masked (``tail_mask``)."""
-    codec = plane_mod.PlaneCodec(shards, spec, devices)
+    codec = plane_mod.PlaneCodec(shards, spec, devices, group, world)
     with obs_spans.span("shuffle.pack", columns=len(shards[0])) as sp:
         planes = [codec.pack(s)[p] for s, p in enumerate(perms)]
         sp.set(words=int(planes[0].shape[1]), compressed=spec is not None)
@@ -154,7 +166,7 @@ def _packed_exchange(shards, perms, cm, totals, out_capacity, devices,
         out = [torch.zeros((out_capacity, planes[0].shape[1]),
                            dtype=planes[0].dtype, device=dev)
                for dev in devices]
-        got = list(collectives.all_to_all(planes, cm, out))
+        got = list(collectives.all_to_all(planes, cm, out, group))
     del planes, out  # the sent planes are freed before any decode
     with obs_spans.span("shuffle.unpack", columns=len(shards[0])):
         recv = []

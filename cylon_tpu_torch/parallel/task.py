@@ -130,12 +130,14 @@ def _plan_shuffle(t, plan: LogicalTaskPlan):
                             family="ragged"):
             tgts = [targets(cols, n) for cols, n in zip(t.shards, t.counts)]
             cm = shuffle_mod.count_matrix(
-                [shuffle_mod.target_counts(tg, world) for tg in tgts])
+                [shuffle_mod.target_counts(tg, world) for tg in tgts],
+                t.ctx.group)
             out_cap = shuffle_mod.plan_shuffle(cm)
         with obs_spans.span("shuffle.exchange", packed=pack, family="ragged",
                             world=world, compressed=False):
             shards, totals = shuffle_mod.shuffle_shard_ragged(
-                t.shards, tgts, cm, world, out_cap, devices, packed=pack)
+                t.shards, tgts, cm, world, out_cap, devices, packed=pack,
+                group=t.ctx.group, shard_ids=t.shard_ids)
         par_ops._record_exchange(t.shards[0], pack, "task-ragged",
                                  int(cm.sum()))
         return t._like(shards, totals)

@@ -275,8 +275,9 @@ def _sharded_table(ctx: CylonContext, names, arrays) -> Table:
     lengths) pair for a string column (``column.from_native_buffers``)."""
     first = arrays[0][0] if isinstance(arrays[0], tuple) else arrays[0]
     chunk, counts, cap = _shard_plan(len(first), ctx.GetWorldSize())
+    counts = [counts[s] for s in ctx.shard_ids]
     shards = []
-    for s, (n, dev) in enumerate(zip(counts, ctx.devices)):
+    for s, n, dev in zip(ctx.shard_ids, counts, ctx.devices):
         lo = s * chunk
         cols = []
         for a in arrays:

@@ -1,11 +1,21 @@
-"""A table of columns split into shards over an in-process mesh.
+"""A table of columns split into shards over a mesh.
 
-The port of the parts of ``cylon_tpu/table.py:55 Table`` that the
-distributed rung runs.  The reference holds one global array per buffer,
-sharded over its mesh, and ``int32[num_shards]`` row counts; this Table
-holds one tuple of Columns per shard, each on its shard's device
-(``ctx.devices[i]``), and one 0-d int32 row count per shard beside it.
-Every shard of a table has the same capacity.
+The port of ``cylon_tpu/table.py:55 Table``.  The reference holds one
+global array per buffer, sharded over its mesh, and ``int32[num_shards]``
+row counts; this Table holds one tuple of Columns per shard, each on its
+shard's device (``ctx.devices[i]``), and one 0-d int32 row count per
+shard beside it.  Every shard of a table has the same capacity, and a
+string column the same width on every shard.
+
+On a context over a process group (``context.py``) a Table holds only
+this process's shards, global ids ``shard_ids``, and every process holds
+as many; ``num_shards``, ``row_counts``, ``capacity`` and
+``is_distributed`` are global, so a two-process table of one shard each
+takes the distributed paths.  The constructors take the same global data
+on every process and keep their own chunks; ``to_pandas`` and the other
+exports gather across processes (every process sees every row), and the
+per-shard writers write only this process's shards.  Capacities taken
+from a max over shards (the join's output) are maxed across processes.
 
 Ported, for fixed-width and string columns:
 
@@ -44,8 +54,7 @@ Ported, for fixed-width and string columns:
 A one-shard ``join`` or hash ``groupby`` that runs out of device memory
 falls back to the chunked out-of-core engine (``exec.py``) on the table's
 own device.  The reference's adaptive join-capacity cache is not
-ported, nor are ``plan`` (the planner, ROADMAP A9) and the cross-process
-gather of the exports (the multi-process backend, A8): each raises
+ported, nor is ``plan`` (the planner, ROADMAP A9), which raises
 NotImplemented.
 """
 from __future__ import annotations
@@ -74,6 +83,7 @@ from .ops import setops as setops_mod
 from .ops import sort as sort_mod
 from .ops import unique as unique_mod
 from .ops.groupby import AggOp
+from .parallel import collectives
 from .parallel import ops as par_ops
 from .parallel.shuffle import pow2ceil
 from .status import Code, CylonError, Status
@@ -92,7 +102,15 @@ class Table:
     # -- shape / metadata ---------------------------------------------------
     @property
     def num_shards(self) -> int:
-        return len(self.shards)
+        """The global shard count: this process's shards times the
+        processes of the context's group."""
+        return len(self.shards) * self.ctx.num_processes()
+
+    @property
+    def shard_ids(self) -> List[int]:
+        """The global ids of this process's shards."""
+        first = self.ctx.GetRank() * len(self.shards)
+        return list(range(first, first + len(self.shards)))
 
     @property
     def shard_capacity(self) -> int:
@@ -100,7 +118,14 @@ class Table:
 
     @property
     def row_counts(self) -> np.ndarray:
-        """Per-shard live-row counts on the host (synchronises)."""
+        """Every shard's live-row count on the host, in global shard order
+        (synchronises; over a process group, one all-gather, the
+        counterpart of ``cylon_tpu/table.py:1081 _host_row_counts``)."""
+        return collectives.process_allgather(self._local_row_counts(),
+                                             self.ctx.group)
+
+    def _local_row_counts(self) -> np.ndarray:
+        """This process's shards' live-row counts on the host."""
         dev = self.counts[0].device
         return torch.stack([c.to(dev) for c in self.counts]).cpu().numpy()
 
@@ -178,7 +203,9 @@ class Table:
         """Rows split into contiguous chunks of ``ceil(n/world)``, chunk
         ``i`` on shard ``i`` at shard capacity ``max(8, chunk)``, or
         ``capacity // world`` when a total ``capacity`` is given (never
-        below the chunk), as ``cylon_tpu/table.py:1640 _shard_plan``."""
+        below the chunk), as ``cylon_tpu/table.py:1640 _shard_plan``.
+        Over a process group every process passes the same arrays and
+        keeps its own shards' chunks."""
         ctx = ctx or CylonContext.Init()
         arrays = [np.asarray(a) for a in arrays]
         n = len(arrays[0]) if arrays else 0
@@ -188,10 +215,11 @@ class Table:
                                  f"column {name} length {len(a)} != {n}")
         world = ctx.GetWorldSize()
         chunk, counts, shard_cap = _shard_plan(n, world, capacity)
+        counts = [counts[s] for s in ctx.shard_ids]
         return _assemble(
             [[column_mod.from_numpy(a[s * chunk:s * chunk + c],
                                     capacity=shard_cap, device=dev)
-              for s, (c, dev) in enumerate(zip(counts, ctx.devices))]
+              for s, c, dev in zip(ctx.shard_ids, counts, ctx.devices)]
              for a in arrays], counts, names, ctx)
 
     @staticmethod
@@ -278,33 +306,45 @@ class Table:
     # -- exporters ------------------------------------------------------------
     def _addressable_host_shards(self) -> List[Tuple[int, List[Column],
                                                      int]]:
-        """Every shard's live rows as host (CPU) Columns, without a gather:
-        ``[(shard id, columns, live count)]`` in shard order
-        (``cylon_tpu/table.py:255``; one process holds every shard)."""
-        if self.ctx.multi_process():
-            raise CylonError(Code.NotImplemented, "a gather across processes "
-                             "needs the multi-process backend (ROADMAP.md "
-                             "queue A, item 8)")
+        """This process's shards' live rows as host (CPU) Columns, without
+        a gather: ``[(global shard id, columns, live count)]`` in shard
+        order (``cylon_tpu/table.py:255``)."""
         return [(s, [_host_column(c, int(n)) for c in cols], int(n))
-                for s, (cols, n) in enumerate(zip(self.shards,
-                                                  self.row_counts))]
+                for s, cols, n in zip(self.shard_ids, self.shards,
+                                      self._local_row_counts())]
 
     def _gathered_columns(self) -> Tuple[List[Column], int]:
-        """The live rows of every shard in shard order as one column set
-        (``cylon_tpu/table.py:222``): a one-shard table's own columns, else
-        host Columns."""
+        """The live rows of every shard in global shard order as one
+        column set (``cylon_tpu/table.py:222``): a one-shard table's own
+        columns, else host Columns.  Over a process group every process
+        gets every row: the shards' whole buffers cross in one host
+        all-gather per buffer (one shape on every process), then each
+        shard's live prefix is kept."""
         if self.num_shards == 1:
-            return list(self.shards[0]), int(self.row_counts[0])
-        parts = self._addressable_host_shards()
+            return list(self.shards[0]), int(self._local_row_counts()[0])
+        group = self.ctx.group
+        if group is None:
+            parts = self._addressable_host_shards()
+            counts = [p[2] for p in parts]
+        else:
+            counts = [int(n) for n in self.row_counts]
+            cap = self.shard_capacity
         cols = []
         for j, c0 in enumerate(self.shards[0]):
             def cat(buf):
-                return torch.cat([getattr(p[1][j], buf) for p in parts])
+                if group is None:
+                    return torch.cat([getattr(p[1][j], buf) for p in parts])
+                mine = torch.cat([getattr(s[j], buf).cpu()
+                                  for s in self.shards]).numpy()
+                whole = torch.from_numpy(
+                    collectives.process_allgather(mine, group))
+                return torch.cat([whole[s * cap:s * cap + n]
+                                  for s, n in enumerate(counts)])
 
             cols.append(Column(cat("data"), cat("validity"),
                                cat("lengths") if c0.is_string else None,
                                c0.dtype))
-        return cols, sum(p[2] for p in parts)
+        return cols, sum(counts)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Live rows of every shard, in shard order; nulls become None in
@@ -359,8 +399,9 @@ class Table:
             print(",".join(str(d[c][i]) for c in names))
 
     def shard_frames(self) -> List[Tuple[int, Dict[str, np.ndarray], int]]:
-        """Every shard's live rows on the host, without a gather:
-        ``[(shard id, {name: host column}, live count)]`` in shard order."""
+        """This process's shards' live rows on the host, without a gather:
+        ``[(global shard id, {name: host column}, live count)]`` in shard
+        order."""
         return [(s, {name: column_mod.to_numpy(c, n)
                      for name, c in zip(self.names, cols)}, n)
                 for s, cols, n in self._addressable_host_shards()]
@@ -467,7 +508,8 @@ class Table:
         """Add or replace column ``key`` (``cylon_tpu/table.py:772``):
         ``value`` is a one-column Table of this table's shard layout, a
         Column of a one-shard table's capacity, a host array of
-        ``row_count`` values, or a scalar repeated to every row."""
+        ``row_count`` values (over a process group, the same global array
+        on every process), or a scalar repeated to every row."""
         if not isinstance(key, str):
             raise CylonError(Code.Invalid, "column name must be a string")
         cols = self._column_from_value(value)
@@ -490,7 +532,7 @@ class Table:
                                  "expected a single-column table")
             value = [s[0] for s in value.shards]
         if isinstance(value, list):
-            if len(value) != self.num_shards or any(
+            if len(value) != len(self.shards) or any(
                     c.capacity != cap for c in value):
                 raise CylonError(Code.Invalid, "column capacity mismatch")
             return value
@@ -502,8 +544,10 @@ class Table:
                              f"rows {self.row_count}")
         counts = [int(n) for n in self.row_counts]
         offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        return [column_mod.from_numpy(arr[o:o + n], capacity=cap, device=dev)
-                for o, n, dev in zip(offsets, counts, self.ctx.devices)]
+        # over a process group the host value is global: keep our slices
+        return [column_mod.from_numpy(arr[offsets[s]:offsets[s] + counts[s]],
+                                      capacity=cap, device=dev)
+                for s, dev in zip(self.shard_ids, self.ctx.devices)]
 
     # -- column subsets -----------------------------------------------------
     def project(self, refs) -> "Table":
@@ -1029,7 +1073,7 @@ def _shard_wise(fn, *tables: Table) -> Table:
             raise CylonError(Code.Invalid, "tables have different shard "
                              f"counts: {t0.num_shards} vs {t.num_shards}")
     shards, counts = [], []
-    for s in range(t0.num_shards):
+    for s in range(len(t0.shards)):
         args = []
         for t in tables:
             args += [t.shards[s], t.counts[s]]
@@ -1077,12 +1121,16 @@ def _dist_set_op(a: Table, b: Table, op: str) -> Table:
 
 def _assemble(per_column: Sequence[Sequence[Column]], counts, names,
               ctx: CylonContext) -> Table:
-    """A Table from, per column, its per-shard Columns (shard ``i`` on
-    ``ctx.devices[i]``) and the per-shard live counts; a string column at
-    the width of its widest shard on every shard."""
+    """A Table from, per column, this process's per-shard Columns (local
+    shard ``i`` on ``ctx.devices[i]``) and their live counts; a string
+    column at the width of its widest shard (of every process) on every
+    shard."""
     cols = []
     for shard_cols in per_column:
         width = max(c.string_width for c in shard_cols)
+        if ctx.group is not None and shard_cols[0].is_string:
+            width = int(collectives.process_allgather(
+                np.array([width], np.int64), ctx.group).max())
         cols.append([common_mod.pad_width(c, width) for c in shard_cols])
     shards = [tuple(c[s] for c in cols) for s in range(len(counts))]
     counts_t = tuple(torch.tensor(int(c), dtype=torch.int32, device=dev)
@@ -1134,10 +1182,11 @@ def _table_from_arrow(arrays: Dict[str, object], ctx: CylonContext,
             for a in arrays.values()]
     n = len(vals[0]) if vals else 0
     chunk, counts, shard_cap = _shard_plan(n, ctx.GetWorldSize(), capacity)
+    counts = [counts[s] for s in ctx.shard_ids]
     return _assemble(
         [[column_mod.from_arrow(a.slice(s * chunk, c), capacity=shard_cap,
                                 string_width=sw, device=dev)
-          for s, (c, dev) in enumerate(zip(counts, ctx.devices))]
+          for s, c, dev in zip(ctx.shard_ids, counts, ctx.devices)]
          for a in vals], counts, arrays.keys(), ctx)
 
 
@@ -1187,11 +1236,12 @@ def _table_from_arrow_tables(atables, ctx: CylonContext,
                          "per-shard reads need one file per mesh position")
     counts = [at.num_rows for at in atables]
     shard_cap = _per_shard_capacity(counts, world, capacity)
+    mine = [atables[s] for s in ctx.shard_ids]
     return _assemble(
         [[column_mod.from_arrow(at.column(name), capacity=shard_cap,
                                 string_width=sw, device=dev)
-          for at, dev in zip(atables, ctx.devices)] for name in names],
-        counts, names, ctx)
+          for at, dev in zip(mine, ctx.devices)] for name in names],
+        [at.num_rows for at in mine], names, ctx)
 
 
 def _table_from_native_tables(ntables, ctx: CylonContext,
@@ -1238,10 +1288,11 @@ def _table_from_native_tables(ntables, ctx: CylonContext,
                              "position")
         counts = [len(nt[1][0]["data"]) if nt[1] else 0 for nt in ntables]
         shard_cap = _per_shard_capacity(counts, world, capacity)
+        mine = [(ntables[s], counts[s]) for s in ctx.shard_ids]
         return _assemble(
             [[build(nt[1][c], 0, n, shard_cap, dev)
-              for nt, n, dev in zip(ntables, counts, ctx.devices)]
-             for c in range(ncols)], counts, names, ctx)
+              for (nt, n), dev in zip(mine, ctx.devices)]
+             for c in range(ncols)], [n for _, n in mine], names, ctx)
     if len(ntables) == 1:
         cols = ntables[0][1]
     else:
@@ -1249,9 +1300,10 @@ def _table_from_native_tables(ntables, ctx: CylonContext,
                 for c in range(ncols)]
     n = len(cols[0]["data"]) if cols else 0
     chunk, counts, shard_cap = _shard_plan(n, world, capacity)
+    counts = [counts[s] for s in ctx.shard_ids]
     return _assemble(
         [[build(col, s * chunk, s * chunk + c, shard_cap, dev)
-          for s, (c, dev) in enumerate(zip(counts, ctx.devices))]
+          for s, c, dev in zip(ctx.shard_ids, counts, ctx.devices)]
          for col in cols], counts, names, ctx)
 
 
@@ -1323,14 +1375,18 @@ def _join_output_names(left: Table, right: Table,
 
 def _local_join(left: Table, right: Table, cfg: JoinConfig) -> Table:
     """Shard-by-shard join with the exact two-pass sizing: every shard's
-    output count, ``cap_round`` of the largest, one gather per shard at
-    that common capacity."""
+    output count, ``cap_round`` of the largest (over every process), one
+    gather per shard at that common capacity."""
     pairs = list(zip(left.shards, left.counts, right.shards, right.counts))
     counts = [join_mod.join_row_count(a, ca, b, cb, cfg.left_on,
                                       cfg.right_on, cfg.join_type,
                                       cfg.algorithm)
               for a, ca, b, cb in pairs]
-    out_cap = cap_round(max(1, max(int(c) for c in counts)))
+    most = max(int(c) for c in counts)
+    if left.ctx.group is not None:  # one capacity on every process's shards
+        most = int(collectives.process_allgather(
+            np.array([most], np.int64), left.ctx.group).max())
+    out_cap = cap_round(max(1, most))
     shards, out_counts = [], []
     for a, ca, b, cb in pairs:
         cols, m = join_mod.join_gather(a, ca, b, cb, cfg.left_on,

@@ -851,3 +851,61 @@ def test_packed_compressed_and_per_buffer_shuffles_on_the_card(gen):
             _assert_same_bits(bc, bc0)
             for p in hp0:
                 _assert_same_bits(hp[p], hp0[p])
+
+
+@pytest.mark.gpu
+def test_nccl_group_of_one_rank_equals_the_mesh(gen):
+    """A context over an NCCL group of one rank holding 4 shards on the
+    card: the distributed join -> group-by equals the in-process mesh's
+    shard for shard (the collectives go through NCCL, self included),
+    under both exchange realizations, and launches the hash and scan
+    kernels."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, config, pipeline
+
+    data = pipeline.make_data(1 << 16)
+    mesh = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                   world_size=4))
+    group = CylonContext.InitDistributed(MeshConfig(
+        devices=["cuda"], world_size=4, num_processes=1))
+    try:
+        assert group.group.backend == "nccl" and group.GetWorldSize() == 4
+        assert not group.multi_process() and group.GetRank() == 0
+        for pack in ("0", "1"):
+            with config.knob_env(CYLON_TPU_SHUFFLE_PACK=pack):
+                want = pipeline.distributed_join_groupby(
+                    *pipeline.distributed_tables(mesh, *data))
+                hash_kernels.reset_launches()
+                scan.reset_launches()
+                got = pipeline.distributed_join_groupby(
+                    *pipeline.distributed_tables(group, *data))
+            assert hash_kernels.LAUNCHES["hash_partition"] >= 12
+            assert scan.LAUNCHES["scan_1d"] >= 1
+            assert scan.LAUNCHES["segmented_scan"] >= 1
+            for g, w in zip(got, want):
+                _assert_same_bits(g, w)
+        group.Barrier()
+    finally:
+        group.Finalize()
+
+
+@pytest.mark.gpu
+def test_cuda_shards_refuse_a_gloo_group(gen):
+    """CUDA shards never ride gloo through host copies: given a gloo
+    group already formed, the context raises."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cylon_tpu_torch import CylonContext, CylonError, MeshConfig
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(CylonError, match="rides gloo"):
+            CylonContext.InitDistributed(MeshConfig(
+                devices=["cuda"], world_size=2, num_processes=1))
+    finally:
+        dist.destroy_process_group()
