@@ -162,7 +162,26 @@ Phases, each of which fails the run on error:
    reader and writer must serve every CSV (``io.reader_counts``), the scan
    kernels must launch in (c) and the hash kernel in (d); each step prints
    its seconds, launches, peak device memory and reader counts, (a) and
-   (b) their MB/s and rows/s.
+   (b) their MB/s and rows/s;
+3v. the out-of-core engine and ``DataFrame`` through a process group: a
+   context over an NCCL group of one rank holding SHARDS shards (NCCL
+   refuses two ranks on one card) runs
+   ``pipeline.out_of_core_distributed_join_groupby`` on 2^24 rows per side
+   of ``bench.py`` data in 8 passes (a quarter of 3q's rows, for the
+   time), counters zeroed just before and read just after (all three
+   kernels must launch); its frames must equal the in-process mesh
+   engine's on the same data bit for bit, and the numpy oracle; then a
+   ``DataFrame`` merge -> group-by through the group against the oracle;
+   seconds, ``plan_seconds``, launches and the phase's wall time;
+3w. TPC-H Q10 and Q5 through the query planner
+   (``pipeline.tpch_q10_plan``, ``tpch_q5_plan``) at SF-1 (cut from
+   BASELINE config 4's SF-100 for the time) on SHARDS shards of the
+   in-process mesh, the tables drawn by ``examples/tpch_data.py``; each
+   planned and eager (``CYLON_TPU_PLAN=0``): the first run with the
+   counters and metrics zeroed around it (all three kernels must launch,
+   at least one shuffle elided when planned), best-of-3 ms, exchanges and
+   bytes sent, peak device memory; planned equal to eager bit for bit,
+   both equal to a pandas float64 oracle (revenue within rtol 1e-5).
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -182,9 +201,9 @@ adds a device-time breakdown by kernel of one run of each main path (the
 hash join's included), of the set ops, of the distributed sorts, of the
 string paths, of Q1, of a second out-of-core sweep (whose device busy
 share of its wall time is the engine's idle measure) and of a second run
-of 3m, 3o, 3p and 3q, and a stage breakdown of one distributed run.
-Phases 3i-3s run after phase 4, once the earlier phases' tensors are
-freed.
+of 3m, 3o, 3p and 3q, of one 3v engine run and of each 3w query
+(planned), and a stage breakdown of one distributed run.  Phases 3i-3w
+run after phase 4, once the earlier phases' tensors are freed.
 """
 from __future__ import annotations
 
@@ -3023,6 +3042,310 @@ def phase_front_door(report: dict) -> None:
 
 # -- phase 4 ------------------------------------------------------------------
 
+# -- phase 3v: the out-of-core engine and DataFrame through a group -----------
+
+GROUP_OOC_ROWS = 1 << 24  # a quarter of 3q's 2^26 per side, for the time
+GROUP_OOC_PASSES = 8
+
+
+def _same_frames(label: str, got: dict, want: dict) -> None:
+    """Two host frames hold the same columns, bit for bit."""
+    import numpy as np
+
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} != "
+                             f"{list(want)}")
+    for name in want:
+        g, w = np.asarray(got[name]), np.asarray(want[name])
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                np.ascontiguousarray(g).view(np.uint8),
+                np.ascontiguousarray(w).view(np.uint8)):
+            raise AssertionError(f"{label}: column {name} differs")
+
+
+def phase_ooc_group(report: dict, profile: bool = False) -> None:
+    """Phase 3v: the out-of-core engine and ``DataFrame`` on a context over
+    an NCCL group of one rank holding SHARDS shards (NCCL refuses two
+    ranks on one card).  ``pipeline.out_of_core_distributed_join_groupby``
+    of 2^24 rows per side in 8 passes through the group (every pass's
+    tables built and gathered through its collectives, the pass plan
+    agreed by an all-gather of its digest), with the launch counters
+    zeroed just before and read just after (all three kernels must
+    launch); its frames must equal the in-process mesh engine's on the
+    same data bit for bit, and the numpy oracle.  Then a ``DataFrame``
+    merge -> group-by through the same group against the oracle.  Ends
+    with ``Finalize()``."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import CylonContext, DataFrame, MeshConfig, pipeline
+
+    t_phase = time.perf_counter()
+    rows, passes = GROUP_OOC_ROWS, GROUP_OOC_PASSES
+    data = pipeline.make_data(rows, pipeline.SEED)
+    oracle = _oracle(data, rows)
+    mesh = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                   world_size=SHARDS))
+    want, want_stats = pipeline.out_of_core_distributed_join_groupby(
+        data, passes, mesh)
+    group = CylonContext.InitDistributed(MeshConfig(world_size=SHARDS,
+                                                    num_processes=1))
+    try:
+        if group.group.backend != "nccl":
+            raise AssertionError(f"3v: {group!r} is not an NCCL rank")
+        res, stats, rec = _ooc_call(
+            "3v", lambda: pipeline.out_of_core_distributed_join_groupby(
+                data, passes, group))
+        launches = rec["launches"]
+        if min(launches.values()) < 1:
+            raise AssertionError(f"3v did not launch every kernel: "
+                                 f"{launches}")
+        _same_frames("3v engine over the group against the mesh engine",
+                     res, want)
+        for k in ("passes", "groups", "world", "shard_cap", "mode"):
+            if stats[k] != want_stats[k]:
+                raise AssertionError(f"3v stats {k}: {stats[k]} != "
+                                     f"{want_stats[k]}")
+        order = np.argsort(res["l_k"], kind="stable")
+        sum_err, mean_err = _check_groups(
+            oracle, res["l_k"][order], res["sum_a"][order],
+            res["mean_b"][order], "3v engine")
+        del want, res
+        if profile:
+            phase_profile(
+                report, "ooc_group",
+                lambda: pipeline.out_of_core_distributed_join_groupby(
+                    data, passes, group))
+        lk, lv, rk, rv = data
+        t0 = time.perf_counter()
+        left = DataFrame({"k": lk, "a": lv}, ctx=group)
+        right = DataFrame({"k": rk, "b": rv}, ctx=group)
+        build_s = time.perf_counter() - t0
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = left.merge(right, on="k").groupby(
+            "l_k", {"a": ["sum"], "b": ["mean"]}).to_pandas()
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        frame_launches = _launch_counts()
+        out = out.sort_values("l_k")
+        frame_errs = _check_groups(oracle, out["l_k"].to_numpy(),
+                                   out["sum_a"].to_numpy(),
+                                   out["mean_b"].to_numpy(), "3v DataFrame")
+        if min(frame_launches.values()) < 1:
+            raise AssertionError(f"3v DataFrame did not launch every "
+                                 f"kernel: {frame_launches}")
+        del left, right, out
+        group.Barrier()
+    finally:
+        group.Finalize()
+    del data
+    rec.update(rows_per_side=rows, passes=passes, shards=SHARDS,
+               backend="nccl", ranks=1, mesh_seconds=want_stats[
+                   "total_seconds"], sum_max_abs_err=sum_err,
+               mean_max_abs_err=mean_err,
+               dataframe={"build_s": build_s, "merge_groupby_s": frame_s,
+                          "launches": frame_launches,
+                          "sum_max_abs_err": frame_errs[0],
+                          "mean_max_abs_err": frame_errs[1]},
+               phase_seconds=time.perf_counter() - t_phase)
+    report["ooc_group"] = rec
+    log(f"[3v] engine over one NCCL rank ({SHARDS} shards, {rows} rows per "
+        f"side, {passes} passes): {stats['total_seconds']:.2f} s, "
+        f"plan_seconds {stats['plan_seconds']:.2f}, launches {launches}; "
+        f"frames equal to the mesh engine's bit for bit (mesh "
+        f"{want_stats['total_seconds']:.2f} s); {stats['groups']} groups "
+        f"exact, SUM max abs err {sum_err:.3g}, MEAN {mean_err:.3g}; "
+        f"DataFrame merge -> group-by {frame_s:.2f} s (build {build_s:.2f} "
+        f"s), launches {frame_launches}; phase {rec['phase_seconds']:.1f} s")
+
+
+# -- phase 3w: TPC-H Q10 and Q5 through the planner ---------------------------
+
+TPCH_SF = 1.0  # cut from BASELINE config 4's SF-100 for the time (PERF.md §4)
+
+
+def _tpch_data(sf: float) -> dict:
+    """Q10's and Q5's tables as ``examples/tpch_data.py`` draws them
+    (imported: numpy only)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from examples import tpch_data
+
+    rng = np.random.default_rng(0)
+    raw = {"c": tpch_data.customer(sf, rng), "o": tpch_data.orders(sf, rng)}
+    raw["l"] = tpch_data.lineitem(sf, rng, q5_keys=True,
+                                  orders_rows=len(raw["o"]["o_orderkey"]))
+    raw["s"] = tpch_data.supplier(sf, rng)
+    raw["n"] = tpch_data.nation()
+    raw["r"] = tpch_data.region()
+    return raw
+
+
+def _tpch_oracles(raw: dict) -> dict:
+    """pandas float64 oracles of Q10 and Q5 (the examples' own)."""
+    import pandas as pd
+
+    from cylon_tpu_torch import pipeline
+
+    frames = {k: pd.DataFrame(v) for k, v in raw.items()}
+    lo, hi = pipeline.Q10_DATES
+    o = frames["o"][(frames["o"].o_orderdate >= lo)
+                    & (frames["o"].o_orderdate < hi)]
+    li = frames["l"].drop(columns="l_suppkey")
+    li = li[li.l_returnflag == "R"]
+    j = (o.merge(li, left_on="o_orderkey", right_on="l_orderkey")
+         .merge(frames["c"], left_on="o_custkey", right_on="c_custkey")
+         .merge(frames["n"], left_on="c_nationkey", right_on="n_nationkey"))
+    j["revenue"] = j.l_extendedprice.astype("float64") * (
+        1 - j.l_discount.astype("float64"))
+    q10 = (j.groupby(["c_custkey", "c_nationkey", "n_name"]).revenue.sum()
+           .reset_index().sort_values(["revenue", "c_custkey"],
+                                      ascending=[False, True])
+           .head(pipeline.Q10_TOP).reset_index(drop=True))
+    lo, hi = pipeline.Q5_DATES
+    o = frames["o"][(frames["o"].o_orderdate >= lo)
+                    & (frames["o"].o_orderdate < hi)]
+    j = (frames["c"].merge(o, left_on="c_custkey", right_on="o_custkey")
+         .merge(frames["l"], left_on="o_orderkey", right_on="l_orderkey")
+         .merge(frames["s"], left_on="l_suppkey", right_on="s_suppkey"))
+    j = j[j.c_nationkey == j.s_nationkey]
+    j = (j.merge(frames["n"], left_on="c_nationkey", right_on="n_nationkey")
+         .merge(frames["r"], left_on="n_regionkey", right_on="r_regionkey"))
+    j = j[j.r_regionkey == pipeline.Q5_REGION]
+    j["revenue"] = j.l_extendedprice.astype("float64") * (
+        1 - j.l_discount.astype("float64"))
+    q5 = (j.groupby("n_name").revenue.sum().reset_index()
+          .sort_values(["revenue", "n_name"], ascending=[False, True])
+          .reset_index(drop=True))
+    return {"q10": q10, "q5": q5}
+
+
+def _check_query(label: str, got, want, keys) -> float:
+    """A query's frame against its pandas oracle: the key columns exact,
+    in order; revenue within F32_SUM_RTOL of float64."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, oracle "
+                             f"{len(want)}")
+    for k in keys:
+        if not np.array_equal(got[k].to_numpy(), want[k].to_numpy()):
+            raise AssertionError(f"{label}: {k} differs from the oracle")
+    g = got["sum_revenue"].to_numpy().astype(np.float64)
+    w = want["revenue"].to_numpy()
+    err = np.abs(g - w)
+    if not (err <= F32_SUM_RTOL * np.abs(w)).all():
+        raise AssertionError(f"{label}: revenue outside rtol "
+                             f"{F32_SUM_RTOL} of the oracle")
+    return float(err.max(initial=0.0))
+
+
+def phase_planner(report: dict, profile: bool = False) -> None:
+    """Phase 3w: TPC-H Q10 (``pipeline.tpch_q10_plan``) and Q5
+    (``pipeline.tpch_q5_plan``) at SF-1 on SHARDS shards of the in-process
+    mesh, each planned and eager (``CYLON_TPU_PLAN=0``): the first run of
+    each with the launch counters and the metrics zeroed just before and
+    read just after (all three kernels must launch, and the planned run
+    must elide at least one shuffle), then best-of-3 ms; planned equal to
+    eager bit for bit, both equal to the pandas oracle; exchanges and
+    bytes sent planned against eager; peak device memory."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import (CylonContext, MeshConfig, Table, config,
+                                 pipeline)
+    from cylon_tpu_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    raw = _tpch_data(TPCH_SF)
+    oracles = _tpch_oracles(raw)
+    prep_s = time.perf_counter() - t0
+    ctx = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                  world_size=SHARDS))
+    t0 = time.perf_counter()
+    tables = {k: Table.from_numpy(list(v), list(v.values()), ctx=ctx)
+              for k, v in raw.items()}
+    # Q10 joins lineitem on l_orderkey only (examples/tpch_q10.py drops
+    # l_suppkey); a projection, not a second upload of 6M string rows
+    q10_line = tables["l"].project([n for n in tables["l"].names
+                                    if n != "l_suppkey"])
+    plans = {
+        "q10": pipeline.tpch_q10_plan(tables["c"], tables["o"], q10_line,
+                                      tables["n"]),
+        "q5": pipeline.tpch_q5_plan(*(tables[k] for k in "colsnr"))}
+    keys = {"q10": ("c_custkey", "c_nationkey", "n_name"),
+            "q5": ("n_name",)}
+    upload_s = time.perf_counter() - t0
+    out: dict = {"sf": TPCH_SF, "shards": SHARDS, "prep_s": prep_s,
+                 "upload_s": upload_s,
+                 "rows": {k: len(next(iter(v.values())))
+                          for k, v in raw.items()}}
+    del raw
+    for q, plan in plans.items():
+        rec: dict = {}
+        frames = {}
+        for arm, knob in (("planned", None), ("eager", "0")):
+            with config.knob_env(CYLON_TPU_PLAN=knob):
+                torch.cuda.synchronize()
+                _reset_launches()
+                metrics.reset()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                t = plan.execute()  # the first run of this lowering
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                launches = _launch_counts()
+                c = metrics.snapshot()["counters"]
+                peak = torch.cuda.max_memory_allocated()
+                frames[arm] = t.to_pandas().reset_index(drop=True)
+                timed = _time_op(plan.execute, 0, runs=3)
+            rec[arm] = {
+                "first_s": first_s, "best_ms": timed["best_ms"],
+                "times_ms": timed["times_ms"], "launches": launches,
+                "shuffles_elided": c.get("plan.shuffles_elided", 0),
+                "exchanges": c.get("shuffle.exchanges", 0),
+                "bytes_sent": c.get("shuffle.bytes_sent", 0),
+                "collective_launches": c.get("shuffle.collective_launches",
+                                             0),
+                "peak_device_bytes": peak}
+            if min(launches.values()) < 1:
+                raise AssertionError(f"3w {q} {arm} did not launch every "
+                                     f"kernel: {launches}")
+        if rec["planned"]["shuffles_elided"] < 1:
+            raise AssertionError(f"3w {q}: no shuffle elided")
+        for col in frames["planned"].columns:
+            a = frames["planned"][col].to_numpy()
+            b = frames["eager"][col].to_numpy()
+            if not np.array_equal(a, b):
+                raise AssertionError(f"3w {q}: planned and eager differ in "
+                                     f"{col}")
+        rec["revenue_max_abs_err"] = _check_query(
+            f"3w {q}", frames["planned"], oracles[q], keys[q])
+        rec["explain"] = plan.explain()
+        if profile:
+            phase_profile(report, f"planner_{q}", plan.execute)
+        out[q] = rec
+        p, e = rec["planned"], rec["eager"]
+        log(f"[3w] {q} SF-{TPCH_SF:g}: planned best-of-3 {p['best_ms']:.2f} "
+            f"ms (first {p['first_s'] * 1e3:.2f} ms), eager "
+            f"{e['best_ms']:.2f} ms (first {e['first_s'] * 1e3:.2f} ms); "
+            f"shuffles elided {p['shuffles_elided']}; exchanges "
+            f"{p['exchanges']} vs {e['exchanges']}, bytes sent "
+            f"{p['bytes_sent']} vs {e['bytes_sent']}; launches planned "
+            f"{p['launches']} eager {e['launches']}; peak "
+            f"{p['peak_device_bytes'] / 2**30:.2f} / "
+            f"{e['peak_device_bytes'] / 2**30:.2f} GiB; bit-identical, "
+            f"revenue max abs err {rec['revenue_max_abs_err']:.3g}")
+    del plans, tables, q10_line
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    report["planner"] = out
+    log(f"[3w] phase {out['phase_seconds']:.1f} s (data and pandas oracles "
+        f"{prep_s:.1f} s, upload {upload_s:.1f} s)")
+
+
 def _segmented_inputs(tables, out_cap):
     """The segmented scan's inputs on the main path: the join output's
     masked SUM column and its group boundaries, built as
@@ -3274,6 +3597,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_front_door(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_ooc_group(report, profile=args.profile)
+        phase_planner(report, profile=args.profile)
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
@@ -3288,6 +3615,12 @@ def main(argv=None) -> int:
             r["launches_front_door"] = {
                 step: v["launches"].get(r["name"], 0)
                 for step, v in report["front_door"]["steps"].items()}
+            r["launches_ooc_group"] = report["ooc_group"]["launches"].get(
+                r["name"], 0)
+            r["launches_planner"] = {
+                f"{q}_{arm}": report["planner"][q][arm]["launches"].get(
+                    r["name"], 0)
+                for q in ("q10", "q5") for arm in ("planned", "eager")}
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:

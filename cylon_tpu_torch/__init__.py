@@ -8,21 +8,25 @@ The JAX package's Pallas TPU kernels become hand-written CUDA kernels
 (``cuda/``), built with ``nvcc`` at first use; each has a plain PyTorch
 version beside it that CPU tensors take.  A ``CylonContext`` holds an
 mesh of shards, in one process or over a ``torch.distributed`` process
-group (``context.py``), over which a ``Table`` runs the distributed rung (``parallel/``): sort-merge and hash joins, hash and
+group (``context.py``), over which a ``Table`` runs the distributed
+rung (``parallel/``): sort-merge and hash joins, hash and
 pipeline group-bys, NUNIQUE, sorts, set ops and broadcasts.  ``exec``
 streams key-domain passes of a join (and group-by) over host frames
 larger than the card's memory, splitting passes that run out of it
 (``resilience``).  ``io`` reads and writes CSV (through the port's own
 native C++ reader, ``native/``) and Parquet, and ``DataFrame``,
 ``Series`` and the ``Index`` classes are the pandas-like facade over
-``Table``.  pandas and pyarrow are imported only inside the functions
-that need them.
+``Table``.  ``Table.plan()`` starts a lazy query plan (``plan/``: shuffle
+elision from tracked partitioning, column pruning, the fused join ->
+aggregate shard body, ``explain``), and ``utils`` holds the timing shim,
+the benchmark decorator and ``pow2ceil``.  pandas and pyarrow are
+imported only inside the functions that need them.
 """
 from __future__ import annotations
 
 from . import (column, compute, config, context, dtypes, durable, exec,
-               interop, io, native, obs, pipeline, precision, resilience,
-               status, table)
+               interop, io, native, obs, pipeline, plan, precision,
+               resilience, status, table, utils)
 from .column import Column, default_device
 from .config import JoinAlgorithm, JoinConfig, JoinType, SortOptions
 from .context import CommType, CylonContext, LocalConfig, MeshConfig

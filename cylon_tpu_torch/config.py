@@ -202,8 +202,50 @@ KNOBS = {k.name: k for k in [
        "bounded event buffer), 0/off (no-op).",
        ("auto", "0", "off", "1", "on")),
     _K("CYLON_TPU_TRACE_DIR", "str", "traces",
-       "Directory for flight-recorder dumps (flight/<run_id>.r<rank>.json)."),
+       "Directory for flight-recorder dumps (flight/<run_id>.r<rank>.json) "
+       "and plan-profile artifacts (plan_profile.r<rank>.json)."),
+    # -- the query planner (plan/) and its statistics catalog -------------
+    _K("CYLON_TPU_PLAN", "enum", "auto",
+       "Logical-plan optimizer for Table.plan() pipelines: shuffle "
+       "elision, column pruning, scan sharing and the fused join -> "
+       "aggregate shard body (auto/on, default) vs the eager per-op "
+       "lowering (off, the A/B baseline).  Results are bit-identical "
+       "either way.", ("1", "on", "0", "off", "auto")),
+    _K("CYLON_TPU_PLAN_ADAPTIVE", "enum", "auto",
+       "Statistics-driven physical strategies on top of CYLON_TPU_PLAN: "
+       "broadcast-hash joins for dimension-sized sides and skew-salted "
+       "NUNIQUE repartition (plan/cost.py).  auto (default) is off; 1/on "
+       "opts in.", ("1", "on", "0", "off", "auto")),
+    _K("CYLON_TPU_PLAN_BROADCAST_BYTES", "int", 1 << 20,
+       "Adaptive planner: the largest estimated join-side payload (bytes) "
+       "a broadcast-hash join may replicate to every shard."),
+    _K("CYLON_TPU_PLAN_SKEW_SALT", "float", 4.0,
+       "Adaptive planner: salt a NUNIQUE repartition when the catalog's "
+       "observed shard skew (max/mean shard rows) reaches this factor."),
+    _K("CYLON_TPU_PROFILE", "bool", False,
+       "Query profiler: collect per-plan-node actuals (rows, self time, "
+       "exchange bytes, shard skew) on every plan.execute and export a "
+       "plan_profile artifact; explain(analyze=True) forces one profiled "
+       "run regardless."),
+    _K("CYLON_TPU_STATS_DIR", "str", "",
+       "Persistent statistics catalog root (STATS.jsonl, keyed by the plan "
+       "fingerprint); profiled plan runs append what they observed.  Empty "
+       "(default) disables."),
+    _K("CYLON_TPU_STATS_CAP", "int", 256,
+       "Distinct plan fingerprints the statistics catalog keeps before "
+       "compacting to the most recently written."),
+    _K("CYLON_TPU_FP_SALT", "str", "",
+       "Opaque salt mixed into every plan fingerprint; empty (default) "
+       "keeps fingerprints stable across runs."),
 ]}
+
+#: the knobs whose values change what a computation returns (the
+#: accumulation precision and the exchange realization), folded into
+#: every plan fingerprint by ``trace_cache_token``.  The reference's
+#: segsum, scan and sort modes have no counterpart here: the port always
+#: runs its scan kernels and its one sort.
+RESULT_KNOBS = ("CYLON_TPU_ACCUM", "CYLON_TPU_SHUFFLE_PACK",
+                "CYLON_TPU_SHUFFLE_COMPRESS")
 
 _FALSE_WORDS = ("0", "false", "off", "no")
 
@@ -235,6 +277,18 @@ def knob(name: str):
         return int(raw) if k.kind == "int" else float(raw)
     except ValueError:
         return k.default
+
+
+def trace_cache_token() -> Tuple[Tuple[str, Optional[str]], ...]:
+    """The (name, raw value) vector of every knob that can change results
+    (``RESULT_KNOBS``), and the accumulation mode set in code
+    (``precision.set_accumulation``), the counterpart of
+    ``cylon_tpu/config.py:682 trace_cache_token``.  Raw values suffice:
+    ``auto`` resolves alike for a process's lifetime."""
+    from . import precision
+
+    return tuple((n, os.environ.get(n)) for n in RESULT_KNOBS) + (
+        ("precision.set_accumulation", precision._MODE),)
 
 
 @contextlib.contextmanager

@@ -13,6 +13,11 @@ journal is off:
   the same way ``CYLON_TPU_QUARANTINE_AFTER`` consecutive times is
   isolated into the run report instead of wedging refinement.
 
+- **content fingerprints** (:func:`run_fingerprint`, copied from
+  ``cylon_tpu/durable.py:163-256``): op x spec x every input column's full
+  content x the knobs that change results, the key the planner's
+  ``LogicalPlan.fingerprint`` and the statistics catalog use.
+
 The run journal itself (spill files, manifests, crash resume; the
 ``CYLON_TPU_DURABLE_DIR`` knob) is not ported: :func:`require_off`
 raises `Code.NotImplemented` when the knob asks for it, rather than
@@ -21,9 +26,12 @@ silently running without the journal it names (ROADMAP.md, queue A item
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import threading
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 from . import config
 from .obs import metrics as obs_metrics
@@ -174,3 +182,92 @@ def pass_deadline(site: str = "exec.pass"):
     if s <= 0:
         return _NULL_DEADLINE
     return PassDeadline(s, site)
+
+
+# ---------------------------------------------------------------------------
+# content fingerprints (cylon_tpu/durable.py:163-256)
+# ---------------------------------------------------------------------------
+
+_OBJ_SLAB = 1 << 20   # object elements decoded per slab
+_MIX_SLAB = 1 << 22   # u64 words mixed per vectorized slab (32 MB)
+
+
+def _mix_u64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer (uint64 wraparound arithmetic)."""
+    x = np.asarray(x, np.uint64)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _update_spec(h, obj) -> None:
+    """Feed a canonical encoding of a primitive/tuple spec into ``h``,
+    type-tagged so ("1",) and (1,) hash apart."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        h.update(f"<{type(obj).__name__}:{obj!r}>".encode())
+        return
+    if isinstance(obj, (tuple, list)):
+        h.update(b"<seq[")
+        for item in obj:
+            _update_spec(h, item)
+        h.update(b"]>")
+        return
+    raise CylonError(Code.Invalid,
+                     f"unhashable fingerprint spec element {type(obj)}")
+
+
+def _update_array(h, name: str, a: np.ndarray) -> None:
+    """Fold one input column into the fingerprint with full content
+    coverage: changing any element changes the fingerprint.  Fixed-width
+    columns reduce through a position-mixed splitmix64 xor-fold in bounded
+    slabs; object columns hash their decoded codepoints slab-wise, with a
+    kind tag per element (None, str, bytes, other)."""
+    a = np.asarray(a)
+    h.update(f"|col:{name}:{a.dtype.str}:{a.shape}".encode())
+    if a.size == 0:
+        return
+    flat = a.reshape(-1)
+    if a.dtype.kind == "O":
+        for lo in range(0, flat.size, _OBJ_SLAB):
+            sl = flat[lo:lo + _OBJ_SLAB]
+            tags = np.fromiter(
+                (0 if x is None
+                 else 1 if isinstance(x, (str, np.str_))
+                 else 2 if isinstance(x, (bytes, np.bytes_))
+                 else 3 for x in sl), np.uint8, count=len(sl))
+            h.update(tags.tobytes())
+            h.update(np.asarray(sl.astype("U")).tobytes())
+        return
+    b = np.ascontiguousarray(flat).view(np.uint8).reshape(-1)
+    n_words = -(-b.size // 8)
+    acc = np.uint64(0)
+    for lo in range(0, n_words, _MIX_SLAB):
+        hi = min(lo + _MIX_SLAB, n_words)
+        chunk = b[lo * 8:min(hi * 8, b.size)]
+        if len(chunk) < (hi - lo) * 8:  # zero-pad the final partial word
+            chunk = np.concatenate(
+                [chunk, np.zeros((hi - lo) * 8 - len(chunk), np.uint8)])
+        words = np.ascontiguousarray(chunk).view(np.uint64)
+        pos = np.arange(lo, hi, dtype=np.uint64)
+        acc = acc ^ np.uint64(np.bitwise_xor.reduce(
+            _mix_u64(words ^ _mix_u64(pos))))
+    h.update(int(acc).to_bytes(8, "little"))
+
+
+def run_fingerprint(op: str, spec, frames: Sequence[Tuple[Sequence[str],
+                                                          Dict]]) -> str:
+    """Hex fingerprint of one run: op kind x op spec x every input
+    column's content x the knobs that change results
+    (``config.trace_cache_token``) x the opaque ``CYLON_TPU_FP_SALT``."""
+    h = hashlib.sha256()
+    h.update(f"cylon_tpu.durable.v1|{op}".encode())
+    salt = config.knob("CYLON_TPU_FP_SALT")
+    if salt:
+        h.update(f"|salt:{salt}".encode())
+    _update_spec(h, spec)
+    _update_spec(h, [list(kv) for kv in config.trace_cache_token()])
+    for names, arrs in frames:
+        h.update(b"|frame")
+        for name in names:
+            _update_array(h, str(name), np.asarray(arrs[name]))
+    return h.hexdigest()

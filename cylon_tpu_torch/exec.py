@@ -66,7 +66,7 @@ from .ops import groupby as groupby_mod
 from .ops import join as join_mod
 from .ops.groupby import AggOp
 from .parallel import plane as plane_mod
-from .parallel.shuffle import pow2ceil
+from .utils import pow2ceil
 from .status import Code, CylonError, Status
 
 
@@ -1008,15 +1008,47 @@ def chunked_join_groupby_tables(left, right, *, on=None, left_on=None,
 
 def _engine_context(ctx: Optional[CylonContext]) -> CylonContext:
     """The context the passes run on: ``ctx`` (one shard, or a mesh whose
-    shards every pass is split over), or the CUDA card (raising without
-    one).  A mesh across processes raises NotImplemented (ROADMAP A8b)."""
+    shards every pass is split over, in this process or over a process
+    group), or the CUDA card (raising without one)."""
     if ctx is None:
         return CylonContext.Init()
-    if ctx.multi_process():
-        raise CylonError(Code.NotImplemented, "the out-of-core engine across "
-                         "processes is not ported yet (ROADMAP.md queue A, "
-                         "item 8b)")
     return ctx
+
+
+def _agree_on_passes(ctx: CylonContext, *plan) -> None:
+    """Over a process group every pass's ``Table.from_numpy`` and
+    ``to_numpy`` is collective, so every process must run the same
+    passes.  One all-gather of a digest of ``plan`` (per-pass row counts,
+    the pass count, capacities, names) before the first pass: on a
+    mismatch every process raises `Code.Invalid` (all of them took part
+    in the gather, so none is left waiting in a pass its peers skip).
+    The counterpart of the reference's mesh passes on a multi-host mesh
+    (``cylon_tpu/exec.py:1366-1420``), where one controller per host
+    plans from the same frames."""
+    if ctx.group is None:
+        return
+    import hashlib
+
+    from .parallel import collectives
+
+    h = hashlib.sha256()
+    for part in plan:
+        if isinstance(part, np.ndarray):
+            a = np.ascontiguousarray(part)
+            h.update(f"<{a.dtype.str}{a.shape}>".encode())
+            h.update(a.tobytes())
+        else:
+            h.update(repr(part).encode())
+    mine = np.frombuffer(h.digest(), np.uint8).reshape(1, -1).copy()
+    every = collectives.process_allgather(mine, ctx.group)
+    if not (every == mine).all():
+        differ = [p for p in range(every.shape[0])
+                  if not (every[p] == every[0]).all()]
+        raise CylonError(Code.Invalid,
+                         f"process {ctx.GetRank()}: the processes planned "
+                         f"different passes (processes {differ} differ from "
+                         "process 0); every process must pass the same "
+                         "frames to the out-of-core engine")
 
 
 def _refuse_elastic(elastic) -> None:
@@ -1096,6 +1128,11 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
                          and positions == list(range(len(positions))))
 
     if ctx.GetWorldSize() > 1:
+        _agree_on_passes(ctx, counts_l, counts_r, n_passes, mode_used,
+                         cfg, names_l, names_r,
+                         [str(np.asarray(arrs_l[n]).dtype) for n in names_l],
+                         [str(np.asarray(arrs_r[n]).dtype) for n in names_r],
+                         gb_names, aggs_req, final_per_pass)
         return _chunked_distributed(
             arrs_l, names_l, arrs_r, names_r, lon, ron, cfg, joined,
             pid_l, pid_r, n_passes, counts_l, counts_r, gb_names, aggs_req,
@@ -1280,8 +1317,13 @@ def _chunked_distributed(arrs_l, names_l, arrs_r, names_r, lon, ron, cfg,
     """Every key-domain pass sharded over ``ctx``'s mesh through the
     public distributed operators (``cylon_tpu/exec.py:1366``): total
     capacity is passes x the mesh's memory.  Each pass is retried whole
-    under ``ctx.collective_retry_policy()``; completed frames are the
-    checkpoint, and ``stats["retries"]`` counts the extra attempts."""
+    under ``ctx.collective_retry_policy()`` (no retry across processes:
+    one process re-entering a pass would start collectives its peers
+    never join); completed frames are the checkpoint, and
+    ``stats["retries"]`` counts the extra attempts.  Over a process group
+    every process runs every pass (``_agree_on_passes`` checked they
+    planned alike): each pass's frame is gathered, so every process
+    returns the same frames and counts."""
     from .table import Table
 
     world = ctx.GetWorldSize()
@@ -1299,10 +1341,6 @@ def _chunked_distributed(arrs_l, names_l, arrs_r, names_r, lon, ron, cfg,
 
     t_plan = time.perf_counter() - t_plan0
     t_run0 = time.perf_counter()
-    frames = []
-    total = 0
-    policy = ctx.collective_retry_policy()
-    retries = 0
 
     def run_pass(p: int):
         resilience.fault_point("pass_dispatch")
@@ -1320,21 +1358,8 @@ def _chunked_distributed(arrs_l, names_l, arrs_r, names_r, lon, ron, cfg,
         g = j.groupby(gb_names, pass_agg, ddof=ddof)
         return g.to_numpy(), g.row_count
 
-    for p in range(n_passes):
-        if pass_guard is not None:
-            # stop at the next pass boundary: completed frames were
-            # already fetched, nothing in flight is abandoned
-            pass_guard()
-        # transient (comm/deadline) failures retry the PASS, not the
-        # whole stream
-        (frame, n), attempts = resilience.retry_call(
-            lambda p=p: run_pass(p), policy=policy,
-            site=f"distributed pass {p}/{n_passes}")
-        retries += attempts - 1
-        frames.append(frame)
-        total += n
-        _notify_progress(p + 1, n_passes, total,
-                         time.perf_counter() - t_run0)
+    frames, total, retries = _mesh_passes(ctx, run_pass, range(n_passes),
+                                          pass_guard, notify=True)
     result = _concat_host(frames)
     if gb_names is not None and not final_per_pass:
         result, total = _combine_partials(result, gb_names, aggs_req,
@@ -1348,6 +1373,33 @@ def _chunked_distributed(arrs_l, names_l, arrs_r, names_r, lon, ron, cfg,
              "plan_seconds": t_plan, "run_seconds": t_run,
              "total_seconds": t_plan + t_run}
     return result, stats
+
+
+def _mesh_passes(ctx, run_pass, order, pass_guard, notify: bool = False):
+    """``run_pass(p)`` -> (host frame, rows) for each pass ``p`` of
+    ``order``, each retried whole under ``ctx.collective_retry_policy()``
+    (transient failures retry the PASS, not the stream); ``pass_guard``
+    runs at each pass boundary (completed frames were already fetched,
+    nothing in flight is abandoned).  Returns (frames, total rows,
+    retries)."""
+    policy = ctx.collective_retry_policy()
+    order = list(order)
+    frames: List[Dict[str, np.ndarray]] = []
+    total = retries = 0
+    t_run0 = time.perf_counter()
+    for i, p in enumerate(order):
+        if pass_guard is not None:
+            pass_guard()
+        (frame, n), attempts = resilience.retry_call(
+            lambda p=p: run_pass(p), policy=policy,
+            site=f"distributed pass {p}/{len(order)}")
+        retries += attempts - 1
+        frames.append(frame)
+        total += n
+        if notify:
+            _notify_progress(i + 1, len(order), total,
+                             time.perf_counter() - t_run0)
+    return frames, total, retries
 
 
 # ---------------------------------------------------------------------------
@@ -1390,20 +1442,22 @@ def chunked_groupby(data, by, agg: Dict, *, passes: int = 4, ddof: int = 0,
         pass_agg: Dict[str, list] = {}
         for n, op in aggs_req:
             pass_agg.setdefault(n, []).append(op)
+        _agree_on_passes(ctx, counts, n_passes, mode_used, shard_cap, names,
+                         by_names, [str(a.dtype) for a in key_arrs],
+                         sorted(pass_agg))
         t_plan = time.perf_counter() - t0
         t_run0 = time.perf_counter()
-        frames: List[Dict[str, np.ndarray]] = []
-        total = 0
-        for p in range(n_passes):
-            if pass_guard is not None:
-                pass_guard()
+
+        def run_pass(p: int):
             sel = pid == p
             t = Table.from_numpy(names, [np.asarray(arrs[n])[sel]
                                          for n in names], ctx=ctx,
                                  capacity=shard_cap * world)
             g = t.groupby(by_names, pass_agg, ddof=ddof)
-            frames.append(g.to_numpy())
-            total += g.row_count
+            return g.to_numpy(), g.row_count
+
+        frames, total, _ = _mesh_passes(ctx, run_pass, range(n_passes),
+                                        pass_guard)
     else:
         durable.require_off()
         device = ctx.devices[0]
@@ -1502,13 +1556,12 @@ def chunked_sort(data, by, *, ascending=True, nulls_first: bool = True,
     if world > 1:
         from .table import Table
 
+        _agree_on_passes(ctx, counts, n_passes, emit_order, cap, names,
+                         by_names, asc, nulls_first)
         t_plan = time.perf_counter() - t0
         t_run0 = time.perf_counter()
-        frames: List[Dict[str, np.ndarray]] = []
-        total = 0
-        for p in emit_order:
-            if pass_guard is not None:
-                pass_guard()
+
+        def run_pass(p: int):
             sel = pid == p
             t = Table.from_numpy(names, [np.asarray(arrs[n])[sel]
                                          for n in names], ctx=ctx,
@@ -1516,8 +1569,10 @@ def chunked_sort(data, by, *, ascending=True, nulls_first: bool = True,
             s = t.distributed_sort(
                 by_names, options=SortOptions(nulls_first=nulls_first),
                 ascending=list(asc))
-            frames.append(s.to_numpy())
-            total += s.row_count
+            return s.to_numpy(), s.row_count
+
+        frames, total, _ = _mesh_passes(ctx, run_pass, emit_order,
+                                        pass_guard)
     else:
         from .ops import sort as sort_mod
 
@@ -1569,6 +1624,14 @@ def chunked_repartition(data, keys, world: int, *, passes: int = 4,
     files under ``shard_*`` are removed first) and only counts are kept;
     otherwise per-target host frames are returned.
 
+    Over a process group target ``t`` is global shard ``t``, so each
+    process holds only its own shards' targets (``ctx.shard_ids``): its
+    ``result[t]`` is None for a target another process holds, and with
+    ``out_dir`` it writes only its own ``shard_{t}`` directories (process
+    0 removes the stale parts before any process writes).
+    ``stats["per_target"]`` and ``stats["rows"]`` are global, summed over
+    the processes, and equal on every process.
+
     Returns (list of ``world`` per-target host frames, or None with
     ``out_dir``; stats)."""
     t0 = time.perf_counter()
@@ -1588,15 +1651,22 @@ def chunked_repartition(data, keys, world: int, *, passes: int = 4,
                          f"world {world} != distributed context world "
                          f"{wctx}: with ctx the mesh defines the shard "
                          f"count")
+    mine = ctx.shard_ids if wctx > 1 else list(range(world))
+    if wctx > 1:
+        _agree_on_passes(ctx, n_rows, n_passes, block, cap, world, names,
+                         key_names, out_dir is not None)
     if out_dir is not None:
         import glob
 
         # a reused out_dir must not mix this run's parts with an earlier
         # run's: clear this layout only, never foreign files
-        for stale in glob.glob(os.path.join(out_dir, "shard_*",
-                                            "part_*.parquet")):
-            os.remove(stale)
-        for t in range(world):
+        if ctx.GetRank() == 0:
+            for stale in glob.glob(os.path.join(out_dir, "shard_*",
+                                                "part_*.parquet")):
+                os.remove(stale)
+        if ctx.group is not None:
+            ctx.Barrier()  # no process writes before the stale parts go
+        for t in mine:
             os.makedirs(os.path.join(out_dir, f"shard_{t}"), exist_ok=True)
 
     acc: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(world)]
@@ -1621,12 +1691,24 @@ def chunked_repartition(data, keys, world: int, *, passes: int = 4,
 
         t_plan = time.perf_counter() - t0
         t_run0 = time.perf_counter()
+        policy = ctx.collective_retry_policy()
         for p in range(n_passes):
-            t = Table.from_numpy(names, rows(p), ctx=ctx, capacity=cap)
-            for sid, frame, n in t.shuffle(key_names).shard_frames():
+            def run_pass(p=p):
+                t = Table.from_numpy(names, rows(p), ctx=ctx, capacity=cap)
+                return t.shuffle(key_names).shard_frames()
+
+            local, _ = resilience.retry_call(
+                run_pass, policy=policy,
+                site=f"distributed pass {p}/{n_passes}")
+            for sid, frame, n in local:
                 store(sid, p, frame, n)
-                total += n
         extra["shuffle_pack"] = plane_mod.pack_enabled()
+        if ctx.group is not None:  # every process's targets, summed
+            from .parallel import collectives
+
+            per_target[:] = collectives.process_allgather(
+                per_target[None, :], ctx.group).sum(axis=0)
+        total = int(per_target.sum())
     else:
         from .parallel import partition as partition_mod
         from .parallel import shuffle as shuffle_mod
@@ -1681,7 +1763,8 @@ def chunked_repartition(data, keys, world: int, *, passes: int = 4,
         del nxt
     t_run = time.perf_counter() - t_run0
     result = (None if out_dir is not None
-              else [_concat_host(fs) for fs in acc])
+              else [_concat_host(acc[t]) if t in mine else None
+                    for t in range(world)])
     stats = {"passes": n_passes, "world": world, "rows": total,
              "per_target": per_target.tolist(), **extra,
              "plan_seconds": t_plan, "run_seconds": t_run,

@@ -10,9 +10,14 @@ drop_duplicates) that the reference exposes through Table.
 Context handling mirrors frame.py:56-61 _initialize_context: one shard on
 the card by default, and with ``distributed=True`` an in-process mesh of
 one shard per visible CUDA device (``MeshConfig``); a ``ctx`` given by the
-caller wins.  A context across processes raises NotImplemented (ROADMAP
-A8b).  pandas and pyarrow are never imported here: a pandas or
-Arrow input is recognised only when its package is already loaded.
+caller wins and is used as given, a context over a process group
+included.  Over a group every process builds the frame from the same
+data and keeps its own shards' rows; every verb is then collective
+(call it on every process alike), exports gather every row to every
+process, and ``loc`` / ``iloc`` resolve labels against global row
+positions (every row gathered first).  pandas and pyarrow are never
+imported here: a pandas or Arrow input is recognised only when its
+package is already loaded.
 """
 from __future__ import annotations
 
@@ -31,6 +36,9 @@ _dist_ctx_cache: Dict[int, CylonContext] = {}
 
 
 def _resolve_ctx(distributed: bool, ctx: Optional[CylonContext]) -> CylonContext:
+    """The caller's ``ctx`` as given (one shard, a mesh, or a process
+    group); else one shard on the card, or with ``distributed`` a cached
+    in-process mesh of one shard per CUDA device."""
     if ctx is not None:
         return ctx
     if not distributed:
@@ -51,10 +59,6 @@ class DataFrame:
                  ctx: Optional[CylonContext] = None):
         self._index: Index = RangeIndex()
         ctx = _resolve_ctx(distributed, ctx)
-        if ctx.multi_process():
-            raise CylonError(Code.NotImplemented, "a DataFrame across "
-                             "processes is not ported yet (ROADMAP.md queue "
-                             "A, item 8b); use Table")
         self._table = self._initialize_dataframe(data, columns, dtype, ctx)
         self._index = RangeIndex(0, self._table.row_count)
         if index is not None:
@@ -352,14 +356,18 @@ class DataFrame:
 
 class _FrameIndexer:
     """loc/iloc facade over the Table indexers, re-wrapping as DataFrame
-    (``cylon_tpu/frame.py:354``)."""
+    (``cylon_tpu/frame.py:354``).  A frame of several shards, in one
+    process or over a process group, resolves labels and positions
+    against its global rows: it gathers every row first
+    (``Table._gathered_table``), so the result is one local shard, the
+    same on every process."""
 
     def __init__(self, df: DataFrame, kind: str):
         self._df = df
         self._kind = kind
 
     def __getitem__(self, key) -> DataFrame:
-        t = self._df._table
+        t = self._df._table._gathered_table()
         out = t.loc[key] if self._kind == "loc" else t.iloc[key]
         wrapped = DataFrame._wrap(out)
         wrapped._index = out.index

@@ -14,9 +14,12 @@ Spans measure host wall-clock.  Device work is asynchronous, so its time
 lands in whichever span blocks on it (the engine's pass span blocks on
 its fetch).  The flight ring (``RING_CAP`` events) keeps the most recent
 events in every enabled mode for ``obs.fleet.flight_record``.
+``enable_log`` turns on one INFO log line per finished span (the
+reference's per-span debug log, which ``utils.enable_timing`` flips).
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections import deque
@@ -71,6 +74,20 @@ _tls = threading.local()
 # export buffer it overwrites oldest-first — a post-mortem wants the
 # events LEADING UP to the failure, not the run's first N.
 _ring: "deque[Event]" = deque(maxlen=RING_CAP)
+
+# per-span INFO log (``enable_log``), off by default
+_log_on = False
+_log = logging.getLogger("cylon_tpu_torch.spans")
+
+
+def enable_log(on: bool = True) -> None:
+    """Log every finished span at INFO (name and milliseconds)."""
+    global _log_on
+    _log_on = bool(on)
+
+
+def log_enabled() -> bool:
+    return _log_on
 
 
 def mode() -> str:
@@ -158,6 +175,8 @@ class _Span:
         dur = t1 - self._t0
         _totals[self.name] = _totals.get(self.name, 0.0) + dur * 1e-9
         _counts[self.name] = _counts.get(self.name, 0) + 1
+        if _log_on:
+            _log.info("%s %.3f ms", self.name, dur / 1e6)
         tr = None
         if self._trace is not None:
             ctx, tok = self._trace

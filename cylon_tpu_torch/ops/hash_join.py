@@ -45,7 +45,7 @@ import torch
 from .. import precision
 from ..column import Column
 from ..config import JoinType
-from ..parallel.shuffle import pow2ceil
+from ..utils import pow2ceil
 from . import common, hashing, keys, scan
 
 # empty-slot sentinel, and the sort key that sends unmatched rows last

@@ -22,8 +22,9 @@ retried exchange, as the reference reads it.  The shuffle's exchange and
 the broadcast's gather retry a transient failure under
 ``ctx.collective_retry_policy()`` (``resilience.retry_call``, sites
 ``shuffle`` and ``broadcast``, which are also fault-injection points).
-Not ported: the ``_partitioning`` stamp the reference's planner reads
-(with the planner).
+``shuffle`` and the two-phase ``distributed_groupby`` stamp their output
+with its placement (``_partitioning``, ``cylon_tpu/parallel/ops.py:490-497``
+and ``:826-831``), which the planner reads to elide shuffles.
 """
 from __future__ import annotations
 
@@ -169,8 +170,15 @@ def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
 
 
 def shuffle(t, key_idx: Tuple[int, ...]):
-    """Hash-repartition rows so equal keys land on the same shard."""
-    return _shuffled(t, tuple(key_idx), "hash")
+    """Hash-repartition rows so equal keys land on the same shard.  The
+    result carries its placement, ``_partitioning = ("hash", ((key
+    names,),), world)``, so a downstream planned join or group-by on
+    compatible keys can skip its own exchange."""
+    key_idx = tuple(key_idx)
+    out = _shuffled(t, key_idx, "hash")
+    out._partitioning = ("hash", (tuple(t.names[i] for i in key_idx),),
+                         t.num_shards)
+    return out
 
 
 def hash_partition(t, key_idx: Tuple[int, ...], num_partitions: int):
@@ -450,7 +458,14 @@ def distributed_groupby(t, by_idx: Tuple[int, ...],
         shards.append(finalize_groupby_columns(fcols, nkeys, aggs,
                                                partial_index, ddof))
         counts.append(m)
-    return t._like(shards, counts, names_out)
+    out = t._like(shards, counts, names_out)
+    if not pre_partitioned:
+        # placed by the partial shuffle's hash of ALL group keys; a
+        # pre-partitioned run is placed by the caller's key subset, which
+        # only the planner knows (it stamps its own result)
+        out._partitioning = ("hash", (tuple(names_out[:nkeys]),),
+                             t.num_shards)
+    return out
 
 
 def distributed_scalar_agg(t, col_idx: int, op: agg_mod.ReduceOp):

@@ -42,6 +42,7 @@ from .. import column
 from ..column import Column
 from ..obs import spans as obs_spans
 from ..ops import compact
+from ..utils import pow2ceil
 from . import collectives
 from . import plane as plane_mod
 
@@ -50,12 +51,6 @@ def buffer_count(cols: Sequence[Column]) -> int:
     """Buffers a per-buffer exchange moves: data and validity per column,
     and a string's lengths; the per-buffer collective launch count."""
     return sum(2 + (1 if c.lengths is not None else 0) for c in cols)
-
-
-def pow2ceil(n: int, min_size: int = 8) -> int:
-    """Smallest power of two >= n (>= 1), floored at ``min_size``
-    (``cylon_tpu/utils/__init__.py:39``)."""
-    return max(min_size, 1 << (max(1, int(n)) - 1).bit_length())
 
 
 def _remap_oob_targets(targets: torch.Tensor, world: int) -> torch.Tensor:

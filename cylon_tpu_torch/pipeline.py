@@ -33,6 +33,10 @@
   columns ``examples/tpch_data.py:41`` draws, with ``l_returnflag`` and
   ``l_linestatus`` as CHAR(1) byte columns, and the query as
   ``examples/tpch_q1.py:28-39`` writes it.
+- TPC-H Q10 and Q5 through the query planner (``tpch_q10_plan``,
+  ``tpch_q5_plan``): twins of ``examples/tpch_q10.py:33 build_plan`` and
+  the plan of ``examples/tpch_q5.py:92 run_plan``, over tables of the
+  columns ``examples/tpch_data.py`` draws (the caller builds them).
 """
 from __future__ import annotations
 
@@ -366,3 +370,70 @@ def tpch_q1(t: Table) -> Table:
     f["disc_price"] = (f["l_extendedprice"] * (f["l_discount"] * -1.0 + 1.0))
     f["charge"] = f["disc_price"] * (f["l_tax"] + 1.0)
     return f.groupby(["l_returnflag", "l_linestatus"], Q1_AGGS)
+
+
+# -- TPC-H Q10 and Q5 through the planner -------------------------------------
+
+#: the queries' constants, as ``examples/tpch_data.py:33-37`` sets them:
+#: order-date windows as day ordinals from 1992-01-01, Q10's top-k and
+#: Q5's region (ASIA's regionkey)
+Q10_DATES = (639, 730)
+Q10_TOP = 20
+Q5_DATES = (730, 1095)
+Q5_REGION = 2
+
+
+def tpch_q10_plan(cust: Table, orde: Table, line: Table, nati: Table):
+    """TPC-H Q10 (returned-item reporting) as a lazy plan, the twin of
+    ``examples/tpch_q10.py:33 build_plan``: orders in the window joined
+    with returned lineitems, then customer and nation, revenue per
+    customer, top ``Q10_TOP``.  After the nation join the rows are placed
+    by ``c_nationkey``, which the group keys hold, so the planner elides
+    the group-by's shuffle and fuses the last join with the aggregate."""
+    from .plan import col, lit
+
+    lo, hi = Q10_DATES
+    o = orde.plan().filter((col("o_orderdate") >= lo)
+                           & (col("o_orderdate") < hi))
+    li = line.plan().filter(col("l_returnflag") == "R")
+    return (o.join(li, left_on="o_orderkey", right_on="l_orderkey")
+            .join(cust.plan(), left_on="o_custkey", right_on="c_custkey")
+            .join(nati.plan(), left_on="c_nationkey",
+                  right_on="n_nationkey")
+            .with_column("revenue",
+                         col("l_extendedprice") * (lit(1.0)
+                                                   - col("l_discount")))
+            .groupby(["c_custkey", "c_nationkey", "n_name"],
+                     {"revenue": ["sum"]})
+            .sort(["sum_revenue", "c_custkey"], ascending=[False, True])
+            .limit(Q10_TOP))
+
+
+def tpch_q5_plan(cust: Table, orde: Table, line: Table, supp: Table,
+                 nati: Table, regi: Table):
+    """TPC-H Q5 (local supplier volume) as a lazy plan, the twin of the
+    plan ``examples/tpch_q5.py:92 run_plan`` builds: six tables, the
+    region join last, grouped by (n_regionkey, n_name) so the group-by's
+    shuffle is elided and fused with the region probe, the ASIA filter
+    and the revenue derive; revenue descending, n_name ascending."""
+    from .plan import col, lit
+
+    lo, hi = Q5_DATES
+    return (cust.plan()
+            .join(orde.plan().filter((col("o_orderdate") >= lo)
+                                     & (col("o_orderdate") < hi)),
+                  left_on="c_custkey", right_on="o_custkey")
+            .join(line.plan(), left_on="o_orderkey", right_on="l_orderkey")
+            .join(supp.plan(), left_on="l_suppkey", right_on="s_suppkey")
+            .filter(col("c_nationkey") == col("s_nationkey"))
+            .join(nati.plan(), left_on="c_nationkey",
+                  right_on="n_nationkey")
+            .join(regi.plan(), left_on="n_regionkey",
+                  right_on="r_regionkey")
+            .filter(col("r_regionkey") == lit(Q5_REGION))
+            .with_column("revenue",
+                         col("l_extendedprice") * (lit(1.0)
+                                                   - col("l_discount")))
+            .groupby(["n_regionkey", "n_name"], {"revenue": ["sum"]})
+            .project(["n_name", "sum_revenue"])
+            .sort(["sum_revenue", "n_name"], ascending=[False, True]))

@@ -53,9 +53,16 @@ Ported, for fixed-width and string columns:
 
 A one-shard ``join`` or hash ``groupby`` that runs out of device memory
 falls back to the chunked out-of-core engine (``exec.py``) on the table's
-own device.  The reference's adaptive join-capacity cache is not
-ported, nor is ``plan`` (the planner, ROADMAP A9), which raises
-NotImplemented.
+own device.  ``plan()`` starts a lazy query plan (``plan/``).
+
+A table placed by a hash exchange carries that placement as the
+``_partitioning`` attribute, ``("hash", (key-name tuples...), world)``,
+which the planner reads to elide shuffles: ``shuffle`` stamps its keys,
+the two-phase ``distributed_groupby`` its group keys, and
+``distributed_join`` (``_stamp_join_partitioning``) the key names of
+whichever sides keep real key values.  Every other operator builds a new
+Table without it, so anything that moves rows clears it.  The
+reference's adaptive join-capacity cache is not ported.
 """
 from __future__ import annotations
 
@@ -85,7 +92,7 @@ from .ops import unique as unique_mod
 from .ops.groupby import AggOp
 from .parallel import collectives
 from .parallel import ops as par_ops
-from .parallel.shuffle import pow2ceil
+from .utils import pow2ceil
 from .status import Code, CylonError, Status
 
 
@@ -300,8 +307,15 @@ class Table:
         io_mod.write_parquet(self, path, options, per_shard=per_shard)
 
     def plan(self):
-        raise CylonError(Code.NotImplemented, "the query planner is not "
-                         "ported yet (ROADMAP.md queue A, item 9)")
+        """Start a lazy logical plan at this table (``plan/``): a
+        multi-op pipeline built this way runs through the rule-based
+        optimizer (shuffle elision from tracked partitioning, column
+        pruning before plane packing, the fused join -> aggregate shard
+        body) instead of one eager exchange per op.  ``execute()`` runs
+        it and ``explain()`` shows every decision."""
+        from .plan import LogicalPlan
+
+        return LogicalPlan.scan(self)
 
     # -- exporters ------------------------------------------------------------
     def _addressable_host_shards(self) -> List[Tuple[int, List[Column],
@@ -459,6 +473,25 @@ class Table:
         """Position-based row access: int (negatives ok), slice, int
         list/array, boolean mask, and ``t.iloc[rows, cols]``."""
         return _TableIndexer(self, "iloc")
+
+    def _gathered_table(self) -> "Table":
+        """Every row in global shard order as a one-shard table on this
+        process's first device, over a local context (collective over a
+        process group: every process gets the same rows); the active
+        index carries over.  A one-shard table is itself."""
+        if self.num_shards == 1:
+            return self
+        cols, total = self._gathered_columns()
+        dev = self.ctx.devices[0]
+        cap = max(8, total)
+        whole = Table((tuple(Column(
+            c.data.to(dev), c.validity.to(dev),
+            None if c.lengths is None else c.lengths.to(dev),
+            c.dtype).with_capacity(cap) for c in cols),),
+            (torch.tensor(total, dtype=torch.int32, device=dev),),
+            self.names, CylonContext.Init(dev))
+        whole._index = getattr(self, "_index", None)
+        return whole
 
     def take_rows(self, positions) -> "Table":
         """Gather rows by position into a new one-shard table on this
@@ -720,8 +753,10 @@ class Table:
                            algorithm)
         if self.num_shards == 1:
             return _local_join(self, other, cfg)
-        return _local_join(par_ops.shuffle(self, cfg.left_on),
-                           par_ops.shuffle(other, cfg.right_on), cfg)
+        out = _local_join(par_ops.shuffle(self, cfg.left_on),
+                          par_ops.shuffle(other, cfg.right_on), cfg)
+        _stamp_join_partitioning(out, self, other, cfg)
+        return out
 
     def distributed_unique(self, columns=None, keep: str = "first"
                            ) -> "Table":
@@ -1346,6 +1381,13 @@ def _join_config(left: Table, right: Table, config, on, left_on, right_on,
                      left._resolve_many(config.left_on),
                      right._resolve_many(config.right_on),
                      config.left_prefix, config.right_prefix)
+    return _check_join_keys(left, right, cfg)
+
+
+def _check_join_keys(left: Table, right: Table,
+                     cfg: JoinConfig) -> JoinConfig:
+    """``cfg`` (key positions resolved) when its key columns can join
+    (``cylon_tpu/table.py:1181``); `Code.Invalid` otherwise."""
     if len(cfg.left_on) != len(cfg.right_on):
         raise CylonError(Code.Invalid, "left_on/right_on length mismatch")
     for li, ri in zip(cfg.left_on, cfg.right_on):
@@ -1363,6 +1405,24 @@ def _join_config(left: Table, right: Table, config, on, left_on, right_on,
     return cfg
 
 
+def _stamp_join_partitioning(out: Table, left: Table, right: Table,
+                             cfg: JoinConfig) -> None:
+    """Record the shuffled join's output placement as ``_partitioning``
+    (``cylon_tpu/table.py:1205``): which side's key names stay valid
+    hash alternatives (INNER both, LEFT left, RIGHT right, FULL_OUTER
+    neither) is the planner's single rule,
+    ``optimizer.join_partition_alternatives``."""
+    from .plan.optimizer import join_partition_alternatives
+
+    alts = join_partition_alternatives(
+        _HOW_NAMES[cfg.join_type], left.names, right.names,
+        [left.names[i] for i in cfg.left_on],
+        [right.names[i] for i in cfg.right_on],
+        cfg.left_prefix, cfg.right_prefix)
+    if alts:
+        out._partitioning = ("hash", alts, left.num_shards)
+
+
 def _join_output_names(left: Table, right: Table,
                        cfg: JoinConfig) -> Tuple[str, ...]:
     """left names ++ right names, prefixing collisions."""
@@ -1378,22 +1438,24 @@ def _local_join(left: Table, right: Table, cfg: JoinConfig) -> Table:
     output count, ``cap_round`` of the largest (over every process), one
     gather per shard at that common capacity."""
     pairs = list(zip(left.shards, left.counts, right.shards, right.counts))
-    counts = [join_mod.join_row_count(a, ca, b, cb, cfg.left_on,
-                                      cfg.right_on, cfg.join_type,
-                                      cfg.algorithm)
-              for a, ca, b, cb in pairs]
-    most = max(int(c) for c in counts)
-    if left.ctx.group is not None:  # one capacity on every process's shards
-        most = int(collectives.process_allgather(
-            np.array([most], np.int64), left.ctx.group).max())
+    with obs_spans.span("join.count"):
+        counts = [join_mod.join_row_count(a, ca, b, cb, cfg.left_on,
+                                          cfg.right_on, cfg.join_type,
+                                          cfg.algorithm)
+                  for a, ca, b, cb in pairs]
+        most = max(int(c) for c in counts)
+        if left.ctx.group is not None:  # one capacity on every process
+            most = int(collectives.process_allgather(
+                np.array([most], np.int64), left.ctx.group).max())
     out_cap = cap_round(max(1, most))
     shards, out_counts = [], []
-    for a, ca, b, cb in pairs:
-        cols, m = join_mod.join_gather(a, ca, b, cb, cfg.left_on,
-                                       cfg.right_on, cfg.join_type, out_cap,
-                                       cfg.algorithm)
-        shards.append(cols)
-        out_counts.append(m)
+    with obs_spans.span("join.gather"):
+        for a, ca, b, cb in pairs:
+            cols, m = join_mod.join_gather(a, ca, b, cb, cfg.left_on,
+                                           cfg.right_on, cfg.join_type,
+                                           out_cap, cfg.algorithm)
+            shards.append(cols)
+            out_counts.append(m)
     return left._like(shards, out_counts,
                       _join_output_names(left, right, cfg))
 

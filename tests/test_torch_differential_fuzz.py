@@ -7,13 +7,10 @@ the packed, compressed exchange (``CYLON_TPU_SHUFFLE_PACK=1``,
 ``CYLON_TPU_SHUFFLE_COMPRESS=1``), as the JAX package's do.  Where the
 JAX package's case runs a path the port does not have yet, its
 counterpart runs the same oracle through the port's path for the same
-result:
+result.  The planner's broadcast hash join and its skew salting run
+through the port's planner (``Table.plan()``, ``CYLON_TPU_PLAN_ADAPTIVE``),
+as the JAX package's cases do.  Still on a stand-in:
 
-- the planner's broadcast hash join (A9): ``broadcast_gather`` of the
-  dimension table, then the shard-local join, which is what that plan
-  runs;
-- the planner's skew salting (A9): ``distributed_groupby(..., salt=4)``
-  directly, against pandas and the unsalted group-by;
 - the streaming tables (A11): each micro-batch becomes a table and is
   appended with ``Table.merge``; the group-by (or join) after the last
   append matches pandas over the whole frame and the same op on the frame
@@ -27,8 +24,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from cylon_tpu_torch import AggOp, CylonContext, MeshConfig, Table
-from cylon_tpu_torch.parallel import ops as par_ops
+from cylon_tpu_torch import CylonContext, MeshConfig, Table, config
 
 from .torch_parity import modes
 
@@ -260,10 +256,10 @@ def test_string_key_compressed_differential(pctx4, seed, compressed):
 
 @pytest.mark.parametrize("seed", SEEDS[:6])
 def test_tiny_dimension_broadcast_differential(pctx4, seed):
-    """The broadcast hash join over a tiny dimension side: the dimension
-    table gathered onto every shard, then the shard-local join, against
-    the pandas merge (random fact cardinality, dangling negative keys, NaN
-    payloads)."""
+    """The planner's adaptive broadcast-hash join over a tiny dimension
+    side (the dimension gathered onto every shard, the fact side probing
+    in place) against the pandas merge (random fact cardinality, dangling
+    negative keys, NaN payloads)."""
     rng = np.random.default_rng(8000 + seed)
     n = int(rng.integers(64, 400))
     card = int(rng.integers(2, 24))
@@ -273,10 +269,12 @@ def test_tiny_dimension_broadcast_differential(pctx4, seed):
         fact.loc[rng.random(n) < 0.2, "v"] = np.nan
     dim = pd.DataFrame({"k": np.arange(card, dtype=np.int64),
                         "w": rng.random(card)})
-    everywhere = par_ops.broadcast_gather(
-        Table.from_pandas(dim, ctx=pctx4, capacity=64))
-    assert list(everywhere.row_counts) == [card] * 4
-    got = _mk(fact, pctx4).join(everywhere, on="k", how="inner").to_pandas()
+    q = (_mk(fact, pctx4).plan()
+         .join(Table.from_pandas(dim, ctx=pctx4, capacity=64), on="k",
+               how="inner"))
+    with config.knob_env(CYLON_TPU_PLAN_ADAPTIVE="1"):
+        assert "BROADCAST(k)" in q.explain()
+        got = q.execute().to_pandas()
     g = fact.merge(dim, on="k", how="inner")
     assert len(got) == len(g)
     np.testing.assert_allclose(_sorted_values(got["l_k"]),
@@ -288,19 +286,25 @@ def test_tiny_dimension_broadcast_differential(pctx4, seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS[:6])
-def test_zipfian_salted_nunique_differential(pctx4, seed):
-    """Skew-salted NUNIQUE (salt 4) against the pandas oracle, and equal to
-    the unsalted group-by."""
+def test_zipfian_salted_nunique_differential(pctx4, seed, tmp_path):
+    """The planner's skew-salted NUNIQUE against the pandas oracle: a
+    profiled run seeds the statistics catalog (the salt rule fires only on
+    observed skew), then the salted plan must agree exactly with pandas
+    and with its own unsalted run."""
     rng = np.random.default_rng(9000 + seed)
     n = int(rng.integers(200, 500))
     df = pd.DataFrame(
         {"k": (np.minimum(rng.zipf(1.3, n), 40) - 1).astype(np.int64),
          "u": rng.integers(0, 60, n).astype(np.int64)})
-    t = _mk(df, pctx4)
-    plain = t.groupby(["k"], {"u": ["nunique"]})
-    salted = par_ops.distributed_groupby(t, (0,), ((1, AggOp.NUNIQUE),), 0,
-                                         salt=4)
-    salted = salted.rename(list(plain.names))
+    q = _mk(df, pctx4).plan().groupby(["k"], {"u": ["nunique"]})
+    with config.knob_env(CYLON_TPU_STATS_DIR=str(tmp_path)):
+        with config.knob_env(CYLON_TPU_PLAN_ADAPTIVE="0",
+                             CYLON_TPU_PROFILE="1"):
+            plain = q.execute()
+        with config.knob_env(CYLON_TPU_PLAN_ADAPTIVE="1",
+                             CYLON_TPU_PLAN_SKEW_SALT="1.01"):
+            assert "salted x4" in q.explain()
+            salted = q.execute()
     g = (df.groupby("k").agg(nunique_u=("u", "nunique")).reset_index())
     got = salted.to_pandas().sort_values("k").reset_index(drop=True)
     g = g.sort_values("k").reset_index(drop=True)

@@ -909,3 +909,75 @@ def test_cuda_shards_refuse_a_gloo_group(gen):
                 devices=["cuda"], world_size=2, num_processes=1))
     finally:
         dist.destroy_process_group()
+
+
+def _tpch_q10_tables(ctx, sf: float):
+    """Q10's four tables drawn by ``examples/tpch_data.py`` on ``ctx``."""
+    from cylon_tpu_torch import Table
+    from examples import tpch_data
+
+    rng = np.random.default_rng(0)
+    raw = [tpch_data.customer(sf, rng), tpch_data.orders(sf, rng)]
+    line = tpch_data.lineitem(sf, rng, q5_keys=True,
+                              orders_rows=len(raw[1]["o_orderkey"]))
+    line.pop("l_suppkey")
+    raw += [line, tpch_data.nation()]
+    return [Table.from_numpy(list(d), list(d.values()), ctx=ctx)
+            for d in raw]
+
+
+@pytest.mark.gpu
+def test_planned_tpch_q10_on_the_card_equals_eager(gen):
+    """TPC-H Q10 at sf 0.01 through the planner on 4 shards of the card:
+    at least one shuffle elided, bit for bit the eager lowering's table,
+    and the CPU's planned result (floats within rtol 1e-5: the card sums
+    in float32 by the scan kernels)."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, config, pipeline
+    from cylon_tpu_torch.obs import metrics as obs_metrics
+
+    card = CylonContext.InitDistributed(MeshConfig(devices=["cuda"],
+                                                   world_size=4))
+    plan = pipeline.tpch_q10_plan(*_tpch_q10_tables(card, 0.01))
+    before = obs_metrics.counter_value("plan.shuffles_elided")
+    scan.reset_launches()
+    hash_kernels.reset_launches()
+    planned = plan.execute().to_pandas()
+    assert obs_metrics.counter_value("plan.shuffles_elided") > before
+    assert hash_kernels.LAUNCHES["hash_partition"] > 0
+    assert scan.LAUNCHES["scan_1d"] > 0 and scan.LAUNCHES["segmented_scan"] > 0
+    with config.knob_env(CYLON_TPU_PLAN="0"):
+        eager = plan.execute().to_pandas()
+    assert len(planned) == pipeline.Q10_TOP
+    for c in planned.columns:
+        np.testing.assert_array_equal(planned[c].to_numpy(),
+                                      eager[c].to_numpy(), err_msg=c)
+    cpu = CylonContext.InitDistributed(MeshConfig(devices=["cpu"],
+                                                  world_size=4))
+    want = pipeline.tpch_q10_plan(*_tpch_q10_tables(cpu, 0.01)).execute(
+    ).to_pandas()
+    np.testing.assert_array_equal(planned["c_custkey"], want["c_custkey"])
+    np.testing.assert_allclose(planned["sum_revenue"], want["sum_revenue"],
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_plan_fingerprint_on_the_card(gen):
+    """A plan over tables on the card fingerprints alike across two calls
+    (and alike to the same plan over CPU tables: the content, not the
+    device, is hashed), and changes when a kept column's content does."""
+    from cylon_tpu_torch import CylonContext, MeshConfig, Table
+    from cylon_tpu_torch.plan import col
+
+    d = {"k": np.arange(64, dtype=np.int32) % 9,
+         "v": np.linspace(0, 1, 64, dtype=np.float32)}
+
+    def fp(devices, data):
+        ctx = CylonContext.InitDistributed(MeshConfig(devices=devices,
+                                                      world_size=2))
+        t = Table.from_numpy(list(data), list(data.values()), ctx=ctx)
+        return (t.plan().filter(col("v") > 0.25)
+                .groupby(["k"], {"v": ["sum"]}).fingerprint())
+
+    first = fp(["cuda"], d)
+    assert first == fp(["cuda"], d) == fp(["cpu"], d)
+    assert fp(["cuda"], dict(d, v=d["v"] + 1)) != first

@@ -4,8 +4,10 @@ joined into one ``torch.distributed`` group (``MeshConfig(num_processes=
 counterpart of ``tests/test_multihost.py``.
 
 One gang per layout (``tests/torch_multiprocess_worker.py``) runs every
-case under the three exchange realizations and saves its local shards
-under their global ids.  Each case's shards must equal, shard for shard
+case under the three exchange realizations, and the out-of-core engines'
+mesh passes and ``DataFrame`` verbs once, and saves its local shards
+under their global ids (the engines' host frames whole: every process
+must return the same frames).  Each case's shards must equal, shard for shard
 and bit for bit, a one-process ``MeshConfig(["cpu"], world_size=...)``
 run of the same cases; gathered and sorted, they must equal the JAX
 package's at world 4 (float sums within rtol 1e-12 of it: the two sum
@@ -31,7 +33,8 @@ GANG_TIMEOUT_S = 240
 CHECKS = ("rank", "world", "multi_process", "no_retry", "join_count",
           "to_pandas_every_row", "to_pandas_rows", "groups", "sum", "sort",
           "setitem_host", "addressable_ids", "csv_per_shard",
-          "fault_surfaces")
+          "fault_surfaces", "mismatched_passes_raise",
+          "dataframe_merge_groupby")
 
 
 def _free_port() -> int:
@@ -84,12 +87,16 @@ def _run_gang(nprocs: int, local: int, out_dir) -> list:
 def _merged(procs: list, arm: str, case: str):
     """Every process's shards of one case, under their global ids; the
     host scalars of process 0 (every process must hold the same)."""
-    recs = [p["arms"][arm][case] for p in procs]
+    return _merge_records([p["arms"][arm][case] for p in procs])
+
+
+def _merge_records(recs: list):
     if isinstance(recs[0], list):
         return [_merge_tables([r[i] for r in recs])
                 for i in range(len(recs[0]))]
-    if "shards" not in recs[0]:
-        assert all(r == recs[0] for r in recs[1:])
+    if "shards" not in recs[0]:  # every process holds the same, bit for bit
+        for r in recs[1:]:
+            _assert_same_shards(r, recs[0], "every process alike")
         return recs[0]
     return _merge_tables(recs)
 
@@ -146,11 +153,14 @@ def gang(request, tmp_path_factory):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)  # as the workers
     try:
-        one = worker.run_arms(CylonContext.InitDistributed(
-            MeshConfig(devices=["cpu"], world_size=nprocs * local)))
+        one_ctx = CylonContext.InitDistributed(
+            MeshConfig(devices=["cpu"], world_size=nprocs * local))
+        one = worker.run_arms(one_ctx)
+        one_engine = worker.run_engine(one_ctx)
     finally:
         torch.set_num_threads(threads)
-    return {"procs": procs, "one": one, "layout": (nprocs, local)}
+    return {"procs": procs, "one": one, "one_engine": one_engine,
+            "layout": (nprocs, local)}
 
 
 @pytest.mark.parametrize("arm", [a[0] for a in worker.ARMS])
@@ -159,6 +169,17 @@ def test_shards_equal_one_process(gang, case, arm):
     """Shard for shard, every buffer over the whole capacity."""
     _assert_same_shards(_merged(gang["procs"], arm, case),
                         gang["one"][arm][case], f"{case}/{arm}")
+
+
+@pytest.mark.parametrize("case", worker.ENGINE_CASES)
+def test_engine_equals_one_process(gang, case):
+    """The out-of-core engines over the group (every process plans the
+    same passes, each pass's frame gathered) and ``DataFrame`` over the
+    group: every process's frames, bit for bit, equal one process's; the
+    repartition's targets and the merge's shards shard for shard, with
+    the global per-target counts."""
+    got = _merge_records([p["engine"][case] for p in gang["procs"]])
+    _assert_same_shards(got, gang["one_engine"][case], case)
 
 
 @pytest.mark.parametrize("check", CHECKS)
@@ -304,16 +325,18 @@ def test_group_needs_one_kind_of_device():
 
 
 def test_multi_process_refusals_name_a8b(monkeypatch):
-    """The out-of-core engine and DataFrame across processes raise
-    NotImplemented naming ROADMAP A8b."""
-    from cylon_tpu_torch import (CylonContext, CylonError, DataFrame,
-                                 MeshConfig, exec as exec_mod)
+    """ROADMAP A8b is done: the out-of-core engine and DataFrame no
+    longer refuse a context that spans processes.  The engine runs its
+    passes on it, and DataFrame uses it as given (no mesh of its own)."""
+    from cylon_tpu_torch import (CylonContext, DataFrame, MeshConfig,
+                                 exec as exec_mod)
 
     ctx = CylonContext.InitDistributed(MeshConfig(devices=["cpu"],
                                                   world_size=2))
     monkeypatch.setattr(ctx, "multi_process", lambda: True)
-    with pytest.raises(CylonError, match="item 8b"):
-        exec_mod.chunked_groupby({"k": np.arange(4), "v": np.ones(4)}, ["k"],
-                                 {"v": ["sum"]}, passes=2, ctx=ctx)
-    with pytest.raises(CylonError, match="item 8b"):
-        DataFrame({"a": [1, 2]}, ctx=ctx)
+    res, stats = exec_mod.chunked_groupby(
+        {"k": np.arange(4), "v": np.ones(4)}, ["k"], {"v": ["sum"]},
+        passes=2, ctx=ctx)
+    assert stats["world"] == 2 and sorted(res["k"]) == [0, 1, 2, 3]
+    df = DataFrame({"a": [1, 2]}, ctx=ctx)
+    assert df.context is ctx and df.to_dict() == {"a": [1, 2]}

@@ -4,6 +4,7 @@ One process of a gloo gang over the CPU: ``num_processes`` processes, each
 holding ``local`` shards of a ``CylonContext`` over a ``torch.distributed``
 process group, the port's counterpart of ``tests/multihost_worker.py``.
 It runs every case of ``run_cases`` under the three exchange realizations
+and the out-of-core engines and ``DataFrame`` cases of ``run_engine``,
 and pickles its local shards under their global ids, with the results of
 the multihost checks (pandas oracles), to ``<out_dir>/r<process_id>.pkl``.
 ``tests/test_torch_multiprocess.py`` holds them against a one-process mesh
@@ -116,6 +117,76 @@ def run_cases(ctx, package: str = "cylon_tpu_torch") -> dict:
     return out
 
 
+#: the cases ``run_engine`` returns, in order
+ENGINE_CASES = ("ooc_join_groupby", "ooc_groupby", "ooc_unique", "ooc_sort",
+                "ooc_repartition", "ooc_repartition_counts",
+                "df_merge_groupby", "df_sort", "df_loc", "df_iloc")
+
+#: rows per side of the out-of-core join's ``pipeline.make_data`` tables
+ENGINE_ROWS = 3000
+
+
+def _stats_of(stats: dict) -> dict:
+    """An engine's stats without its timings (those differ per process)."""
+    return {k: np.asarray(v) for k, v in stats.items()
+            if not k.endswith("_seconds")}
+
+
+def _frame_case(frame: dict, stats: dict) -> dict:
+    """An engine's host frame and counts as one record of host arrays."""
+    out = {f"col:{k}": np.asarray(v) for k, v in frame.items()}
+    out.update({f"stat:{k}": v for k, v in _stats_of(stats).items()})
+    return out
+
+
+def run_engine(ctx) -> dict:
+    """The out-of-core engines' mesh passes and ``DataFrame`` on ``ctx``:
+    host records (equal on every process) or, for the repartition's
+    targets and the frame's merge, local shards as ``shards_of``."""
+    from cylon_tpu_torch import DataFrame, exec as exec_mod, pipeline
+
+    d = inputs()
+    out = {}
+    res, st = pipeline.out_of_core_distributed_join_groupby(
+        pipeline.make_data(ENGINE_ROWS), 3, ctx)
+    out["ooc_join_groupby"] = _frame_case(res, st)
+    res, st = exec_mod.chunked_groupby(d["l"], "k", {"x": ["sum", "mean"],
+                                                     "y": ["max"]},
+                                       passes=3, ctx=ctx)
+    out["ooc_groupby"] = _frame_case(res, st)
+    res, st = exec_mod.chunked_unique(d["l"], ["k", "y"], passes=3, ctx=ctx)
+    out["ooc_unique"] = _frame_case(res, st)
+    res, st = exec_mod.chunked_sort(d["l"], ["y", "x"], ascending=[False,
+                                                                    True],
+                                    passes=3, ctx=ctx)
+    out["ooc_sort"] = _frame_case(res, st)
+    world = ctx.GetWorldSize()
+    res, st = exec_mod.chunked_repartition(d["l"], "k", world, passes=3,
+                                           ctx=ctx)
+    names = list(d["l"])
+    out["ooc_repartition"] = {
+        "names": names, "dtypes": [str(np.asarray(d["l"][n]).dtype)
+                                   for n in names],
+        "shards": {t: [(np.asarray(f[n]), None, None) for n in names]
+                   for t, f in enumerate(res) if f is not None},
+        "counts": {t: len(f[names[0]]) for t, f in enumerate(res)
+                   if f is not None}}
+    out["ooc_repartition_counts"] = _stats_of(st)
+    left, right = DataFrame(d["l"], ctx=ctx), DataFrame(d["r"], ctx=ctx)
+    merged = left.merge(right, on="k")
+    out["df_merge_groupby"] = shards_of(merged.groupby(
+        "l_k", {"x": ["sum"], "z": ["mean"]}).to_table())
+    out["df_sort"] = {k: np.asarray(v) for k, v in
+                      left.sort_values("x").to_dict().items()}
+    keyed = DataFrame(d["l"], ctx=ctx).set_index("k")
+    out["df_loc"] = {k: np.asarray(v) for k, v in
+                     keyed.loc[[7, 11]].to_dict().items()}
+    out["df_iloc"] = {k: np.asarray(v) for k, v in
+                      left.iloc[[3, 150, ROWS_L - 1]].to_dict().items()}
+    assert tuple(out) == ENGINE_CASES
+    return out
+
+
 def shards_of(t) -> dict:
     """A Table's local shards under their global ids, whole buffers, or a
     case's host scalars as they are."""
@@ -156,7 +227,7 @@ def multihost_checks(ctx, pid: int, nprocs: int, local: int,
 
     import pandas as pd
 
-    from cylon_tpu_torch import CylonError, Table, resilience
+    from cylon_tpu_torch import CylonError, DataFrame, Table, resilience
 
     d = inputs()
     pl, pr = pd.DataFrame(d["l"]), pd.DataFrame(d["r"])
@@ -211,6 +282,29 @@ def multihost_checks(ctx, pid: int, nprocs: int, local: int,
         check("fault_surfaces", nprocs > 1 and "after 1 attempts" in str(e),
               e)
     ctx.Barrier()
+    # a process handed other arrays plans other passes: every process
+    # raises Invalid from the pass-plan agreement, none waits in a pass
+    from cylon_tpu_torch import Code, exec as exec_mod
+
+    n = 120 + 7 * pid
+    try:
+        exec_mod.chunked_groupby({"k": np.arange(n) % 13,
+                                  "v": np.ones(n)}, "k", {"v": ["sum"]},
+                                 passes=3, ctx=ctx)
+        check("mismatched_passes_raise", nprocs == 1, "no error")
+    except CylonError as e:
+        check("mismatched_passes_raise", nprocs > 1
+              and e.code == Code.Invalid and "different passes" in str(e), e)
+    ctx.Barrier()
+    merged = (DataFrame(d["l"], ctx=ctx).merge(DataFrame(d["r"], ctx=ctx),
+                                              on="k")
+              .groupby("l_k", {"x": ["sum"]}).to_pandas())
+    want = pl.merge(pr, on="k").groupby("k").x.sum()
+    got = merged.set_index("l_k").sort_index()["sum_x"]
+    check("dataframe_merge_groupby",
+          np.array_equal(got.index.to_numpy(), want.index.to_numpy())
+          and np.allclose(got.to_numpy(), want.to_numpy(), rtol=1e-12),
+          (len(got), len(want)))
     return checks
 
 
@@ -236,7 +330,7 @@ def main() -> int:
             return BIND_RACE_RC
         raise
     try:
-        result = {"arms": run_arms(ctx),
+        result = {"arms": run_arms(ctx), "engine": run_engine(ctx),
                   "checks": multihost_checks(ctx, pid, nprocs, local,
                                              out_dir)}
     except Exception:
