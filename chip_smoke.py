@@ -181,7 +181,27 @@ Phases, each of which fails the run on error:
    counters and metrics zeroed around it (all three kernels must launch,
    at least one shuffle elided when planned), best-of-3 ms, exchanges and
    bytes sent, peak device memory; planned equal to eager bit for bit,
-   both equal to a pandas float64 oracle (revenue within rtol 1e-5).
+   both equal to a pandas float64 oracle (revenue within rtol 1e-5);
+3x. the durable run journal, on 3v's data cut to 2^23 rows per side
+   through the single-card engine
+   (``exec.chunked_join_groupby_tables``, SUM and MEAN, 8 passes) with a
+   journal root under a temporary directory removed at the end: (a) the
+   run unjournaled, then journaled into an empty root: bit for bit equal,
+   equal to the numpy oracle, the same launches; the overhead, spill
+   bytes and ``durable.*`` counters; (b) a child process on the card
+   (``chip_smoke.py --durable-worker ROOT OUT``) killed by
+   ``CYLON_TPU_FAULT_PLAN=journal_commit@5=killhard`` (rc 137), then a
+   fresh child resuming: 4 passes skipped, 4 run, the launches of 4 parts
+   (solved per kernel from (a) and (e)), the kernels reused from the
+   build cache, the frame bit for bit (a)'s; (c) (a)'s journaled call
+   again: 8 passes skipped, no kernel launched; (d) 3w's planned Q10,
+   twice under a journal root: the second call counts ``plan.cache_hit``
+   1, launches nothing and returns the first call's rows; (e) ``bitrot``
+   of one spill of (a)'s run: the reload re-executes exactly that pass
+   without a peer, and read-repairs it bit for bit from a
+   ``JournalPeerServer`` on 127.0.0.1 over a second root filled by
+   ``pull_run`` (no pass re-executed); ``scrub_once`` then finds the
+   root clean.
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -194,7 +214,8 @@ Phases, each of which fails the run on error:
 
 It prints the script's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name and power limit line, and, last, ``{"ok": true,
-"device": {...}}``.  Without a CUDA
+"device": {...}}``.  ``--durable-worker ROOT OUT`` is phase 3x's
+child and prints no result.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
 adds a device-time breakdown by kernel of one run of each main path (the
@@ -3242,7 +3263,7 @@ def _check_query(label: str, got, want, keys) -> float:
     return float(err.max(initial=0.0))
 
 
-def phase_planner(report: dict, profile: bool = False) -> None:
+def phase_planner(report: dict, profile: bool = False):
     """Phase 3w: TPC-H Q10 (``pipeline.tpch_q10_plan``) and Q5
     (``pipeline.tpch_q5_plan``) at SF-1 on SHARDS shards of the in-process
     mesh, each planned and eager (``CYLON_TPU_PLAN=0``): the first run of
@@ -3250,7 +3271,8 @@ def phase_planner(report: dict, profile: bool = False) -> None:
     read just after (all three kernels must launch, and the planned run
     must elide at least one shuffle), then best-of-3 ms; planned equal to
     eager bit for bit, both equal to the pandas oracle; exchanges and
-    bytes sent planned against eager; peak device memory."""
+    bytes sent planned against eager; peak device memory.  Returns the
+    Q10 plan (its tables stay on the card) for phase 3x."""
     import numpy as np
     import torch
 
@@ -3339,11 +3361,386 @@ def phase_planner(report: dict, profile: bool = False) -> None:
             f"{p['peak_device_bytes'] / 2**30:.2f} / "
             f"{e['peak_device_bytes'] / 2**30:.2f} GiB; bit-identical, "
             f"revenue max abs err {rec['revenue_max_abs_err']:.3g}")
+    q10 = plans["q10"]  # 3x replays it from the journal
     del plans, tables, q10_line
     out["phase_seconds"] = time.perf_counter() - t_phase
     report["planner"] = out
     log(f"[3w] phase {out['phase_seconds']:.1f} s (data and pandas oracles "
         f"{prep_s:.1f} s, upload {upload_s:.1f} s)")
+    return q10
+
+
+# -- phase 3x: the run journal ------------------------------------------------
+
+# 3v's data halved (2^24 rows per side ran the phase in 64.1 s against
+# its 60 s budget on one H100; PERF.md §4), in 8 passes on one card
+DURABLE_ROWS = GROUP_OOC_ROWS // 2
+DURABLE_PASSES = 8
+DURABLE_KILL_PLAN = "journal_commit@5=killhard"  # dies committing pass 5
+DURABLE_CHILD_TIMEOUT_S = 300
+
+
+def _durable_inputs():
+    """3v's bench data at DURABLE_ROWS per side
+    (``pipeline.make_data(DURABLE_ROWS)``, seed 12345) as the engine's two
+    host frames."""
+    from cylon_tpu_torch import pipeline
+
+    lk, lv, rk, rv = pipeline.make_data(DURABLE_ROWS, pipeline.SEED)
+    return {"k": lk, "a": lv}, {"k": rk, "b": rv}
+
+
+def _durable_run(left, right):
+    """The single-card engine: inner join on k -> SUM(a), MEAN(b) by l_k
+    in DURABLE_PASSES passes, journaled when CYLON_TPU_DURABLE_DIR is
+    set."""
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.exec import chunked_join_groupby_tables
+
+    return chunked_join_groupby_tables(
+        left, right, on="k", group_by="l_k",
+        agg={"a": ["sum"], "b": ["mean"]}, passes=DURABLE_PASSES,
+        ctx=CylonContext.Init("cuda"))
+
+
+def _timed_durable(label: str, fn):
+    """(result, stats, seconds, launches, durable.* counters, span
+    seconds) of one synchronised call, counters and metrics zeroed just
+    before."""
+    import torch
+
+    from cylon_tpu_torch.obs import metrics
+    from cylon_tpu_torch.obs import spans
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    metrics.reset()
+    spans.reset_aggregates()
+    t0 = time.perf_counter()
+    res, stats = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counters = {k: v for k, v in metrics.snapshot()["counters"].items()
+                if k.startswith(("durable.", "plan.", "exec."))}
+    agg = {k: v for k, v in spans.aggregate_report().items()
+           if k in ("exec.pass", "durable.spill", "durable.load",
+                    "durable.fingerprint", "durable.read_repair")}
+    rec = {"seconds": secs, "launches": _launch_counts(),
+           "counters": counters,
+           "spans_s": {k: v[0] for k, v in agg.items()},
+           "passes_skipped": stats.get("passes_skipped"),
+           "parts_run": stats.get("parts_run"),
+           "plan_seconds": stats.get("plan_seconds")}
+    log(f"[3x] {label}: {json.dumps(rec, default=str)}")
+    return res, stats, rec
+
+
+def durable_worker(root: str, out: str) -> int:
+    """``chip_smoke.py --durable-worker ROOT OUT.npz``: one journaled run
+    of 3x's engine call into ROOT in its own process, under whatever
+    ``CYLON_TPU_FAULT_PLAN`` the parent set (``killhard`` ends it with
+    rc 137 mid-journal); writes the frame to OUT.npz and its stats,
+    launches, seconds and the kernels' build seconds (0: reused) to
+    OUT.json.  Prints no result line."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.cuda import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    left, right = _durable_inputs()
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=root):
+        res, stats, rec = _timed_durable("worker", lambda: _durable_run(
+            left, right))
+    np.savez(out, **res)
+    rec.update(columns=list(res), build_s={
+        src: info[0] for src, info in build.BUILD_INFO.items()},
+        process_s=time.perf_counter() - t_start)
+    with open(os.path.splitext(out)[0] + ".json", "w") as f:
+        json.dump(rec, f, default=str)
+    return 0
+
+
+def _durable_child(script: str, root: str, out: str, fault: str = None):
+    """Run the worker in a fresh process on the same card: (rc, record or
+    None, seconds, stderr tail)."""
+    env = dict(os.environ)
+    env.pop("CYLON_TPU_FAULT_PLAN", None)
+    env.pop("CYLON_TPU_DURABLE_DIR", None)
+    if fault:
+        env["CYLON_TPU_FAULT_PLAN"] = fault
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, "--durable-worker", root,
+                           out], env=env, capture_output=True, text=True,
+                          timeout=DURABLE_CHILD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    rec = None
+    meta = os.path.splitext(out)[0] + ".json"
+    if proc.returncode == 0 and os.path.exists(meta):
+        with open(meta) as f:
+            rec = json.load(f)
+    return proc.returncode, rec, secs, proc.stderr[-3000:]
+
+
+def _per_part(l8: dict, l1: dict) -> dict:
+    """Each kernel's launches per part (C: the exact-sizing count of one
+    part) and per pass-program call (P), from an 8-part run (8C + 9P: the
+    sizing of each part, the warm-up call, 8 passes) and a one-part
+    re-execution (C + 2P)."""
+    out = {}
+    for k in l8:
+        p7 = 8 * l1[k] - l8[k]
+        if p7 % 7 or p7 < 0 or l1[k] - 2 * (p7 // 7) < 0:
+            raise AssertionError(f"3x: {k} launches {l8[k]} (8 parts) and "
+                                 f"{l1[k]} (1 part) fit no k*C + (k+1)*P")
+        out[k] = (l1[k] - 2 * (p7 // 7), p7 // 7)
+    return out
+
+
+def phase_durable(report: dict, q10_plan) -> None:
+    """Phase 3x: the run journal on the card.  3v's data at DURABLE_ROWS
+    per side through the single-card engine (``_durable_run``) and 3w's
+    planned Q10:
+
+    (a) unjournaled, then journaled into an empty root: the frames bit
+    for bit equal and equal to the numpy oracle, the launches equal; the
+    overhead, spill bytes and ``durable.*`` counters;
+    (b) a child process (``--durable-worker``) killed by ``killhard`` at
+    its 5th journal commit (rc 137), then a fresh child resumes: 4 passes
+    skipped, 4 parts run, the launches of 4 parts (k*C + (k+1)*P, solved
+    from (a) and (e)), the build cache reused, the frame bit for bit
+    (a)'s;
+    (c) (a)'s journaled call again: 8 passes skipped, no kernel launched,
+    bit for bit;
+    (d) Q10 planned, twice under a journal root: the second call counts
+    ``plan.cache_hit`` 1, launches nothing, and returns the first call's
+    rows;
+    (e) ``bitrot`` of one spill of (a)'s run: without a peer the reload
+    re-executes exactly that pass (C + 2P launches); with a
+    ``JournalPeerServer`` on 127.0.0.1 over a second root filled by
+    ``pull_run``, the reload read-repairs bit for bit and re-executes
+    nothing; ``scrub_once`` then finds the root clean."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import config, durable, durable_sync, resilience
+
+    t_phase = time.perf_counter()
+    out: dict = {"rows_per_side": DURABLE_ROWS, "passes": DURABLE_PASSES}
+    tmp = tempfile.mkdtemp(prefix="cylon_journal_")
+    try:
+        left, right = _durable_inputs()
+        oracle = _oracle((left["k"], left["a"], right["k"], right["b"]),
+                         DURABLE_ROWS)
+        root_a = os.path.join(tmp, "a")
+
+        # (a) journaling cost
+        base, _, plain = _timed_durable("a unjournaled",
+                                        lambda: _durable_run(left, right))
+        with config.knob_env(CYLON_TPU_DURABLE_DIR=root_a):
+            res, stats, jrec = _timed_durable(
+                "a journaled", lambda: _durable_run(left, right))
+        _same_frames("3x (a) journaled against unjournaled", res, base)
+        if jrec["launches"] != plain["launches"]:
+            raise AssertionError(f"3x (a): launches {jrec['launches']} != "
+                                 f"unjournaled {plain['launches']}")
+        if (stats["passes_skipped"], stats["parts_run"]) != (
+                0, DURABLE_PASSES):
+            raise AssertionError(f"3x (a): {stats}")
+        order = np.argsort(base["l_k"], kind="stable")
+        sum_err, mean_err = _check_groups(
+            oracle, base["l_k"][order], base["sum_a"][order],
+            base["mean_b"][order], "3x (a)")
+        (fp_a,) = os.listdir(root_a)
+        spill_bytes = jrec["counters"].get("durable.spill_bytes", 0)
+        out["a"] = {"unjournaled": plain, "journaled": jrec,
+                    "overhead_pct": 100.0 * (jrec["seconds"]
+                                             - plain["seconds"])
+                    / plain["seconds"],
+                    "spill_bytes": spill_bytes,
+                    "sum_max_abs_err": sum_err, "mean_max_abs_err": mean_err}
+        log(f"[3x] (a) unjournaled {plain['seconds']:.3f} s, journaled "
+            f"{jrec['seconds']:.3f} s ({out['a']['overhead_pct']:+.1f}%), "
+            f"spill {spill_bytes} B in {DURABLE_PASSES} spills (write "
+            f"{jrec['spans_s'].get('durable.spill', 0.0):.3f} s against "
+            f"pass compute {jrec['spans_s'].get('exec.pass', 0.0):.3f} s, "
+            f"fingerprint "
+            f"{jrec['spans_s'].get('durable.fingerprint', 0.0):.3f} s), "
+            f"counters {jrec['counters']}; launches {plain['launches']} "
+            f"both; bit for bit; {oracle['groups']} groups exact, SUM max "
+            f"abs err {sum_err:.3g}, MEAN {mean_err:.3g}")
+
+        # (b) kill and resume in fresh processes on the same card
+        gc.collect()
+        torch.cuda.empty_cache()
+        script = os.path.abspath(__file__)
+        root_b = os.path.join(tmp, "b")
+        rc, _, kill_s, err = _durable_child(
+            script, root_b, os.path.join(tmp, "killed.npz"),
+            DURABLE_KILL_PLAN)
+        if rc != 137:
+            raise AssertionError(f"3x (b): the killed child exited {rc}, "
+                                 f"not 137:\n{err}")
+        rc, child, resume_s, err = _durable_child(
+            script, root_b, os.path.join(tmp, "resumed.npz"))
+        if rc != 0 or child is None:
+            raise AssertionError(f"3x (b): the resuming child exited "
+                                 f"{rc}:\n{err}")
+        if (child["passes_skipped"], child["parts_run"]) != (4, 4):
+            raise AssertionError(f"3x (b): resumed with "
+                                 f"{child['passes_skipped']} skipped, "
+                                 f"{child['parts_run']} run, not 4 and 4")
+        if any(s > 0 for s in child["build_s"].values()):
+            raise AssertionError(f"3x (b): the child rebuilt kernels "
+                                 f"{child['build_s']}")
+        with np.load(os.path.join(tmp, "resumed.npz")) as z:
+            resumed = {k: z[k] for k in child["columns"]}
+        _same_frames("3x (b) resumed child against (a)", resumed, base)
+        out["b"] = {"killed_rc": 137, "kill_process_s": kill_s,
+                    "resume_process_s": resume_s, "resume": child}
+        log(f"[3x] (b) child killed at {DURABLE_KILL_PLAN} (rc 137, "
+            f"{kill_s:.1f} s); fresh child resumed: 4 skipped, 4 run, "
+            f"engine call {child['seconds']:.3f} s (process "
+            f"{resume_s:.1f} s), launches {child['launches']}, kernels "
+            f"reused; bit for bit (a)")
+
+        # (c) the full hit
+        with config.knob_env(CYLON_TPU_DURABLE_DIR=root_a):
+            hit, stats, hrec = _timed_durable(
+                "c full hit", lambda: _durable_run(left, right))
+        if (stats["passes_skipped"], stats.get("parts_run")) != (
+                DURABLE_PASSES, None):
+            raise AssertionError(f"3x (c): {stats}")
+        if any(hrec["launches"].values()):
+            raise AssertionError(f"3x (c): the full hit launched "
+                                 f"{hrec['launches']}")
+        _same_frames("3x (c) full hit against (a)", hit, base)
+        t0 = time.perf_counter()
+        durable.run_fingerprint("join_groupby", (),
+                                ((list(left), left), (list(right), right)))
+        fp_s = time.perf_counter() - t0
+        out["c"] = {"hit": hrec, "fingerprint_s": fp_s}
+        log(f"[3x] (c) full hit {hrec['seconds']:.3f} s: "
+            f"{DURABLE_PASSES} skipped, no launch, bit for bit; pass "
+            f"planning and fingerprint {hrec['plan_seconds'] - hrec['spans_s'].get('durable.load', 0.0):.3f} s "
+            f"(fingerprint alone {fp_s:.3f} s), loads "
+            f"{hrec['spans_s'].get('durable.load', 0.0):.3f} s")
+        del hit, res
+
+        # (d) planner replay of 3w's Q10
+        root_d = os.path.join(tmp, "d")
+        with config.knob_env(CYLON_TPU_DURABLE_DIR=root_d):
+            first, _, miss = _timed_durable(
+                "d Q10 miss", lambda: (q10_plan.execute(), {}))
+            second, _, qhit = _timed_durable(
+                "d Q10 hit", lambda: (q10_plan.execute(), {}))
+        if miss["counters"].get("plan.cache_hit", 0) != 0 or \
+                qhit["counters"].get("plan.cache_hit", 0) != 1:
+            raise AssertionError(f"3x (d): plan.cache_hit "
+                                 f"{miss['counters']} / {qhit['counters']}")
+        if any(qhit["launches"].values()) or not any(
+                miss["launches"].values()):
+            raise AssertionError(f"3x (d): launches {miss['launches']} "
+                                 f"then {qhit['launches']}")
+        a, b = first.to_pandas(), second.to_pandas()
+        if list(a.columns) != list(b.columns) or len(a) != len(b) or any(
+                not np.array_equal(a[c].to_numpy(), b[c].to_numpy())
+                for c in a.columns):
+            raise AssertionError("3x (d): the cache hit's rows differ from "
+                                 "the first call's")
+        out["d"] = {"miss": miss, "hit": qhit, "rows": len(a)}
+        log(f"[3x] (d) Q10 planned under the journal: miss "
+            f"{miss['seconds'] * 1e3:.2f} ms (launches {miss['launches']}),"
+            f" hit {qhit['seconds'] * 1e3:.2f} ms, plan.cache_hit 1, no "
+            f"launch, {len(a)} rows equal")
+        del first, second, a, b
+
+        # (e) integrity: bitrot, then reload without and with a peer
+        def rot():
+            with config.knob_env(CYLON_TPU_DURABLE_DIR=root_a):
+                durable.open_run(fp_a, "join_groupby")
+            with resilience.fault_plan("rot@1=bitrot"):
+                resilience.fault_point("rot")
+
+        rot()
+        with config.knob_env(CYLON_TPU_DURABLE_DIR=root_a):
+            got, stats, lone = _timed_durable(
+                "e reload without a peer", lambda: _durable_run(left, right))
+        if (stats["passes_skipped"], stats["parts_run"]) != (
+                DURABLE_PASSES - 1, 1) or \
+                lone["counters"].get("durable.spills_rejected") != 1:
+            raise AssertionError(f"3x (e): without a peer {stats}, "
+                                 f"{lone['counters']}")
+        _same_frames("3x (e) reload without a peer against (a)", got, base)
+        per = _per_part(plain["launches"], lone["launches"])
+        if lone["launches"] != {k: c + 2 * p for k, (c, p) in per.items()}:
+            raise AssertionError(f"3x (e): {lone['launches']} are not one "
+                                 f"part's launches {per}")
+        want4 = {k: 4 * c + 5 * p for k, (c, p) in per.items()}
+        if child["launches"] != want4:
+            raise AssertionError(f"3x (b): the resume launched "
+                                 f"{child['launches']}, not 4 parts' "
+                                 f"{want4}")
+        root_p = os.path.join(tmp, "peer")
+        src = durable_sync.JournalPeerServer(root_a)
+        try:
+            if not durable_sync.pull_run(src.address, root_p, fp_a):
+                raise AssertionError("3x (e): pull_run pulled nothing")
+        finally:
+            src.close()
+        peer = durable_sync.JournalPeerServer(root_p)
+        durable_sync.set_peers([peer.address])
+        try:
+            rot()
+            with config.knob_env(CYLON_TPU_DURABLE_DIR=root_a):
+                got, stats, fixed = _timed_durable(
+                    "e reload with a peer",
+                    lambda: _durable_run(left, right))
+        finally:
+            durable_sync.set_peers(())
+            peer.close()
+        if stats["passes_skipped"] != DURABLE_PASSES or \
+                stats.get("parts_run") or any(fixed["launches"].values()) \
+                or fixed["counters"].get("durable.read_repair") != 1:
+            raise AssertionError(f"3x (e): with a peer {stats}, "
+                                 f"{fixed['counters']}, "
+                                 f"{fixed['launches']}")
+        _same_frames("3x (e) read-repaired reload against (a)", got, base)
+        durable._LAST_JOURNAL = None  # the scrubber skips a live run
+        scrub = durable_sync.scrub_once(root_a)
+        if scrub["checked"] != DURABLE_PASSES or scrub["corrupt"]:
+            raise AssertionError(f"3x (e): scrub {scrub}")
+        out["e"] = {"without_peer": lone, "with_peer": fixed,
+                    "scrub": scrub,
+                    "per_part": {k: {"C": c, "P": p}
+                                 for k, (c, p) in per.items()}}
+        log(f"[3x] (e) bitrot: reload without a peer re-ran 1 pass "
+            f"({lone['seconds']:.3f} s, launches {lone['launches']}); with "
+            f"a peer on {peer.address[0]} read-repaired, re-ran nothing "
+            f"({fixed['seconds']:.3f} s, no launch), bit for bit; scrub "
+            f"{scrub}; launches per part (C, P) {per}: the resume's 4 "
+            f"parts predicted {want4}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches_durable"] = {
+        "a_unjournaled": out["a"]["unjournaled"]["launches"],
+        "a_journaled": out["a"]["journaled"]["launches"],
+        "b_resume": out["b"]["resume"]["launches"],
+        "c_hit": out["c"]["hit"]["launches"],
+        "d_miss": out["d"]["miss"]["launches"],
+        "d_hit": out["d"]["hit"]["launches"],
+        "e_without_peer": out["e"]["without_peer"]["launches"],
+        "e_with_peer": out["e"]["with_peer"]["launches"]}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    report["durable"] = out
+    log(f"[3x] phase {out['phase_seconds']:.1f} s")
 
 
 def _segmented_inputs(tables, out_cap):
@@ -3518,6 +3915,10 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
+    ap.add_argument("--durable-worker", nargs=2, metavar=("ROOT", "OUT"),
+                    help="phase 3x's child: one journaled engine run into "
+                         "ROOT, its frame to OUT (.npz) and its record to "
+                         "OUT's .json; prints no result")
     ap.add_argument("--profile", action="store_true",
                     help="profile one run of each main path, of the set "
                          "ops, of the distributed sorts, of the string "
@@ -3541,6 +3942,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: cylon_tpu_torch not found beside the script: {e}",
               file=sys.stderr)
         return 2
+    if args.durable_worker:
+        return durable_worker(*args.durable_worker)
 
     t_start = time.perf_counter()
     report: dict = {"device": torch.cuda.get_device_name(0)}
@@ -3600,7 +4003,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_ooc_group(report, profile=args.profile)
-        phase_planner(report, profile=args.profile)
+        q10 = phase_planner(report, profile=args.profile)
+        phase_durable(report, q10)
+        del q10
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
@@ -3621,6 +4026,9 @@ def main(argv=None) -> int:
                 f"{q}_{arm}": report["planner"][q][arm]["launches"].get(
                     r["name"], 0)
                 for q in ("q10", "q5") for arm in ("planned", "eager")}
+            r["launches_durable"] = {
+                step: v.get(r["name"], 0) for step, v in
+                report["durable"]["launches_durable"].items()}
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:

@@ -193,9 +193,42 @@ KNOBS = {k.name: k for k in [
        "code this many consecutive times is isolated into the run report "
        "(stats['quarantined']); 0 (default) disables."),
     _K("CYLON_TPU_DURABLE_DIR", "str", "",
-       "Root directory of the durable run journal.  The journal is not "
-       "ported: a non-empty value makes the out-of-core engine raise "
-       "NotImplemented."),
+       "Root directory for the durable-execution run journal: each "
+       "fingerprinted one-shard chunked run (and each planned query) "
+       "spills completed passes as checksummed Arrow IPC files + an "
+       "append-only manifest, so a fresh process re-invoking the same run "
+       "resumes mid-plan (kill -9 safe).  Empty (default) disables "
+       "journaling."),
+    _K("CYLON_TPU_DURABLE_CAP_BYTES", "int", 0,
+       "Size cap for the durable journal root: past it, whole runs are "
+       "evicted least-recently-used first (spills before the manifest, so "
+       "a half-evicted run re-executes instead of serving a torn "
+       "journal).  0 (default) = unbounded."),
+    _K("CYLON_TPU_DURABLE_RF", "int", 2,
+       "Target copies of every completed journal run across the fleet's "
+       "DISTINCT journal roots (anti-entropy replication: replicas "
+       "advertise per-run digests on heartbeats, the coordinator hints "
+       "under-replicated runs back, replicas pull them spills-first/"
+       "manifest-last).  gc_journal never evicts a run while fewer than "
+       "this many roots hold it.  1 disables replication entirely."),
+    _K("CYLON_TPU_SCRUB_S", "float", 0.0,
+       "Seconds between background journal-integrity scrub passes "
+       "(re-verify every committed spill's sha256 under the GC lease; "
+       "repair from a peer when one holds a good copy, quarantine "
+       "manifest-LAST otherwise).  0 (default) disables the scrubber "
+       "thread; durable_sync.scrub_once can always be called directly."),
+    _K("CYLON_TPU_DURABLE_QUOTA_BYTES", "int", 0,
+       "Hard disk budget for new journal spills under the shared "
+       "CYLON_TPU_DURABLE_DIR: a spill that would push the root past it "
+       "(or a write hitting real ENOSPC) classifies Code.ResourceExhausted "
+       "and the run degrades to journal-off execution (counted "
+       "durable.degraded); the query never fails for disk.  0 (default) "
+       "disables."),
+    _K("CYLON_TPU_ROUTER_MAX_LINE_BYTES", "int", 64 << 20,
+       "Wire cap for one data-plane message (a journal peer's spill or "
+       "manifest blob; the router's encoded tables once it is ported).  "
+       "A message larger than this is refused as a ProtocolError, never "
+       "silently truncated."),
     # -- observability (obs/) ----------------------------------------------
     _K("CYLON_TPU_TRACE", "enum", "auto",
        "Tracing mode: auto (aggregate stopwatch only), 1/on (plus the "

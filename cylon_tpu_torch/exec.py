@@ -42,8 +42,12 @@ The standalone operators stream the same way with no join:
 aggregates) partitions on the group keys, ``chunked_sort`` on ranges of
 the first sort key emitted in key order, ``chunked_repartition`` on
 contiguous row blocks hashed to ``world`` targets by the murmur3 kernel.
-The run journal (``CYLON_TPU_DURABLE_DIR``) and elastic execution are
-not ported (ROADMAP.md queue A, items 10 and 11).
+With ``CYLON_TPU_DURABLE_DIR`` set, the one-shard engines (join,
+join -> group-by, group-by, unique, sort) journal every completed pass
+(``durable.RunJournal``) and a fresh process re-invoking the same run
+loads the journaled passes instead of running them; a mesh or
+process-group engine runs unjournaled, as the JAX package's does.
+Elastic execution is not ported (ROADMAP.md queue A, item 11).
 """
 from __future__ import annotations
 
@@ -628,9 +632,16 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
     frames are kept across rebuilds, so recovery RESUMES the stream at
     the failed part instead of restarting it.
 
-    ``journal`` is the JAX package's run-journal hook (passes spilled to
-    disk and served on resume); the journal is not ported, so it must be
-    None (ROADMAP.md queue A, item 10).
+    With a ``journal`` (`durable.RunJournal`) the checkpoint outlives the
+    process: every completed pass's frame spills to disk and is recorded
+    in the run manifest, parts the journal already holds are LOADED
+    instead of re-executed (``stats["passes_skipped"]``, metric
+    ``durable.passes_skipped``) — a fresh process re-invoking the same
+    fingerprinted run resumes mid-plan, surviving ``kill -9``.  A level's
+    journaled parts are loaded before ``make_exec`` builds it, which then
+    sizes and warms the level over the parts that run only: a fully
+    journaled run uploads nothing and launches no kernel, and a resume
+    launches the kernels of the parts it runs.
 
     Failure handling, by classified code (`Status.from_exception`):
     - `Code.OutOfMemory` — every remaining part splits in two (``plan``)
@@ -654,15 +665,11 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
     Poison-pass quarantine (``CYLON_TPU_QUARANTINE_AFTER`` = N > 0): a
     head part failing with the SAME classified code N consecutive times
     is dropped from the stream and reported in ``stats["quarantined"]``
-    instead of wedging retries/refinement forever.
+    (and the journal) instead of wedging retries/refinement forever.
     Only recoverable codes qualify — an unknown code stays a bug.
 
     Returns ``(t_plan, t_run0, frames, total)`` like the old fixed loop.
     """
-    if journal is not None:
-        raise CylonError(Code.NotImplemented,
-                         "the run journal is not ported yet (ROADMAP.md "
-                         "queue A, item 10)")
     policy = policy or resilience.RetryPolicy.from_env()
     stats = stats if stats is not None else {}
     max_splits = resilience.max_oom_splits() if plan is not None else 0
@@ -683,6 +690,24 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
     t_plan = None
     t_run0 = time.perf_counter()
     exec_cache: Dict[int, tuple] = {}
+    if journal is not None:
+        stats.setdefault("passes_skipped", 0)
+
+    def consume_journaled(part: int, hit) -> None:
+        """Append a journal-loaded pass frame in place of executing it.
+        Serving a part IS completing it, so the head-part retry/failure
+        state resets exactly as it would after an executed pass — the
+        next part must start with its full budgets."""
+        nonlocal total, part_retries, fail_key, fail_count
+        frame, n = hit
+        frames.append(frame)
+        total += int(n)
+        part_retries = 0
+        fail_key, fail_count = None, 0
+        stats["passes_skipped"] += 1
+        obs_spans.instant("durable.pass_skipped", part=int(part),
+                          level=level, rows=int(n))
+        obs_metrics.counter_add("durable.passes_skipped")
 
     def quarantine_head(st: Status, msg: str) -> bool:
         """Isolate the head part into the run report (poison-pass
@@ -698,6 +723,8 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
         entry = {"part": int(part), "level": level, "code": st.code.name,
                  "failures": fail_count, "msg": msg}
         stats.setdefault("quarantined", []).append(entry)
+        if journal is not None:
+            journal.record_quarantine(level, part, st.code.name, msg)
         obs_spans.instant("exec.part_quarantined", part=int(part),
                           level=level, code=st.code.name)
         obs_metrics.counter_add("quarantine.parts")
@@ -722,6 +749,20 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
         """Adjust (remaining, level) for a recoverable failure or raise."""
         nonlocal remaining, level, part_retries, fail_key, fail_count
         st = Status.from_exception(e)
+        if (journal is not None and remaining
+                and (st.code == Code.OutOfMemory
+                     or st.code in resilience.RETRYABLE_CODES)
+                and journal.completed(level, remaining[0])):
+            # the failing part's result is already durably journaled (a
+            # deadline overrun classified AFTER its commit): the loop
+            # re-enters and serves it from the journal — no retry budget,
+            # no backoff, no quarantine, cannot be fatal.  Checked FIRST:
+            # a part whose correct frame sits in the journal must never
+            # be quarantined out of the output
+            obs_spans.instant("exec.pass_served_from_journal",
+                              part=int(remaining[0]), level=level,
+                              code=st.code.name)
+            return
         # the counter is keyed to the PART's identity, not just the code:
         # an OOM split advances the level (the head's first child keeps
         # its id one level up), so productive refinement starts a fresh
@@ -815,11 +856,37 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
         raise e
 
     while remaining is None or remaining:
+        served: Dict[int, tuple] = {}
+        if journal is not None:
+            if remaining is None and "passes" in stats:
+                remaining = list(range(stats["passes"]))
+            # load this level's journaled parts BEFORE building its
+            # execution (a spill that fails its checksum is rejected here
+            # and runs): the execution is then sized over, and warmed
+            # on, only the parts that run, and a fully journaled run
+            # uploads and launches nothing.  The journaled prefix (a
+            # crashed process's completions) is consumed at once
+            for p in remaining:
+                hit = journal.load_pass(level, p)
+                if hit is not None:
+                    served[p] = hit
+            while remaining and remaining[0] in served:
+                consume_journaled(remaining[0], served.pop(remaining[0]))
+                remaining = remaining[1:]
+            if not remaining:
+                break
+        todo = (remaining if remaining is None or not served
+                else [p for p in remaining if p not in served])
         try:
-            ex = exec_cache.get(level)
-            if ex is None:
-                ex = make_exec(remaining, level)
-                exec_cache[level] = ex
+            cached = exec_cache.get(level)
+            # (None: sized for every positional pass, so for any todo)
+            if cached is None or (todo is not None
+                                  and cached[1] is not None
+                                  and not set(todo) <= cached[1]):
+                cached = (make_exec(todo, level),
+                          None if todo is None else frozenset(todo))
+                exec_cache[level] = cached
+            ex = cached[0]
         except Exception as e:
             traceback.clear_frames(e.__traceback__)
             recover(e)
@@ -848,6 +915,10 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
                         guard_exc = ge
                         raise
                 part = remaining[cursor]
+                if part in served:  # journaled: loaded, not executed
+                    consume_journaled(part, served.pop(part))
+                    cursor += 1
+                    continue
                 deadline = durable.pass_deadline()
                 with obs_spans.span("exec.pass", part=part,
                                     level=level) as sp:
@@ -855,8 +926,12 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
                         resilience.fault_point("pass_dispatch")
                         cur = nxt if nxt is not None else chunk(part)
                         fut = prog(*cur)               # async dispatch
-                        nxt = (chunk(remaining[cursor + 1])
-                               if prefetch and cursor + 1 < len(remaining)
+                        # prefetch the next part that runs (a journaled
+                        # one is not in this level's sizing)
+                        nxt_part = next((q for q in remaining[cursor + 1:]
+                                         if q not in served), None)
+                        nxt = (chunk(nxt_part)
+                               if prefetch and nxt_part is not None
                                else None)
                         resilience.fault_point("host_fetch")
                         frame, n = fetch(fut)  # blocks; device errors here
@@ -868,11 +943,25 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
                         # aggregate mode samples the watermark once per
                         # level, not once per pass
                         obs_metrics.record_hbm_watermark(device)
-                # no journal to serve a retry from: discarding the
-                # late-but-correct frame would condemn every
-                # consistently-slow pass to retry-until-fatal, so keep it
-                # and record the overrun
-                deadline.accept_late()
+                committed = False
+                if journal is not None:
+                    # spill + manifest-commit BEFORE the frame counts as
+                    # done: a crash inside the journal write re-runs the
+                    # pass on resume (at-least-once, never lost)
+                    committed = journal.record_pass(level, part, frame,
+                                                    int(n))
+                if committed:
+                    # a deadline overrun classifies AFTER the late frame
+                    # is journaled: the Timeout retry serves the result
+                    # from the journal instead of re-executing an
+                    # identically-slow pass forever
+                    deadline.raise_if_fired()
+                else:
+                    # no journal to serve a retry from: discarding the
+                    # late-but-correct frame would condemn every
+                    # consistently-slow pass to retry-until-fatal, so
+                    # keep it and record the overrun
+                    deadline.accept_late()
                 total += n
                 frames.append(frame)
                 cursor += 1
@@ -896,7 +985,7 @@ def _stream_recoverable(make_exec, plan, t0, *, policy=None, stats=None,
             # referenced across make_exec would double host memory at the
             # exact moment we're recovering from pressure
             cur = fut = nxt = None
-            chunk = prog = fetch = ex = None
+            chunk = prog = fetch = ex = cached = None
             remaining = remaining[cursor:]  # completed frames are kept
             if guard_exc is e:
                 raise
@@ -929,6 +1018,16 @@ def _run_passes(prog, empty_chunk, chunk, n_passes, fetch, t0, *,
     return _stream_recoverable(make_exec, None, t0, policy=policy,
                                stats=stats, journal=journal,
                                pass_guard=pass_guard)
+
+
+def _journal_done(journal, stats: Dict, frames: List, total: int) -> None:
+    """After a journaled stream: mark the run complete when nothing was
+    quarantined (every pass the plan needed is journaled, so the run is a
+    complete result-cache entry), then let the size-cap GC reclaim older
+    runs."""
+    if journal is not None and not stats.get("quarantined"):
+        journal.record_done(len(frames), total)
+        durable.gc_journal()
 
 
 def _concat_host(frames: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -968,7 +1067,10 @@ def chunked_join(left, right, *, on=None, left_on=None, right_on=None,
     shard, the mesh every pass is sharded over (``_chunked_distributed``);
     the default is the CUDA card.  ``pass_guard`` is called before every
     pass; raising there stops the stream at the next pass boundary.
-    ``elastic`` must be None (the elastic gang is not ported).
+    ``elastic`` must be None (the elastic gang is not ported).  With
+    ``CYLON_TPU_DURABLE_DIR`` set a one-shard run is journaled: a repeat
+    (or a fresh process after a crash) loads the journaled passes,
+    counted in ``stats["passes_skipped"]``.
 
     Returns (dict of host columns keyed by joined names, stats)."""
     return _chunked_engine(left, right, on=on, left_on=left_on,
@@ -1141,7 +1243,6 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
 
     # -- the per-pass program (per refinement level) ----------------------
     device = ctx.devices[0]
-    durable.require_off()
     nk = len(lon)
     kidx = tuple(range(nk))
     if gb_names is not None:
@@ -1188,6 +1289,23 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
     stats = {"passes": n_passes, "mode": mode_used,
              "chunk_cap": max(cap_l, cap_r), "cap_l": cap_l, "cap_r": cap_r,
              "world": 1}
+    journal = None
+    if durable.enabled():
+        # run identity: op shape x realized plan x input content x
+        # result-affecting knobs (``cylon_tpu/exec.py:1216-1221``) — a
+        # resumed process recomputes the identical fingerprint and reopens
+        # the same journal
+        op = "join" if gb_names is None else "join_groupby"
+        fp = durable.run_fingerprint(
+            op,
+            (tuple(lon), tuple(ron), int(jt), int(cfg.algorithm),
+             cfg.left_prefix, cfg.right_prefix,
+             tuple(gb_names) if gb_names is not None else None,
+             tuple((n, int(o)) for n, o in aggs_req)
+             if aggs_req is not None else None,
+             int(ddof), int(n_passes), mode_used, 1),
+            ((names_l, arrs_l), (names_r, arrs_r)))
+        journal = durable.open_run(fp, op)
 
     def make_exec(parts, level):
         pid_l_lvl, pid_r_lvl = plan.pids(level)
@@ -1223,7 +1341,9 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
 
     t_plan, t_run0, frames, total = _stream_recoverable(
         make_exec, plan, t_plan0, policy=policy, stats=stats,
-        prefetch=prefetch, pass_guard=pass_guard, device=device)
+        prefetch=prefetch, journal=journal, pass_guard=pass_guard,
+        device=device)
+    _journal_done(journal, stats, frames, total)
     result = _concat_host(frames)
     if gb_names is not None and not final_per_pass:
         result, total = _combine_partials(result, gb_names, aggs_req,
@@ -1459,11 +1579,19 @@ def chunked_groupby(data, by, agg: Dict, *, passes: int = 4, ddof: int = 0,
         frames, total, _ = _mesh_passes(ctx, run_pass, range(n_passes),
                                         pass_guard)
     else:
-        durable.require_off()
         device = ctx.devices[0]
         fetch = _fetch_frame(out_names)
         plan = _RefinablePlan(pid, np.zeros(0, np.int32), n_passes,
                               mode_used, key_arrs, [])
+        journal = None
+        if durable.enabled():
+            fp = durable.run_fingerprint(
+                "groupby",
+                (tuple(by_names),
+                 tuple((n, int(o)) for n, o in aggs_req),
+                 int(ddof), int(n_passes), mode_used, 1),
+                ((names, arrs),))
+            journal = durable.open_run(fp, "groupby")
 
         def make_exec(parts, level):
             pid_lvl, _ = plan.pids(level)
@@ -1481,8 +1609,9 @@ def chunked_groupby(data, by, agg: Dict, *, passes: int = 4, ddof: int = 0,
             return build.chunk, prog, fetch
 
         t_plan, t_run0, frames, total = _stream_recoverable(
-            make_exec, plan, t0, stats=extra, pass_guard=pass_guard,
-            device=device)
+            make_exec, plan, t0, stats=extra, journal=journal,
+            pass_guard=pass_guard, device=device)
+        _journal_done(journal, extra, frames, total)
     result = _concat_host(frames)
     t_run = time.perf_counter() - t_run0
     stats = {"passes": n_passes, "mode": mode_used, "world": world,
@@ -1576,16 +1705,25 @@ def chunked_sort(data, by, *, ascending=True, nulls_first: bool = True,
     else:
         from .ops import sort as sort_mod
 
-        durable.require_off()
         build = _SideBuilder(names, arrs, pid, cap, ctx.devices[0])
 
         def prog(cols, cnt):
             return sort_mod.sort_rows(cols, cnt, by_idx, asc, nulls_first)
 
+        journal = None
+        if durable.enabled():
+            # positional passes (no refinement), keyed by emit position
+            fp = durable.run_fingerprint(
+                "sort",
+                (tuple(by_names), tuple(asc), bool(nulls_first),
+                 int(n_passes), 1),
+                ((names, arrs),))
+            journal = durable.open_run(fp, "sort")
         t_plan, t_run0, frames, total = _run_passes(
             prog, build.empty_chunk, lambda p: build.chunk(emit_order[p]),
             n_passes, _fetch_frame(names), t0, stats=extra,
-            pass_guard=pass_guard)
+            journal=journal, pass_guard=pass_guard)
+        _journal_done(journal, extra, frames, total)
     result = _concat_host(frames)
     t_run = time.perf_counter() - t_run0
     stats = {"passes": n_passes, "mode": "range", "world": world,

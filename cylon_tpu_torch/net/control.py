@@ -1,0 +1,181 @@
+"""Control-plane transport: one-shot JSON requests over TCP.
+
+A copy of ``cylon_tpu/net/control.py``.  The data plane of a shuffle is
+the collectives (``parallel/collectives.py``); the journal's peers
+(``durable_sync.JournalPeerServer``) and, once ported, the elastic
+coordinator need a tiny out-of-band channel that keeps working while the
+data plane is wedged.
+
+The protocol is deliberately minimal: one connection per request, one
+JSON object per line each way, so there is no framing state to desync,
+no multiplexing lock to deadlock behind a blocked barrier, and a dead
+peer is indistinguishable from a refused connect (both surface as
+``OSError``, which the caller classifies).
+"""
+from __future__ import annotations
+
+import json
+import socket
+import threading
+from typing import Callable, Dict, Optional, Tuple
+
+from ..obs import metrics as obs_metrics
+from ..obs import spans as obs_spans
+from ..obs import tracectx
+from ..status import Status
+
+MAX_LINE = 1 << 20  # a control message is small; a longer line is a bug
+#: data-plane endpoints (the router's serve proxy ships whole encoded
+#: tables) opt into a larger bound per call site; the CONTROL default
+#: stays tight so a runaway membership verb still fails loud
+
+
+class ProtocolError(ConnectionError):
+    """A deterministic wire-contract violation (e.g. a message past
+    ``MAX_LINE``): NOT transient — re-sending the same request fails
+    identically, so the retry logic below must never touch it."""
+
+
+#: mid-verb failure shapes one immediate retry may heal: the peer (or a
+#: middlebox) tore the connection down AFTER accepting it — a fresh
+#: connection usually lands on a healthy accept.  A plain
+#: ``ConnectionError`` is recv_json's "peer closed mid-message", the
+#: clean-close spelling of the same reset.  ``ConnectionRefusedError``
+#: is deliberately NOT here (nobody is listening — the caller's failure
+#: accounting owns that), and neither is `ProtocolError` (deterministic).
+_TRANSIENT_RESETS = (ConnectionResetError, BrokenPipeError,
+                     ConnectionAbortedError)
+
+
+def send_json(sock: socket.socket, obj: Dict) -> None:
+    """One JSON object, newline-terminated, in a single send."""
+    sock.sendall(json.dumps(obj, sort_keys=True).encode() + b"\n")
+
+
+def recv_json(sock: socket.socket, max_line: int = MAX_LINE) -> Dict:
+    """Read one newline-terminated JSON object (bounded by ``max_line``,
+    default the control-plane MAX_LINE)."""
+    buf = bytearray()
+    while not buf.endswith(b"\n"):
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise ConnectionError("control peer closed mid-message")
+        buf.extend(chunk)
+        if len(buf) > max_line:
+            raise ProtocolError(f"control message exceeds {max_line} bytes")
+    return json.loads(buf.decode())
+
+
+def request(address: Tuple[str, int], obj: Dict,
+            timeout: float = 5.0, retries: int = 1,
+            max_line: int = MAX_LINE) -> Dict:
+    """One request/response round trip on a fresh connection, with a
+    per-request socket timeout on connect AND each send/recv.
+
+    A transient mid-verb reset (``ECONNRESET``/``EPIPE``/peer closed
+    mid-message) gets ``retries`` immediate classified retries on a
+    fresh connection — previously it surfaced as a raw ``OSError`` with
+    no `Status` classification and no second chance, failing a
+    heartbeat for a one-packet hiccup.  Everything else still raises
+    ``OSError`` unchanged (incl. ``ConnectionRefusedError`` and
+    ``socket.timeout``) — the caller owns terminal classification (the
+    elastic agent turns repeated failures into coordinator loss).
+
+    The active trace context (obs.tracectx) rides every verb as a
+    ``traceparent`` field, so coordinator-side spans and remote ranks
+    join the requester's causal trace; a caller-supplied field wins.
+    """
+    obj = tracectx.attach_wire(obj)
+    attempt = 0
+    while True:
+        try:
+            with socket.create_connection(address, timeout=timeout) as sock:
+                sock.settimeout(timeout)
+                send_json(sock, obj)
+                return recv_json(sock, max_line)
+        except ConnectionError as e:
+            transient = (isinstance(e, _TRANSIENT_RESETS)
+                         or type(e) is ConnectionError)
+            if not transient or attempt >= retries:
+                raise
+            attempt += 1
+            st = Status.from_exception(e)
+            obs_spans.instant("control.retry", attempt=attempt,
+                              code=st.code.name,
+                              error=f"{type(e).__name__}: {e}"[:120])
+            obs_metrics.counter_add("control.retries")
+
+
+class JsonServer:
+    """Threaded accept loop serving one request per connection.
+
+    ``handler(request_dict) -> response_dict`` runs on a per-connection
+    thread; handler exceptions are answered as ``{"ok": False, "error":
+    ...}`` instead of tearing the connection (the client sees a clean
+    protocol-level failure, not a reset).  Binding port 0 reserves an
+    ephemeral port atomically — the listening socket IS the reservation,
+    so there is no bind-then-rebind TOCTOU window (the _free_port() race
+    the multihost test had).
+    """
+
+    def __init__(self, handler: Callable[[Dict], Dict],
+                 host: str = "127.0.0.1", port: int = 0,
+                 max_line: int = MAX_LINE):
+        self._handler = handler
+        self._max_line = int(max_line)
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.address: Tuple[str, int] = self._sock.getsockname()[:2]
+        self._closed = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "JsonServer":
+        self._thread = threading.Thread(target=self._serve, daemon=True,
+                                        name="cylon-control-serve")
+        self._thread.start()
+        return self
+
+    def _serve(self) -> None:
+        while not self._closed.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return  # socket closed: server death or clean stop
+            threading.Thread(target=self._serve_one, args=(conn,),
+                             daemon=True).start()
+
+    def _serve_one(self, conn: socket.socket) -> None:
+        with conn:
+            try:
+                conn.settimeout(5.0)
+                req = recv_json(conn, self._max_line)
+            except (OSError, ValueError):
+                return  # malformed/garbled request: drop the connection
+            try:
+                # a verb carrying a traceparent runs its handler under
+                # that context (as a child span of the caller's), so
+                # every obs instant the handler records — rendezvous
+                # skew, rank loss, fencing — is stamped with the
+                # requester's trace.  A garbled header means "no trace",
+                # never a failed verb.
+                ctx = tracectx.parse_or_none(req.get("traceparent"))
+                with tracectx.activate(
+                        ctx.child() if ctx is not None else None):
+                    resp = self._handler(req)
+            except Exception as e:
+                resp = {"ok": False,
+                        "error": f"{type(e).__name__}: {e}"}
+            try:
+                send_json(conn, resp)
+            except OSError:
+                pass  # client went away before the reply; nothing to do
+
+    def close(self) -> None:
+        """Stop accepting and release the port (idempotent)."""
+        self._closed.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass

@@ -24,9 +24,14 @@ sizes its output with ONE host sync (every shard's exact join count in
 one stacked fetch, maxed over a process group) and rounds it with
 ``table.cap_round``, as the eager ``_local_join`` does.
 
-Not ported: the plan-granularity durable journal (``CYLON_TPU_DURABLE_DIR``
-makes ``execute`` raise NotImplemented, ROADMAP.md queue A, item 10) and
-the serve layer's ``run_service`` (item 11).
+Durable integration is at PLAN granularity (``cylon_tpu/plan/
+executor.py:73-108``): with ``CYLON_TPU_DURABLE_DIR`` set, one fingerprint
+for the whole op chain (``LogicalPlan.fingerprint``), one journaled result
+frame — a repeated plan replays from spill with zero device passes and
+zero kernel launches (``plan.cache_hit``), served as a one-shard ``Table``
+on the plan's device.  A plan over a process group runs unjournaled (each
+process would race the others to the cache).  Not ported: the serve
+layer's ``run_service`` (ROADMAP.md queue A, item 11).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import torch
 
 from .. import config, durable
 from ..config import JoinConfig
+from ..context import CylonContext
 from ..obs import fleet as obs_fleet
 from ..obs import metrics as obs_metrics
 from ..obs import spans as obs_spans
@@ -69,14 +75,17 @@ def execute(plan: "ir.LogicalPlan", ctx=None, pass_guard=None,
     set, persists the observed statistics to the catalog under the plan
     fingerprint.  Over a process group every process must call it alike
     (every stage is collective, the fingerprint included).
-    ``CYLON_TPU_DURABLE_DIR`` set raises NotImplemented: the journal
-    that would replay the plan is not ported."""
-    durable.require_off()
+
+    With ``CYLON_TPU_DURABLE_DIR`` set (and one process) the run is
+    journaled at plan granularity; a repeated fingerprint is served
+    entirely from spill as a one-shard ``Table`` on the plan's device
+    (``stats_out["cache_hit"]``, counter ``plan.cache_hit``): no exchange,
+    no kernel launch."""
+    from ..table import Table
+
     if ctx is None:
         ctx = plan._ctx()
     if ctx is None:
-        from ..context import CylonContext
-
         ctx = CylonContext.Init()
     world = plan._world()
     enabled = planner_enabled()
@@ -88,15 +97,41 @@ def execute(plan: "ir.LogicalPlan", ctx=None, pass_guard=None,
 
     fp: Optional[str] = None
     sfp: Optional[str] = None
-    if prof is not None and stats_catalog.enabled():
+    journal = None
+    journaled = durable.enabled() and ctx.group is None
+    if journaled or (prof is not None and stats_catalog.enabled()):
         fp = plan.fingerprint()
+    if prof is not None and fp is not None and stats_catalog.enabled():
         # the catalog is keyed by the strategy-independent base
         # fingerprint: observations describe what the query IS, not what
         # the planner chose (with the adaptive knob off they agree)
         sfp = (plan.base_fingerprint() if optimizer.planner_adaptive()
                else fp)
+    if prof is not None:
         prof.fingerprint = fp
-        prof.estimates = stats_catalog.lookup(sfp)
+        if sfp is not None:
+            prof.estimates = stats_catalog.lookup(sfp)
+    if journaled:
+        journal = durable.open_run(fp, "plan", world=world)
+        if journal is not None and journal.is_complete():
+            # a complete journal is a cache entry; a spill that fails its
+            # checksum (or was evicted under us) misses and falls through
+            # to execution, never to a torn serve
+            got = journal.load_pass(0, 0)
+            if got is not None:
+                frame, rows = got
+                obs_metrics.counter_add("plan.cache_hit")
+                obs_spans.instant("plan.cache_hit", fingerprint=fp[:12],
+                                  rows=rows)
+                stats.update(passes_skipped=1, rows=rows, cache_hit=True)
+                if prof is not None:
+                    prof.plan_cache_hit = True
+                    prof.finalize(optimizer.optimize(plan, enabled=enabled),
+                                  0)
+                    prof.export()
+                return Table.from_numpy(
+                    list(frame), list(frame.values()),
+                    ctx=CylonContext.Init(ctx.devices[0]))
 
     t_run0 = time.perf_counter_ns()
     try:
@@ -135,6 +170,10 @@ def execute(plan: "ir.LogicalPlan", ctx=None, pass_guard=None,
         if sfp is not None:
             stats_catalog.record(sfp, prof.catalog_record(plan))
         prof.export()
+    if journal is not None:
+        journal.record_pass(0, 0, result.to_numpy(), int(stats["rows"]))
+        journal.record_done(1, int(stats["rows"]))
+        durable.gc_journal()
     if phys.root.part is not None:
         result._partitioning = phys.root.part
     return result

@@ -413,13 +413,29 @@ class LogicalPlan:
             phys, (self.root.spec(), self._world()))
 
     def _content_fingerprint(self, phys, header) -> str:
+        """``durable.run_fingerprint`` over the pruned scans' live rows,
+        hashed as their buffers (values or byte matrix, validity, string
+        lengths, with the logical type), not as decoded host values: a
+        string column costs one copy to the host and the bandwidth-bound
+        fold instead of a Python object per row.  Equal buffers are equal
+        content, so a hit is never wrong; the same content in other
+        buffers (another string width, other bytes under a null) only
+        misses."""
         from .. import durable
         from . import optimizer
 
         frames = []
         for scan, keep in optimizer.scan_prunes(phys):
             t = self.inputs[scan.idx].project(list(keep))
-            frames.append((tuple(keep), t.to_numpy()))
+            cols, n = t._gathered_columns()
+            bufs = {}
+            for name, c in zip(keep, cols):
+                tag = f"{name}:{c.dtype!r}"
+                bufs[f"{tag}:data"] = c.data[:n].cpu().numpy()
+                bufs[f"{tag}:valid"] = c.validity[:n].cpu().numpy()
+                if c.lengths is not None:
+                    bufs[f"{tag}:lengths"] = c.lengths[:n].cpu().numpy()
+            frames.append((tuple(bufs), bufs))
         return durable.run_fingerprint("plan", header, frames)
 
     def approx_input_bytes(self) -> int:

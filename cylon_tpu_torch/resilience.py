@@ -27,17 +27,20 @@ Fault-plan spec grammar (';'- or ','-separated entries)::
     site            fire an OOM on the 1st hit of `site`
     site@N          fire an OOM on the Nth hit (1-based)
     site@N=kind     kind in FAULT_KINDS (oom, timeout, comm, unknown, hang,
-                    delay)
+                    delay, and the journal's killhard, journal_corrupt,
+                    cache_evict_race, disk_full, bitrot, sync_partial)
     site@N+=kind    fire on EVERY hit >= N (persistent fault)
 
-e.g. ``CYLON_TPU_FAULT_PLAN="pass_dispatch@2=oom;host_fetch@1=timeout"``.
-A kind of the JAX package that acts on a module not ported yet (the run
-journal's ``journal_corrupt``, the gang's ``rank_kill``, ...) fails the
-parse with `Code.NotImplemented` instead of firing as a no-op.
+e.g. ``CYLON_TPU_FAULT_PLAN="pass_dispatch@2=oom;journal_commit@3=killhard"``.
+A kind of the JAX package that acts on a module not ported yet (the
+gang's ``rank_kill``, the serving layer's ``shed``, ...) fails the parse
+with `Code.NotImplemented` instead of firing as a no-op.
 """
 from __future__ import annotations
 
 import contextlib
+import errno
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -179,13 +182,27 @@ def retry_call(fn, *, policy: Optional[RetryPolicy] = None, site: str = "op",
 
 # Message shapes mirror real PJRT/collective failure text so injected
 # faults exercise the SAME classification path genuine failures take.
-# Only the kinds the port's probes (the engine's pass_dispatch and
+# The kinds the port's probes act on (the engine's pass_dispatch and
 # host_fetch, the collectives' shuffle and broadcast, the one-shot
-# oneshot_join and oneshot_groupby) can act on: the raising kinds, `hang`
-# (sleeps the probe past the active
-# pass deadline) and `delay` (sleeps FAULT_DELAY_S and continues, a
-# seeded straggler).  The JAX package's other kinds act on the run
-# journal, the elastic gang or the serving layer, none of which is ported.
+# oneshot_join and oneshot_groupby, the journal's journal_spill and
+# journal_commit, the replication pull's journal_sync_file): the raising
+# kinds, `hang` (sleeps the probe past the active pass deadline), `delay`
+# (sleeps FAULT_DELAY_S and continues, a seeded straggler) and the
+# journal's kinds:
+# - `killhard` os._exit(137)s at the probe (a kill -9 cannot be raised
+#   past); `sync_partial` is the same death at the replication copy
+#   probe, which the spills-first/manifest-LAST pull order must make
+#   invisible;
+# - `journal_corrupt` truncates the last committed spill and continues;
+#   `bitrot` XOR-flips one mid-file byte of a committed spill in the most
+#   recently opened run (silent decay, for the scrubber and read-repair);
+# - `cache_evict_race` deletes the last-opened run's spills while keeping
+#   its manifest (a GC eviction racing a reader, which must re-execute,
+#   never serve a torn journal);
+# - `disk_full` raises OSError(ENOSPC) at the spill write, the real errno
+#   of a full journal disk, so the degraded mode runs end to end.
+# The JAX package's other kinds act on the elastic gang or the serving
+# layer, neither of which is ported.
 _KIND_MESSAGES = {
     "oom": ("RESOURCE_EXHAUSTED: injected fault at {site} (hit {hit}): "
             "attempting to allocate past HBM capacity"),
@@ -196,20 +213,24 @@ _KIND_MESSAGES = {
     "unknown": "INTERNAL: injected fault at {site} (hit {hit})",
     "hang": "injected hang at {site} (hit {hit})",
     "delay": "injected delay at {site} (hit {hit})",
+    "killhard": "injected hard kill at {site} (hit {hit})",
+    "journal_corrupt": "injected spill corruption at {site} (hit {hit})",
+    "cache_evict_race": "injected cache evict race at {site} (hit {hit})",
+    "disk_full": ("RESOURCE_EXHAUSTED: injected disk full at {site} "
+                  "(hit {hit}): no space left on device"),
+    "bitrot": "injected spill bitrot at {site} (hit {hit})",
+    "sync_partial": "injected partial journal sync at {site} (hit {hit})",
 }
 
 FAULT_KINDS = tuple(_KIND_MESSAGES)
 
 # the JAX package's kinds that act on a module the port does not have
-# yet, by its ROADMAP.md queue A item: 10 the run journal, 11 the elastic
-# gang and the serving layer
-_UNPORTED_KINDS = {
-    **dict.fromkeys(("killhard", "journal_corrupt", "cache_evict_race",
-                     "disk_full", "bitrot", "sync_partial"), 10),
-    **dict.fromkeys(("rank_kill", "heartbeat_loss", "coordinator_loss",
-                     "coordinator_restart", "coord_partition", "coord_slow",
-                     "tenant_flood", "shed", "replica_sick"), 11),
-}
+# yet, by its ROADMAP.md queue A item: 11 the elastic gang and the
+# serving layer
+_UNPORTED_KINDS = dict.fromkeys(
+    ("rank_kill", "heartbeat_loss", "coordinator_loss",
+     "coordinator_restart", "coord_partition", "coord_slow",
+     "tenant_flood", "shed", "replica_sick"), 11)
 
 #: seconds the ``delay`` kind sleeps the probe
 FAULT_DELAY_S = 0.25
@@ -382,14 +403,31 @@ def fault_point(site: str) -> None:
         obs_spans.instant("fault.injected", site=site, kind=kind,
                           hit=plan.hits[site])
         obs_metrics.counter_add("fault.injected")
-        if kind == "hang":
+        if kind in ("killhard", "sync_partial"):
+            # simulate kill -9 / preemption: no cleanup, no atexit, no
+            # flushed buffers (and no CUDA teardown) — exactly what the
+            # journal must survive
+            os._exit(137)
+        if kind in ("journal_corrupt", "bitrot", "cache_evict_race", "hang"):
             from . import durable
 
-            time.sleep(max(1.5 * durable.deadline_s(), 0.05))
+            if kind == "journal_corrupt":
+                durable._corrupt_last_spill()
+            elif kind == "bitrot":
+                durable._bitrot_last_run(plan.hits[site])
+            elif kind == "cache_evict_race":
+                durable._evict_last_run_spills()
+            else:
+                time.sleep(max(1.5 * durable.deadline_s(), 0.05))
             return
         if kind == "delay":
             time.sleep(FAULT_DELAY_S)
             return
+        if kind == "disk_full":
+            # the genuine errno, so classification (and any errno-based
+            # handling) is identical to a really-full disk
+            raise OSError(errno.ENOSPC, _KIND_MESSAGES[kind].format(
+                site=site, hit=plan.hits[site]))
         raise InjectedFault(site, kind, plan.hits[site])
 
 

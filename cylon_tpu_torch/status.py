@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -44,10 +45,14 @@ class Code(enum.IntEnum):
 class CylonError(Exception):
     """Raised when an operation fails; carries a :class:`Code`."""
 
-    def __init__(self, code: Code, msg: str):
+    def __init__(self, code: Code, msg: str,
+                 retry_after_s: Optional[float] = None):
         super().__init__(f"[{code.name}] {msg}")
         self.code = code
         self.msg = msg
+        # a shed's hint to the caller (seconds), carried across the wire
+        # by ``router/wire.classified``; None when the failure has none
+        self.retry_after_s = retry_after_s
 
 
 # Failure-text classification tables (lowercase substrings), as

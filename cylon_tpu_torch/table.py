@@ -76,7 +76,7 @@ import numpy as np
 import torch
 
 from . import column as column_mod
-from . import compute, config, dtypes, resilience
+from . import compute, config, dtypes, durable, resilience
 from .column import Column
 from .config import JoinConfig, JoinType, SortOptions
 from .context import CylonContext
@@ -1071,10 +1071,15 @@ def _oneshot_oom_fallback(left: Table, right: Optional[Table],
         return False
     if left.num_shards != 1 or (right is not None and right.num_shards != 1):
         return False
-    obs_spans.instant("table.oneshot_fallback", durable=False)
+    # the fallback run rides the chunked engine, so with a durable dir set
+    # it is journaled and crash-resumable — record which, so a trace shows
+    # whether a later kill would lose the recovery work
+    journaled = durable.enabled()
+    obs_spans.instant("table.oneshot_fallback", durable=journaled)
     logging.getLogger(__name__).warning(
         "one-shot device program exceeded memory (%s); falling back to the "
-        "chunked out-of-core engine", type(exc).__name__)
+        "chunked out-of-core engine%s", type(exc).__name__,
+        " (journaled: CYLON_TPU_DURABLE_DIR set)" if journaled else "")
     # the failed attempt's tensors live on in the traceback's frames
     traceback.clear_frames(exc.__traceback__)
     return True

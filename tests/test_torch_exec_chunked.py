@@ -14,6 +14,8 @@ and stats exact; float32 sums and means rtol=1e-5 (prefix sums and
 segmented scans round in different orders, ``tests/test_torch_segments.py``);
 float64 results rtol=1e-12.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -162,13 +164,38 @@ def test_chunked_hash_algo_matches_reference(rng, mode):
 
 
 def test_engine_refuses_the_journal(rng, tmp_path):
-    """The run journal is not ported: a durable dir makes the one-shard
-    engine raise.  (A mesh ctx runs since the engine took meshes:
-    ``tests/test_torch_exec_mesh.py``.)"""
+    """A mesh engine runs unjournaled under a durable dir, as the
+    reference's does (its mesh path returns before the journal opens): no
+    run directory is written, and the result is the unjournaled one."""
+    from cylon_tpu_torch import MeshConfig
+
+    mesh = CylonContext.InitDistributed(MeshConfig(devices=["cpu"],
+                                                   world_size=2))
+    data = _data(rng, 400)
+    want, _ = pexec.chunked_join_groupby(*data, 2, ctx=mesh)
     with pconfig.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
-        with pytest.raises(CylonError, match="item 10") as e:
-            pexec.chunked_join_groupby(*_data(rng, 100), 2, ctx=CPU)
-    assert e.value.code == Code.NotImplemented
+        got, stats = pexec.chunked_join_groupby(*data, 2, ctx=mesh)
+        g, gstats = pexec.chunked_groupby(
+            {"k": data[0], "v": data[1]}, "k", {"v": "sum"}, passes=2,
+            ctx=mesh)
+    assert os.listdir(tmp_path) == []
+    assert "passes_skipped" not in stats and "passes_skipped" not in gstats
+    assert_frames_equal(got, want)
+
+
+def test_one_shard_engine_journals(rng, tmp_path):
+    """The one-shard engine journals every pass under a durable dir and a
+    repeat serves them all from the journal, bit for bit."""
+    data = _data(rng, 400)
+    with pconfig.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        first, s1 = pexec.chunked_join_groupby(*data, 2, ctx=CPU)
+        again, s2 = pexec.chunked_join_groupby(*data, 2, ctx=CPU)
+    assert len(os.listdir(tmp_path)) == 1
+    assert (s1["passes_skipped"], s1["parts_run"]) == (0, 2)
+    assert s2["passes_skipped"] == 2 and "parts_run" not in s2
+    for k in first:
+        np.testing.assert_array_equal(again[k].view(np.uint8),
+                                      first[k].view(np.uint8))
 
 
 def test_engine_without_a_card_raises(rng, monkeypatch):
@@ -370,10 +397,13 @@ def test_run_passes_streams_positional_passes_with_retry():
 
 
 def test_fault_plan_hook_kinds_match_reference():
-    """The port keeps the kinds the engine's two probes act on, each with
-    the reference's message; every other reference kind is refused."""
-    assert set(presilience.FAULT_KINDS) == {"oom", "timeout", "comm",
-                                            "unknown", "hang", "delay"}
+    """The port keeps the kinds the engine's probes and the run journal's
+    act on, each with the reference's message; every other reference kind
+    is refused."""
+    assert set(presilience.FAULT_KINDS) == {
+        "oom", "timeout", "comm", "unknown", "hang", "delay", "killhard",
+        "journal_corrupt", "cache_evict_race", "disk_full", "bitrot",
+        "sync_partial"}
     assert set(rresilience.FAULT_KINDS) == (
         set(presilience.FAULT_KINDS) | set(presilience._UNPORTED_KINDS))
     for kind in presilience.FAULT_KINDS:

@@ -981,3 +981,49 @@ def test_plan_fingerprint_on_the_card(gen):
     first = fp(["cuda"], d)
     assert first == fp(["cuda"], d) == fp(["cpu"], d)
     assert fp(["cuda"], dict(d, v=d["v"] + 1)) != first
+
+
+@pytest.mark.gpu
+def test_journaled_engine_resumes_on_the_card(gen, tmp_path):
+    """A journaled 4-pass engine run on the card: killed (a persistent
+    injected comm fault, no retries) after two committed passes, then
+    resumed in-process from its journal, bit for bit the unjournaled run;
+    a full journal hit then launches no kernel.  Every frame reaches the
+    journal as host numpy (``record_pass`` raises on a tensor)."""
+    from cylon_tpu_torch import CylonContext, config, resilience
+    from cylon_tpu_torch.exec import chunked_join_groupby_tables
+
+    rng = np.random.default_rng(13)
+    n = 1 << 18
+    left = {"k": rng.integers(0, n, n).astype(np.int32),
+            "a": rng.random(n).astype(np.float32)}
+    right = {"k": rng.integers(0, n, n).astype(np.int32),
+             "b": rng.random(n).astype(np.float32)}
+    ctx = CylonContext.Init("cuda")
+
+    def run():
+        return chunked_join_groupby_tables(
+            left, right, on="k", group_by="l_k",
+            agg={"a": ["sum"], "b": ["mean"]}, passes=4, ctx=ctx)
+
+    def launches():
+        return {**scan.LAUNCHES, **hash_kernels.LAUNCHES}
+
+    base, _ = run()
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path),
+                         CYLON_TPU_RETRY_MAX="0"):
+        with resilience.fault_plan("host_fetch@3+=comm"):
+            with pytest.raises(Exception):
+                run()
+        resumed, s1 = run()
+        scan.reset_launches()
+        hash_kernels.reset_launches()
+        hit, s2 = run()
+        assert all(v == 0 for v in launches().values()), launches()
+    assert (s1["passes_skipped"], s1["parts_run"]) == (2, 2)
+    assert s2["passes_skipped"] == 4 and "parts_run" not in s2
+    for got in (resumed, hit):
+        assert list(got) == list(base)
+        for k in base:
+            assert np.array_equal(got[k].view(np.uint8),
+                                  base[k].view(np.uint8)), k

@@ -39,8 +39,9 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    # every module of the package, the out-of-core engine's included
-    assert int(out.stdout.split()[-1]) >= 41
+    # every module of the package, the out-of-core engine's and the
+    # journal's (durable_lease, durable_sync, net/, router/) included
+    assert int(out.stdout.split()[-1]) >= 71
 
 
 def test_import_loads_neither_pandas_nor_pyarrow():
@@ -65,9 +66,12 @@ def test_import_loads_neither_pandas_nor_pyarrow():
 
 @pytest.mark.parametrize("module", ["io", "io/arrow_io", "io/csv_config",
                                     "native", "native/build", "frame",
-                                    "series", "index"])
+                                    "series", "index", "durable_lease",
+                                    "durable_sync", "net", "net/control",
+                                    "router", "router/wire"])
 def test_front_door_modules_import_no_jax(module):
-    """The I/O layer, the native bindings and the frames are copies of the
+    """The I/O layer, the native bindings, the frames and the journal's
+    stdlib modules (its lease, transport and wire codec) are copies of the
     JAX package's modules, never imports of them."""
     path = PKG / f"{module}.py"
     if not path.exists():

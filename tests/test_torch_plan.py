@@ -16,10 +16,11 @@ to the port on ``MeshConfig(devices=["cpu"], world_size=...)``:
 - under ``CYLON_TPU_SHUFFLE_PACK=1`` both packages run the same number
   of exchanges, collective launches and count gathers.
 
-Cases of ``tests/test_plan.py`` that wait for a later item
-(``WAITING``): the plan-granularity journal replay (ROADMAP A10) and the
+The plan-granularity journal replay runs in both packages under a
+durable dir (``test_journal_replay_zero_compiles``).  The case of
+``tests/test_plan.py`` that waits for a later item (``WAITING``): the
 serve layer's plan op (A11); ``test_plan_waits_name_their_item`` shows
-the port refusing both.
+the port refusing it.
 """
 import contextlib
 
@@ -38,10 +39,10 @@ from cylon_tpu_torch import (Code, CylonContext, CylonError, MeshConfig,
 from cylon_tpu_torch.obs import metrics as obs_metrics
 from cylon_tpu_torch.parallel import collectives
 from cylon_tpu_torch.plan import col, lit, optimizer
+from cylon_tpu_torch.plan import executor as plan_executor
 
 #: cases of tests/test_plan.py that wait for a later ROADMAP item
-WAITING = {"test_journal_replay_zero_compiles": "A10",
-           "test_serve_plan_op_and_cache_hit": "A11"}
+WAITING = {"test_serve_plan_op_and_cache_hit": "A11"}
 
 WORLDS = (1, 2, 4)
 REF_FIXTURE = {1: "local_ctx", 2: "ctx2", 4: "ctx4"}
@@ -506,25 +507,77 @@ def test_shuffles_elided_counter(pair):
 
 
 def test_plan_waits_name_their_item(pair, tmp_path):
-    """The journal replay (A10) and the serve layer's plan op (A11) are
-    not ported: ``execute`` raises NotImplemented while
-    ``CYLON_TPU_DURABLE_DIR`` asks for the journal, and ``run_service``
-    raises naming A11."""
+    """The serve layer's plan op (A11) is not ported: ``run_service``
+    raises naming A11.  (The journal replay is: a durable dir makes
+    ``execute`` journal, ``test_journal_replay_zero_compiles``.)"""
     from cylon_tpu_torch.plan import run_service
 
     rng = np.random.default_rng(16)
     _, pt = _tables(_raw(rng), *pair(4))
     _, pr = _tables(_raw_right(rng), *pair(4))
     q = _join_groupby(pt, pr, col, lit)
-    assert WAITING == {"test_journal_replay_zero_compiles": "A10",
-                       "test_serve_plan_op_and_cache_hit": "A11"}
-    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
-        with pytest.raises(CylonError, match="item 10") as e:
-            q.execute()
-    assert e.value.code == Code.NotImplemented
-    with pytest.raises(CylonError, match="item 11"):
+    assert WAITING == {"test_serve_plan_op_and_cache_hit": "A11"}
+    with pytest.raises(CylonError, match="item 11") as e:
         run_service(q)
+    assert e.value.code == Code.NotImplemented
     assert q.approx_input_bytes() > 0
+
+
+def test_journal_replay_zero_compiles(pair, tmp_path):
+    """A repeated plan fingerprint under a durable dir is served from the
+    journal in both packages: ``plan.cache_hit`` 1, zero exchanges (no
+    device pass; the reference also compiles nothing), and the same
+    rows as the first call, which equal the reference's."""
+    rng = np.random.default_rng(16)
+    rt, pt = _tables(_raw(rng), *pair(4))
+    rr, pr = _tables(_raw_right(rng), *pair(4))
+    rq, q = _both(_join_groupby, (rt, rr), (pt, pr))
+    keys = ("plan.cache_hit", "shuffle.exchanges")
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path / "port")):
+        first = q.execute()
+        with _deltas(obs_metrics, keys) as d:
+            stats = {}
+            second = plan_executor.execute(q, stats_out=stats)
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path / "ref")):
+        rfirst = rq.execute()
+        with _deltas(robs_metrics, keys + ("plan_cache.miss",
+                                           "plan_cache.hit")) as rd:
+            rsecond = rq.execute()
+    assert d == {"plan.cache_hit": 1, "shuffle.exchanges": 0}, d
+    assert rd == {"plan.cache_hit": 1, "shuffle.exchanges": 0,
+                  "plan_cache.miss": 0, "plan_cache.hit": 0}, rd
+    assert stats["cache_hit"] and stats["passes_skipped"] == 1
+    assert second.num_shards == 1
+    assert second.shards[0][0].data.device.type == "cpu"
+    pd.testing.assert_frame_equal(_sorted_pd(first, ["k"]),
+                                  _sorted_pd(second, ["k"]))
+    _assert_like_reference(second, rsecond, ["k"])
+    _assert_like_reference(first, rfirst, ["k"])
+
+
+def test_plan_evicted_journal_falls_through_to_execution(pair, tmp_path):
+    """``cache_evict_race`` (the run's spills deleted, its manifest kept)
+    between two calls: the second call misses and executes, never serves
+    a torn journal, and its rows equal the first call's."""
+    from cylon_tpu_torch import resilience
+
+    rng = np.random.default_rng(21)
+    _, pt = _tables(_raw(rng), *pair(4))
+    _, pr = _tables(_raw_right(rng), *pair(4))
+    q = _join_groupby(pt, pr, col, lit)
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        first = q.execute()
+        with resilience.fault_plan("evict@1=cache_evict_race"):
+            resilience.fault_point("evict")
+        with _deltas(obs_metrics, ("plan.cache_hit",
+                                   "shuffle.exchanges")) as d:
+            second = q.execute()
+        third = q.execute()
+    assert d["plan.cache_hit"] == 0 and d["shuffle.exchanges"] > 0, d
+    assert third.num_shards == 1  # the re-executed run re-journaled
+    for t in (second, third):
+        pd.testing.assert_frame_equal(_sorted_pd(first, ["k"]),
+                                      _sorted_pd(t, ["k"]))
 
 
 def test_fingerprint_tracks_content_and_knobs(pair):

@@ -12,9 +12,8 @@ different hashes on the CPU) must agree.
 
 ``test_profile.py``'s cases that wait for a later item
 (``WAITING``): the OpenMetrics rendering and server, the histogram
-buckets, the coordinator's metrics verb and the fleet tooling (A11),
-the journal cache hit (A10) and the serve op under the profiler knob
-(A11).
+buckets, the coordinator's metrics verb and the fleet tooling, and the
+serve op under the profiler knob (all A11).
 """
 import json
 import os
@@ -53,7 +52,6 @@ WAITING = {
     "test_metrics_pruned_with_dead_rank": "A11",
     "test_trace_report_plan_flag": "A11",
     "test_trace_report_compression_counters": "A11",
-    "test_profile_cache_hit_path": "A10",
     "test_run_service_with_profiler_knob": "A11",
 }
 
@@ -368,6 +366,27 @@ def test_plan_fatal_produces_flight_dump(mesh4, tmp_path):
     assert "plan_fatal" in reasons, reasons
 
 
+def test_profile_cache_hit_path(ctx4, mesh4, tmp_path):
+    """Under a durable dir the second profiled run of a plan is served
+    from the journal, in both packages: ``plan_cache_hit`` False then
+    True, and EXPLAIN ANALYZE says so."""
+    from cylon_tpu import config as rconfig
+
+    raw = _raw(np.random.default_rng(19))
+    for T, ctx, c, l, cfg, root in (
+            (Table, mesh4, col, lit, config, "port"),
+            (RTable, ctx4, rcol, rlit, rconfig, "ref")):
+        t, t2 = _tables(T, ctx, raw)
+        with cfg.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path / root / "j"),
+                          CYLON_TPU_TRACE_DIR=str(tmp_path / root)):
+            plan = _q(t, t2, c, l)
+            _, p1 = plan.profile()
+            assert p1.plan_cache_hit is False, root
+            _, p2 = plan.profile()
+            assert p2.plan_cache_hit is True, root
+            assert "served from journal" in plan.explain(analyze=True)
+
+
 def test_profile_waits_name_their_item():
     """The cases that wait are test_profile.py's own, and each names its
     ROADMAP item."""
@@ -380,4 +399,4 @@ def test_profile_waits_name_their_item():
     ported = {n for n in globals() if n.startswith("test_")}
     assert set(WAITING) <= names
     assert names <= set(WAITING) | ported, names - set(WAITING) - ported
-    assert set(WAITING.values()) == {"A10", "A11"}
+    assert set(WAITING.values()) == {"A11"}

@@ -22,6 +22,7 @@ from cylon_tpu_torch import resilience as pres
 from cylon_tpu_torch.obs import fleet, metrics, spans
 from cylon_tpu_torch.status import Code, CylonError, Status
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = ["pass_dispatch", "pass_dispatch@2=oom", "host_fetch@3+=comm",
          "a@1=timeout;b@2=unknown,c@4+=oom", "seed=7;x@2~3=comm;y@1~5=oom",
          "pass_dispatch@2=hang;host_fetch@1=delay", " s @ 1 = OOM ;; "]
@@ -72,13 +73,12 @@ def test_env_fault_plan_and_journal_kinds():
             pres.fault_point("s")
         pres.fault_point("s")  # hit 2: nothing
     pres.fault_point("s")  # no plan: a no-op
-    # the journal's kinds need the run journal, which is not ported: the
-    # plan is refused instead of firing them as no-ops
+    # the journal's kinds parse as the reference's do (they act in
+    # test_journal_fault_kinds_act)
     for kind in ("journal_corrupt", "bitrot", "cache_evict_race"):
-        with pytest.raises(CylonError, match="item 10") as e:
-            pres.FaultPlan.parse(f"j@1={kind}")
-        assert e.value.code == Code.NotImplemented
-        rres.FaultPlan.parse(f"j@1={kind}")  # the reference has a journal
+        spec = f"j@1={kind}"
+        assert _rules(pres.FaultPlan.parse(spec)) == \
+            _rules(rres.FaultPlan.parse(spec))
     with pres.fault_plan("d@1=delay") as plan:
         t0 = time.perf_counter()
         pres.fault_point("d")  # sleeps, raises nothing
@@ -91,7 +91,7 @@ def test_env_fault_plan_and_journal_kinds():
 def test_unported_fault_kinds_are_refused(kind):
     """Every kind of the reference's grammar the port lacks names the
     ROADMAP item that brings the module it acts on."""
-    with pytest.raises(CylonError, match=r"item 1[01]\)") as e:
+    with pytest.raises(CylonError, match=r"item 11\)") as e:
         pres.FaultPlan.parse(f"pass_dispatch@1={kind}")
     assert e.value.code == Code.NotImplemented
 
@@ -190,16 +190,95 @@ def test_pass_deadline_fires_and_classifies_timeout():
         d.accept_late()  # records, never raises
     with pconfig.knob_env(CYLON_TPU_QUARANTINE_AFTER="3"):
         assert durable.quarantine_after() == 3
-    durable.require_off()
 
 
-def test_durable_dir_asks_for_the_journal_that_is_not_ported(tmp_path):
+def test_durable_dir_opens_a_journal(tmp_path):
+    """``CYLON_TPU_DURABLE_DIR`` set: ``open_run`` opens a run dir under
+    it and writes the manifest header; unset, nothing is journaled."""
+    assert not durable.enabled() and durable.open_run("a" * 64, "t") is None
     with pconfig.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
         assert durable.enabled()
-        with pytest.raises(CylonError) as e:
-            durable.require_off()
-    assert e.value.code == Code.NotImplemented
-    assert not os.listdir(tmp_path)  # nothing written
+        j = durable.open_run("a" * 64, "t")
+    assert os.listdir(tmp_path) == ["a" * 64]
+    header = json.loads((tmp_path / ("a" * 64) / durable.MANIFEST)
+                        .read_text())
+    assert header == {"kind": "run", "fingerprint": "a" * 64, "op": "t"}
+    assert j.completed_count() == 0 and not j.is_complete()
+
+
+_KILL_SRC = """\
+from cylon_tpu_torch import resilience
+resilience.fault_point("site")
+print("survived")
+"""
+
+
+@pytest.mark.fault
+@pytest.mark.parametrize("kind", ["killhard", "sync_partial",
+                                  "journal_corrupt", "bitrot",
+                                  "cache_evict_race", "disk_full"])
+def test_journal_fault_kinds_act(kind, tmp_path, monkeypatch):
+    """Each of the journal's fault kinds does what the reference's does:
+    killhard and sync_partial end the process with rc 137 at the probe,
+    journal_corrupt truncates the last committed spill to half, bitrot
+    flips one mid-file byte of one spill, cache_evict_race deletes the
+    run's spills and keeps its manifest, disk_full raises ENOSPC (with the
+    reference's message)."""
+    import errno
+    import subprocess
+    import sys
+
+    if kind in ("killhard", "sync_partial"):
+        env = dict(os.environ, CYLON_TPU_FAULT_PLAN=f"site@1={kind}",
+                   PYTHONPATH=REPO)
+        out = subprocess.run([sys.executable, "-c", _KILL_SRC], cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 137, out.stderr[-2000:]
+        assert "survived" not in out.stdout
+        return
+    monkeypatch.setattr(durable, "_LAST_JOURNAL", None)
+    frame = {"k": np.arange(64, dtype=np.int64)}
+    with pconfig.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        j = durable.open_run("b" * 64, "t")
+        for p in range(2):
+            assert j.record_pass(0, p, frame, 64)
+    run = tmp_path / ("b" * 64)
+    paths = [run / f"pass_L0_P{p}.arrow" for p in (0, 1)]
+    before = [p.read_bytes() for p in paths]
+    with pres.fault_plan(f"site@1={kind}") as plan:
+        if kind == "disk_full":
+            with pytest.raises(OSError) as e:
+                pres.fault_point("site")
+            assert e.value.errno == errno.ENOSPC
+            with rres.fault_plan(f"site@1={kind}"):
+                with pytest.raises(OSError) as want:
+                    rres.fault_point("site")
+            assert str(e.value) == str(want.value)
+        else:
+            pres.fault_point("site")
+    assert plan.fired == [("site", kind, 1)]
+    if kind == "cache_evict_race":
+        assert os.listdir(run) == [durable.MANIFEST]
+        good = [False, False]
+    else:
+        after = [p.read_bytes() for p in paths]
+        good = [a == b for a, b in zip(after, before)]
+        if kind == "journal_corrupt":  # the last committed spill, halved
+            assert after[1] == before[1][:len(before[1]) // 2]
+        elif kind == "bitrot":  # one mid-file byte of one spill, flipped
+            (bad,) = [i for i in (0, 1) if not good[i]]
+            diff = [i for i, (x, y) in enumerate(zip(after[bad],
+                                                     before[bad])) if x != y]
+            assert diff == [len(before[bad]) // 2]
+            assert len(after[bad]) == len(before[bad])
+        else:  # disk_full touches no file
+            assert good == [True, True]
+    assert good.count(False) == {"journal_corrupt": 1, "bitrot": 1,
+                                 "cache_evict_race": 2, "disk_full": 0}[kind]
+    with pconfig.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        j2 = durable.open_run("b" * 64, "t")
+        assert [j2.load_pass(0, p) is not None for p in (0, 1)] == good
 
 
 def test_obs_watermark_spans_and_flight_record(tmp_path):
