@@ -201,7 +201,37 @@ Phases, each of which fails the run on error:
    without a peer, and read-repairs it bit for bit from a
    ``JournalPeerServer`` on 127.0.0.1 over a second root filled by
    ``pull_run`` (no pass re-executed); ``scrub_once`` then finds the
-   root clean.
+   root clean;
+3y. the serving layer on one process: a ``QueryService`` on the card's
+   context with a journal root under a temporary directory (removed at
+   the end) and three tenants.  (a) misses, one after another with the
+   launch counters zeroed around each: 3x's ``join_groupby``
+   (``chunked_join_groupby_tables``, 2^23 rows per side, SUM and MEAN, 8
+   passes), ``groupby`` (SUM, MEAN, COUNT of 3x's left side by ``k``),
+   ``sort`` (that side by ``k``), ``plan`` (3w's Q10 on its 4-shard mesh)
+   and ``refresh`` of (d)'s stream query at watermark 4: each frame bit
+   for bit the same call made without the service, and its oracle; each
+   request's queue-wait and run seconds and launches; (b) the same five
+   again: each a ``serve.cache_hit`` with no launch, bit for bit (a)'s;
+   (c) overload under ``queue_cap=8``, ``tenant_share=0.5``, unjournaled:
+   while a ``join_groupby`` runs one tenant floods 12 small sorts (at
+   least one shed ``ResourceExhausted`` with ``retry_after_s > 0``), the
+   other tenants are admitted and exact, one queued sort is cancelled,
+   ``FaultSchedule().at("serve.admit", "tenant_flood")`` sheds exactly
+   one submission, a one-byte device-memory budget sheds at admission,
+   and ``drain()`` sheds the queue with ``Unavailable`` while the
+   in-flight group-by finishes exactly; (d) a ``StreamTable`` of 3w's
+   SF-1 lineitem (its four numeric Q10 columns, 6,001,215 rows) in 6
+   micro-batches: ``GroupByQuery`` by ``l_orderkey`` (SUM of
+   ``l_extendedprice``, MEAN of ``l_quantity``, COUNT) refreshed at 4 and
+   6, the second folding only batches 5-6 (its launches against the
+   first's), each bit for bit ``recompute_cold()`` and a pandas float64
+   oracle within rtol 1e-5; a ``JoinQuery`` of the batches against orders
+   probing only the delta, against numpy; (e) ``openmetrics.start_server
+   (0)`` on 127.0.0.1: one scrape parses and carries the per-tenant
+   latency histograms with their ``le`` buckets and
+   ``serve_cache_hit`` 5.  It prints the phase's seconds, peak device
+   memory and the card's name and power limit.
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -215,7 +245,9 @@ Phases, each of which fails the run on error:
 It prints the script's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name and power limit line, and, last, ``{"ok": true,
 "device": {...}}``.  ``--durable-worker ROOT OUT`` is phase 3x's
-child and prints no result.  Without a CUDA
+child and prints no result; ``--serve-profile OUT`` (``serve_profile``)
+times 3y's served ``join_groupby`` miss against the same call made
+directly, with a host profile of each, and prints no result.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.  ``--out`` also writes every number to a JSON file; ``--profile``
 adds a device-time breakdown by kernel of one run of each main path (the
@@ -223,7 +255,7 @@ hash join's included), of the set ops, of the distributed sorts, of the
 string paths, of Q1, of a second out-of-core sweep (whose device busy
 share of its wall time is the engine's idle measure) and of a second run
 of 3m, 3o, 3p and 3q, of one 3v engine run and of each 3w query
-(planned), and a stage breakdown of one distributed run.  Phases 3i-3w
+(planned), and a stage breakdown of one distributed run.  Phases 3i-3y
 run after phase 4, once the earlier phases' tensors are freed.
 """
 from __future__ import annotations
@@ -585,24 +617,37 @@ def _float_key_checks(dev, case, passed, checks) -> None:
 # -- phase 3 ------------------------------------------------------------------
 
 def _oracle(data, rows: int) -> dict:
-    """numpy bincount oracle of the join -> SUM/MEAN group-by on
+    """float64 oracle of the join -> SUM/MEAN group-by on
     ``pipeline.make_data`` tables: join count, group keys (ascending),
-    float64 SUM(lv) and MEAN(rv) per group."""
-    import numpy as np
+    float64 SUM(lv) and MEAN(rv) per group.  Per-key counts and sums by
+    torch's own ``index_add_`` on the card (none of the port's code): a
+    numpy ``bincount`` holds the GIL for a minute at 2^29 rows.  The
+    inputs go up in slices, so the card holds the four rows-long
+    accumulators and one slice."""
+    import torch
 
+    dev = torch.device("cuda")
     lk, lv, rk, rv = data
-    cl = np.bincount(lk, minlength=rows).astype(np.int64)
-    cr = np.bincount(rk, minlength=rows).astype(np.int64)
-    sl = np.bincount(lk, weights=lv.astype(np.float64), minlength=rows)
-    sr = np.bincount(rk, weights=rv.astype(np.float64), minlength=rows)
-    # gathers at the group keys and a dot product instead of full-length
-    # temporaries and boolean masks: the same values, fewer passes over
-    # 2^29-long arrays on a host where each pass takes seconds
-    keys = np.flatnonzero((cl > 0) & (cr > 0))
+    cl = torch.zeros(rows, dtype=torch.int64, device=dev)
+    cr = torch.zeros_like(cl)
+    sl = torch.zeros(rows, dtype=torch.float64, device=dev)
+    sr = torch.zeros_like(sl)
+    step = 1 << 26
+    for keys, vals, cnt, acc in ((lk, lv, cl, sl), (rk, rv, cr, sr)):
+        for i in range(0, len(keys), step):
+            k = torch.from_numpy(keys[i:i + step]).to(dev).long()
+            cnt.index_add_(0, k, torch.ones_like(k))
+            acc.index_add_(0, k, torch.from_numpy(
+                vals[i:i + step]).to(dev).double())
+            del k
+    keys = torch.nonzero((cl > 0) & (cr > 0)).squeeze(1)
     cr_k = cr[keys]
-    out = {"join": int(np.dot(cl, cr)), "groups": len(keys),
-           "keys": keys.astype(np.int32),
-           "sum": sl[keys] * cr_k, "mean": sr[keys] / cr_k}
+    out = {"join": int((cl * cr).sum()), "groups": int(keys.numel()),
+           "keys": keys.int().cpu().numpy(),
+           "sum": (sl[keys] * cr_k).cpu().numpy(),
+           "mean": (sr[keys] / cr_k).cpu().numpy()}
+    del cl, cr, sl, sr, keys, cr_k
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3078,9 +3123,13 @@ def _same_frames(label: str, got: dict, want: dict) -> None:
                              f"{list(want)}")
     for name in want:
         g, w = np.asarray(got[name]), np.asarray(want[name])
-        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
-                np.ascontiguousarray(g).view(np.uint8),
-                np.ascontiguousarray(w).view(np.uint8)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: column {name} differs")
+        if g.dtype == object:  # strings and None nulls: by value
+            if g.tolist() != w.tolist():
+                raise AssertionError(f"{label}: column {name} differs")
+        elif not np.array_equal(np.ascontiguousarray(g).view(np.uint8),
+                                np.ascontiguousarray(w).view(np.uint8)):
             raise AssertionError(f"{label}: column {name} differs")
 
 
@@ -3272,7 +3321,9 @@ def phase_planner(report: dict, profile: bool = False):
     must elide at least one shuffle), then best-of-3 ms; planned equal to
     eager bit for bit, both equal to the pandas oracle; exchanges and
     bytes sent planned against eager; peak device memory.  Returns the
-    Q10 plan (its tables stay on the card) for phase 3x."""
+    Q10 plan (its tables stay on the card) for phases 3x and 3y, and for
+    3y its pandas oracle and the host columns of lineitem and orders its
+    stream reads."""
     import numpy as np
     import torch
 
@@ -3305,6 +3356,10 @@ def phase_planner(report: dict, profile: bool = False):
                  "upload_s": upload_s,
                  "rows": {k: len(next(iter(v.values())))
                           for k, v in raw.items()}}
+    serve_inputs = {
+        "q10_oracle": oracles["q10"],
+        "lineitem": {c: raw["l"][c] for c in SERVE_STREAM_COLUMNS},
+        "orders": {c: raw["o"][c] for c in SERVE_ORDERS_COLUMNS}}
     del raw
     for q, plan in plans.items():
         rec: dict = {}
@@ -3361,13 +3416,13 @@ def phase_planner(report: dict, profile: bool = False):
             f"{p['peak_device_bytes'] / 2**30:.2f} / "
             f"{e['peak_device_bytes'] / 2**30:.2f} GiB; bit-identical, "
             f"revenue max abs err {rec['revenue_max_abs_err']:.3g}")
-    q10 = plans["q10"]  # 3x replays it from the journal
+    q10 = plans["q10"]  # 3x replays it from the journal, 3y serves it
     del plans, tables, q10_line
     out["phase_seconds"] = time.perf_counter() - t_phase
     report["planner"] = out
     log(f"[3w] phase {out['phase_seconds']:.1f} s (data and pandas oracles "
         f"{prep_s:.1f} s, upload {upload_s:.1f} s)")
-    return q10
+    return q10, serve_inputs
 
 
 # -- phase 3x: the run journal ------------------------------------------------
@@ -3465,6 +3520,140 @@ def durable_worker(root: str, out: str) -> int:
     return 0
 
 
+def serve_profile(out: str) -> int:
+    """``chip_smoke.py --serve-profile OUT.json``: 3y's ``join_groupby``
+    miss (3x's data and call) three ways, each into a fresh journal root,
+    after one warm-up call: made directly on the main thread
+    (``direct``), served by a ``QueryService`` (``served``, through an
+    instance op that wraps the same runner) and made directly on a plain
+    thread of its own (``thread``), in the order d s t t s d.  Each call
+    records its wall seconds, the engine's plan and run seconds, its span
+    seconds, and the CPU seconds and minor page faults of the thread that
+    ran it (``RUSAGE_THREAD``).  Then one served and, with the service
+    closed, one direct miss under ``cProfile`` (which sees every thread
+    from Python 3.12 on, so each profile is taken with no other thread
+    running Python).  Writes it all to OUT.json; prints no result
+    line."""
+    import cProfile
+    import pstats
+    import resource
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.exec import chunked_join_groupby_tables
+    from cylon_tpu_torch.obs import spans
+    from cylon_tpu_torch.serve import QueryService
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    report: dict = {"device": torch.cuda.get_device_name(0)}
+    phase_build(report)
+    left, right = _durable_inputs()
+    kw = dict(on="k", group_by="l_k", agg={"a": ["sum"], "b": ["mean"]},
+              passes=DURABLE_PASSES)
+    tmp = tempfile.mkdtemp(prefix="cylon_serve_profile_")
+    profiles: dict = {}
+    thread_use: dict = {}
+
+    def measured(*args, profile=None, **kwargs):
+        # runs on whichever thread makes the engine call
+        r0 = resource.getrusage(resource.RUSAGE_THREAD)
+        prof = cProfile.Profile() if profile else None
+        if prof:
+            prof.enable()
+        try:
+            return chunked_join_groupby_tables(*args, **kwargs)
+        finally:
+            if prof:
+                prof.disable()
+                profiles[profile] = prof
+            r1 = resource.getrusage(resource.RUSAGE_THREAD)
+            thread_use.update(
+                cpu_s=(r1.ru_utime + r1.ru_stime) - (r0.ru_utime
+                                                     + r0.ru_stime),
+                sys_s=r1.ru_stime - r0.ru_stime,
+                minor_faults=r1.ru_minflt - r0.ru_minflt)
+
+    svc = QueryService()
+    svc.register_op("join_groupby_measured", measured)
+
+    def direct(profile=None):
+        return measured(left, right, ctx=svc._ctx, profile=profile, **kw)
+
+    def served(profile=None):
+        return svc.submit("tenant-a", "join_groupby_measured", left, right,
+                          profile=profile, **kw).result(timeout=SERVE_WAIT_S)
+
+    def on_thread(profile=None):
+        box = {}
+        th = threading.Thread(target=lambda: box.update(r=direct()))
+        th.start()
+        th.join()
+        return box["r"]
+
+    arms = {"warmup": direct, "direct": direct, "served": served,
+            "thread": on_thread}
+    calls = []
+
+    def call(i, arm, profile=None):
+        root = os.path.join(tmp, f"r{i}")
+        torch.cuda.synchronize()
+        spans.reset_aggregates()
+        with config.knob_env(CYLON_TPU_DURABLE_DIR=root):
+            t0 = time.perf_counter()
+            _, stats = arms[arm](profile=profile)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        if stats.get("passes_skipped"):
+            raise AssertionError(f"serve-profile {arm}: not a miss")
+        rec = {"arm": arm + ("*" if profile else ""), "seconds": secs,
+               "plan_seconds": stats.get("plan_seconds"),
+               "run_seconds": stats.get("run_seconds"), **thread_use,
+               "spans_s": {k: v[0] for k, v in
+                           spans.aggregate_report().items()
+                           if v[0] >= 0.005}}
+        calls.append(rec)
+        log(f"[serve-profile] {json.dumps(rec)}")
+
+    try:
+        # a first direct call warms the journal's spill path; the first
+        # served call is the service thread's first request, the second
+        # a warm one; each thread call runs on a fresh thread
+        order = ["warmup", "direct", "served", "thread", "thread", "served",
+                 "direct"]
+        for i, arm in enumerate(order):
+            call(i, arm)
+        call(len(order), "served", profile="served")
+    finally:
+        svc.close()
+    try:
+        call(len(order) + 1, "direct", profile="direct")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tops = {}
+    for label, prof in profiles.items():
+        st = pstats.Stats(prof)
+        rows = [{"fn": f"{os.path.basename(f)}:{ln}({name})", "calls": nc,
+                 "own_s": tt, "cum_s": ct}
+                for (f, ln, name), (cc, nc, tt, ct, _) in st.stats.items()]
+        tops[label] = {
+            "own": sorted(rows, key=lambda r: -r["own_s"])[:40],
+            "cum": sorted(rows, key=lambda r: -r["cum_s"])[:60]}
+        log(f"[serve-profile] {label} by own time: " + "; ".join(
+            f"{r['fn']} {r['own_s']:.3f} s" for r in tops[label]["own"][:12]))
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"smi": report["smi"], "env": {
+            k: os.environ.get(k) for k in ("MALLOC_ARENA_MAX",)},
+            "calls": calls, "profiles": tops}, f, indent=1)
+    return 0
+
+
 def _durable_child(script: str, root: str, out: str, fault: str = None):
     """Run the worker in a fresh process on the same card: (rc, record or
     None, seconds, stderr tail)."""
@@ -3501,7 +3690,7 @@ def _per_part(l8: dict, l1: dict) -> dict:
     return out
 
 
-def phase_durable(report: dict, q10_plan) -> None:
+def phase_durable(report: dict, q10_plan) -> dict:
     """Phase 3x: the run journal on the card.  3v's data at DURABLE_ROWS
     per side through the single-card engine (``_durable_run``) and 3w's
     planned Q10:
@@ -3523,7 +3712,10 @@ def phase_durable(report: dict, q10_plan) -> None:
     re-executes exactly that pass (C + 2P launches); with a
     ``JournalPeerServer`` on 127.0.0.1 over a second root filled by
     ``pull_run``, the reload read-repairs bit for bit and re-executes
-    nothing; ``scrub_once`` then finds the root clean."""
+    nothing; ``scrub_once`` then finds the root clean.
+
+    Returns the inputs, the unjournaled frame and the oracle of (a) for
+    phase 3y."""
     import shutil
     import tempfile
 
@@ -3741,6 +3933,436 @@ def phase_durable(report: dict, q10_plan) -> None:
     out["phase_seconds"] = time.perf_counter() - t_phase
     report["durable"] = out
     log(f"[3x] phase {out['phase_seconds']:.1f} s")
+    return {"left": left, "right": right, "base": base, "oracle": oracle}
+
+
+# -- phase 3y: the serving layer on one process -------------------------------
+
+SERVE_STREAM_COLUMNS = ("l_orderkey", "l_quantity", "l_extendedprice",
+                        "l_discount")  # lineitem's numeric Q10 columns
+SERVE_ORDERS_COLUMNS = ("o_orderkey", "o_custkey", "o_orderdate")
+SERVE_BATCHES = 6
+SERVE_FLOOD = 12
+SERVE_SMALL_ROWS = 1 << 16  # a flood sort's rows
+SERVE_WAIT_S = 600.0
+
+
+def _serve_request(svc, tenant: str, op: str, *args, **kwargs):
+    """Submit one request and wait for it, the launch counters zeroed just
+    before the submit and read just after the result: (frame, stats,
+    record)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    ticket = svc.submit(tenant, op, *args, **kwargs)
+    frame, stats = ticket.result(timeout=SERVE_WAIT_S)
+    torch.cuda.synchronize()
+    rec = {"op": op, "tenant": tenant, "seconds": time.perf_counter() - t0,
+           "queue_wait_s": ticket.queue_wait_s, "run_s": ticket.duration_s,
+           "cache_hit": ticket.cache_hit, "launches": _launch_counts(),
+           "passes_skipped": stats.get("passes_skipped"),
+           "parts_run": stats.get("parts_run")}
+    return frame, stats, rec
+
+
+def _stream_oracle(batches) -> dict:
+    """pandas float64 group-by of the concatenated batches by
+    l_orderkey: SUM(l_extendedprice), MEAN(l_quantity), COUNT."""
+    import numpy as np
+    import pandas as pd
+
+    df = pd.DataFrame({c: np.concatenate([b[c] for b in batches])
+                       for c in ("l_orderkey", "l_extendedprice",
+                                 "l_quantity")})
+    df["l_extendedprice"] = df["l_extendedprice"].astype(np.float64)
+    df["l_quantity"] = df["l_quantity"].astype(np.float64)
+    g = df.groupby("l_orderkey").agg(
+        s=("l_extendedprice", "sum"), m=("l_quantity", "mean"),
+        c=("l_quantity", "count"))
+    return {"keys": g.index.to_numpy(), "sum": g["s"].to_numpy(),
+            "mean": g["m"].to_numpy(), "count": g["c"].to_numpy()}
+
+
+def _check_stream(label: str, frame: dict, oracle: dict) -> float:
+    """Keys and counts exact, SUM and MEAN within F32_SUM_RTOL of the
+    float64 oracle; returns the SUM's max abs error."""
+    import numpy as np
+
+    if not np.array_equal(frame["l_orderkey"], oracle["keys"]):
+        raise AssertionError(f"{label}: group keys differ from the oracle")
+    if not np.array_equal(frame["count_l_extendedprice"], oracle["count"]):
+        raise AssertionError(f"{label}: counts differ from the oracle")
+    err = 0.0
+    for col, key in (("sum_l_extendedprice", "sum"),
+                     ("mean_l_quantity", "mean")):
+        got = np.asarray(frame[col], np.float64)
+        want = oracle[key]
+        e = np.abs(got - want)
+        if not (e <= F32_SUM_RTOL * np.abs(want) + F32_SUM_ATOL).all():
+            raise AssertionError(f"{label}: {col} outside rtol "
+                                 f"{F32_SUM_RTOL} of the oracle")
+        if key == "sum":
+            err = float(e.max(initial=0.0))
+    return err
+
+
+def phase_serve(report: dict, q10_plan, tpch: dict, engine: dict) -> None:
+    """Phase 3y: the serving layer on one process (see the module
+    docstring).  Any failed ticket on the normal path fails the phase."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import config, resilience
+    from cylon_tpu_torch.exec import (chunked_groupby,
+                                      chunked_join_groupby_tables,
+                                      chunked_sort)
+    from cylon_tpu_torch.obs import metrics, openmetrics
+    from cylon_tpu_torch.serve import QueryService, TenantBudget
+    from cylon_tpu_torch.serve import service as service_mod
+    from cylon_tpu_torch.status import Code, CylonError
+    from cylon_tpu_torch.stream import GroupByQuery, JoinQuery, StreamTable
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics.reset()
+    left, right = engine["left"], engine["right"]
+    jg_kw = dict(on="k", group_by="l_k", agg={"a": ["sum"], "b": ["mean"]},
+                 passes=DURABLE_PASSES)
+    gb_args = (left, "k", {"a": ["sum", "mean", "count"]})
+    line = tpch["lineitem"]
+    n_line = len(line["l_orderkey"])
+    bounds = np.linspace(0, n_line, SERVE_BATCHES + 1).astype(np.int64)
+    batches = [{c: line[c][bounds[i]:bounds[i + 1]]
+                for c in SERVE_STREAM_COLUMNS} for i in range(SERVE_BATCHES)]
+    agg = {"l_extendedprice": ["sum", "count"], "l_quantity": ["mean"]}
+    out: dict = {"rows_per_side": DURABLE_ROWS,
+                 "stream_rows": n_line, "batches": SERVE_BATCHES}
+    tmp = tempfile.mkdtemp(prefix="cylon_serve_")
+    try:
+        # the same calls without the service (the journal off)
+        t0 = time.perf_counter()
+        gb_direct, _ = chunked_groupby(*gb_args)
+        sort_direct, _ = chunked_sort(left, "k")
+        q10_direct = q10_plan.execute().to_numpy()
+        direct_s = time.perf_counter() - t0
+        keys_all = np.bincount(left["k"], minlength=DURABLE_ROWS)
+        gkeys = np.flatnonzero(keys_all)
+        order = np.argsort(gb_direct["k"], kind="stable")
+        if not np.array_equal(gb_direct["k"][order], gkeys) or \
+                not np.array_equal(gb_direct["count_a"][order],
+                                   keys_all[gkeys]):
+            raise AssertionError("3y: groupby keys or counts differ from "
+                                 "the oracle")
+        want_sum = np.bincount(left["k"], weights=left["a"].astype(
+            np.float64), minlength=DURABLE_ROWS)[gkeys]
+        e = np.abs(gb_direct["sum_a"][order].astype(np.float64) - want_sum)
+        if not (e <= F32_SUM_RTOL * np.abs(want_sum) + F32_SUM_ATOL).all():
+            raise AssertionError("3y: groupby SUM outside rtol of the "
+                                 "oracle")
+        if not (np.array_equal(sort_direct["k"], np.sort(left["k"]))
+                and np.isclose(sort_direct["a"].astype(np.float64).sum(),
+                               left["a"].astype(np.float64).sum(),
+                               rtol=1e-9)):
+            raise AssertionError("3y: the sort is not the sorted input")
+        import pandas as pd
+
+        q10_err = _check_query("3y plan", pd.DataFrame(q10_direct),
+                               tpch["q10_oracle"],
+                               ("c_custkey", "c_nationkey", "n_name"))
+        log(f"[3y] direct calls {direct_s:.2f} s; groupby, sort and Q10 "
+            f"against their oracles (Q10 revenue max abs err "
+            f"{q10_err:.3g})")
+
+        root = os.path.join(tmp, "journal")
+        with config.knob_env(CYLON_TPU_DURABLE_DIR=root):
+            stream = StreamTable("lineitem")
+            for b in batches[:4]:
+                stream.append(b)
+            query = GroupByQuery(stream, ["l_orderkey"], agg)
+            cold4 = query.recompute_cold()
+            oracle4 = _stream_oracle(batches[:4])
+            _check_stream("3y (d) cold fold at 4", cold4, oracle4)
+
+            # (a) misses and (b) hits, one request at a time
+            svc = QueryService()
+            try:
+                reqs = [
+                    ("join_groupby", "tenant-a", (left, right), jg_kw,
+                     engine["base"]),
+                    ("groupby", "tenant-b", gb_args, {}, gb_direct),
+                    ("sort", "tenant-c", (left, "k"), {}, sort_direct),
+                    ("plan", "tenant-a", (q10_plan,), {}, q10_direct),
+                    ("refresh", "tenant-b", (query,), {}, cold4)]
+                recs = {}
+                for phase_key in ("a", "b"):
+                    recs[phase_key] = []
+                    for op, tenant, args, kw, want in reqs:
+                        frame, stats, rec = _serve_request(
+                            svc, tenant, op, *args, **kw)
+                        _same_frames(f"3y ({phase_key}) {op} against the "
+                                     f"call without the service", frame,
+                                     want)
+                        hit = phase_key == "b"
+                        if rec["cache_hit"] is not hit:
+                            raise AssertionError(f"3y ({phase_key}) {op}: "
+                                                 f"cache_hit "
+                                                 f"{rec['cache_hit']}")
+                        if hit and any(rec["launches"].values()):
+                            raise AssertionError(f"3y (b) {op}: a cache hit "
+                                                 f"launched "
+                                                 f"{rec['launches']}")
+                        if not hit and op != "sort" and not any(
+                                rec["launches"].values()):
+                            # (a sort runs no hand kernel, as in 3o)
+                            raise AssertionError(f"3y (a) {op}: a miss "
+                                                 f"launched no kernel")
+                        recs[phase_key].append(rec)
+                        log(f"[3y] ({phase_key}) {op} for {tenant}: queue "
+                            f"wait {rec['queue_wait_s'] * 1e3:.2f} ms, run "
+                            f"{rec['run_s']:.3f} s, launches "
+                            f"{rec['launches']}, cache hit "
+                            f"{rec['cache_hit']}; bit for bit")
+                out["a"], out["b"] = recs["a"], recs["b"]
+                svc_stats = svc.stats()
+                telemetry = svc.telemetry()
+            finally:
+                svc.close()
+            if svc_stats["completed"] != 10 or svc_stats["failed"] or \
+                    svc_stats["cache_hits"] != 5:
+                raise AssertionError(f"3y (a)/(b): service stats "
+                                     f"{svc_stats}")
+            hits = metrics.counter_value("serve.cache_hit")
+            if hits != 5:
+                raise AssertionError(f"3y (b): serve.cache_hit {hits}")
+
+            # (d) the stream: batches 5-6, then the refresh at 6
+            t0 = time.perf_counter()
+            for b in batches[4:]:
+                stream.append(b)
+            append_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            f6, st6 = query.refresh()
+            torch.cuda.synchronize()
+            refresh6_s = time.perf_counter() - t0
+            launches6 = _launch_counts()
+            if (st6["parts_run"], st6["partial_rows"]) != (
+                    2, int(bounds[6] - bounds[4])):
+                raise AssertionError(f"3y (d): the refresh at 6 folded "
+                                     f"{st6}")
+            _same_frames("3y (d) refresh at 6 against recompute_cold",
+                         f6, query.recompute_cold())
+            sum_err = _check_stream("3y (d) refresh at 6", f6,
+                                    _stream_oracle(batches))
+            first = out["a"][-1]
+            dim = tpch["orders"]
+            fact = StreamTable("lineitem-join")
+            for b in batches[:4]:
+                fact.append(b)
+            jq = JoinQuery(fact, dim, left_on="l_orderkey",
+                           right_on="o_orderkey", how="inner")
+            _reset_launches()
+            t0 = time.perf_counter()
+            j4, jst4 = jq.refresh()
+            j4_s = time.perf_counter() - t0
+            jl4 = _launch_counts()
+            for b in batches[4:]:
+                fact.append(b)
+            _reset_launches()
+            t0 = time.perf_counter()
+            j6, jst6 = jq.refresh()
+            j6_s = time.perf_counter() - t0
+            jl6 = _launch_counts()
+            if (jst4["parts_run"], jst6["parts_run"],
+                    jst6["passes_skipped"]) != (4, 2, 4):
+                raise AssertionError(f"3y (d) join: {jst4} then {jst6}")
+            lk = np.concatenate([b["l_orderkey"] for b in batches])
+            want_cust = int(dim["o_custkey"][lk].astype(np.int64).sum())
+            if len(j6["l_orderkey"]) != n_line or \
+                    int(j6["o_custkey"].astype(np.int64).sum()) != want_cust \
+                    or not np.array_equal(j6["l_orderkey"],
+                                          j6["o_orderkey"]):
+                raise AssertionError("3y (d) join: rows differ from the "
+                                     "numpy oracle")
+            stream.close(unpin=True)
+            fact.close(unpin=True)
+            query.close(unpin=True)
+            jq.close(unpin=True)
+        out["d"] = {"append_s": append_s,
+                    "refresh4": first, "refresh6_s": refresh6_s,
+                    "refresh6_launches": launches6, "refresh6": st6,
+                    "sum_max_abs_err": sum_err,
+                    "join": {"refresh4_s": j4_s, "launches4": jl4,
+                             "refresh6_s": j6_s, "launches6": jl6,
+                             "rows": len(j6["l_orderkey"])}}
+        log(f"[3y] (d) stream of {n_line} lineitem rows in "
+            f"{SERVE_BATCHES} batches: refresh at 4 (served in (a)) "
+            f"{first['run_s']:.3f} s launches {first['launches']}; batches "
+            f"5-6 appended {append_s:.3f} s; refresh at 6 "
+            f"{refresh6_s:.3f} s launches {launches6} ({st6['parts_run']} "
+            f"batches, {st6['partial_rows']} rows, {st6['state_groups']} "
+            f"groups, state cap {st6['state_cap']}); bit for bit "
+            f"recompute_cold, SUM max abs err {sum_err:.3g}; join "
+            f"{j4_s:.3f} s (4 probed, launches {jl4}) then {j6_s:.3f} s "
+            f"(2 probed, launches {jl6}), {len(j6['l_orderkey'])} rows")
+
+        # (c) overload, unjournaled
+        small = [{"k": left["k"][i * SERVE_SMALL_ROWS:
+                                 (i + 1) * SERVE_SMALL_ROWS],
+                  "a": left["a"][i * SERVE_SMALL_ROWS:
+                                 (i + 1) * SERVE_SMALL_ROWS]}
+                 for i in range(SERVE_FLOOD)]
+        small_direct = [chunked_sort(d, "k", passes=1)[0] for d in small]
+        c: dict = {}
+        with config.knob_env(CYLON_TPU_SERVE_TENANT_SHARE="0.5"):
+            svc = QueryService(queue_cap=8)
+            try:
+                running = svc.submit("tenant-a", "join_groupby", left,
+                                     right, **jg_kw)
+                deadline = time.monotonic() + SERVE_WAIT_S
+                while running.state == service_mod.QUEUED and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.001)
+                if running.state != service_mod.RUNNING:
+                    raise AssertionError(f"3y (c): the join_groupby is "
+                                         f"{running.state}, not running")
+                flood, shed = [], []
+                for i in range(SERVE_FLOOD):
+                    try:
+                        flood.append((i, svc.submit(
+                            "tenant-f", "sort", small[i], "k", passes=1)))
+                    except CylonError as e:
+                        shed.append(e)
+                if not shed or any(
+                        e.code != Code.ResourceExhausted
+                        or not (e.retry_after_s or 0) > 0 for e in shed):
+                    raise AssertionError(f"3y (c): flood sheds "
+                                         f"{[str(e) for e in shed]}")
+                others = [("tenant-b", svc.submit(
+                    "tenant-b", "sort", small[0], "k", passes=1), 0),
+                          ("tenant-c", svc.submit(
+                              "tenant-c", "sort", small[1], "k",
+                              passes=1), 1)]
+                cancelled = flood[-1][1]
+                if not cancelled.cancel():
+                    raise AssertionError("3y (c): cancel of a queued sort "
+                                         "returned False")
+                with resilience.FaultSchedule().at(
+                        "serve.admit", "tenant_flood").install() as plan:
+                    try:
+                        svc.submit("tenant-c", "sort", small[2], "k",
+                                   passes=1)
+                        raise AssertionError("3y (c): the tenant_flood "
+                                             "fault shed nothing")
+                    except CylonError as e:
+                        if e.code != Code.ResourceExhausted:
+                            raise
+                    after = svc.submit("tenant-c", "sort", small[2], "k",
+                                       passes=1)
+                if plan.fired != [("serve.admit", "tenant_flood", 1)]:
+                    raise AssertionError(f"3y (c): fired {plan.fired}")
+                svc.set_budget("tenant-m", TenantBudget(hbm_bytes=1))
+                try:
+                    svc.submit("tenant-m", "sort", small[3], "k", passes=1)
+                    raise AssertionError("3y (c): a one-byte budget "
+                                         "admitted")
+                except CylonError as e:
+                    if e.code != Code.ResourceExhausted or \
+                            "HBM" not in e.msg:
+                        raise
+                jg, _ = running.result(timeout=SERVE_WAIT_S)
+                _same_frames("3y (c) join_groupby under flood", jg,
+                             engine["base"])
+                for i, t in flood[:-1]:
+                    _same_frames(f"3y (c) flood sort {i}",
+                                 t.result(timeout=SERVE_WAIT_S)[0],
+                                 small_direct[i])
+                try:
+                    cancelled.result(timeout=SERVE_WAIT_S)
+                    raise AssertionError("3y (c): the cancelled sort ran")
+                except CylonError as e:
+                    if e.code != Code.Cancelled:
+                        raise
+                for tenant, t, i in others + [("tenant-c", after, 2)]:
+                    _same_frames(f"3y (c) {tenant} sort",
+                                 t.result(timeout=SERVE_WAIT_S)[0],
+                                 small_direct[i])
+                # the drain: a group-by in flight, two sorts queued
+                inflight = svc.submit("tenant-b", "groupby", *gb_args)
+                while inflight.state == service_mod.QUEUED:
+                    time.sleep(0.001)
+                queued = [svc.submit("tenant-c", "sort", small[j], "k",
+                                     passes=1) for j in (3, 4)]
+                drained = svc.drain(timeout=SERVE_WAIT_S)
+                if set(drained) != set(queued) or any(
+                        q.state != service_mod.SHED
+                        or q.error.code != Code.Unavailable
+                        for q in queued):
+                    raise AssertionError("3y (c): drain did not shed the "
+                                         "queue with Unavailable")
+                _same_frames("3y (c) in-flight group-by through the drain",
+                             inflight.result(timeout=SERVE_WAIT_S)[0],
+                             gb_direct)
+                c = {"flood_admitted": len(flood), "flood_shed": len(shed),
+                     "retry_after_s": [e.retry_after_s for e in shed],
+                     "drained": len(drained), "stats": svc.stats()}
+            finally:
+                svc.close()
+        out["c"] = c
+        log(f"[3y] (c) flood of {SERVE_FLOOD} sorts during a "
+            f"join_groupby: {c['flood_admitted']} admitted, "
+            f"{c['flood_shed']} shed ResourceExhausted (retry after "
+            f"{min(c['retry_after_s']):.3f}-{max(c['retry_after_s']):.3f} "
+            f"s), other tenants exact, one cancelled, tenant_flood shed "
+            f"one, a one-byte budget shed at admission, drain shed "
+            f"{c['drained']} Unavailable, in-flight exact; stats "
+            f"{json.dumps(c['stats'])}")
+
+        # (e) one scrape
+        srv = openmetrics.start_server(0)
+        try:
+            body = urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/metrics", timeout=30
+            ).read().decode()
+        finally:
+            srv.close()
+        doc = openmetrics.parse(body)
+        hits = doc["cylon_tpu_serve_cache_hit_total"]["samples"][0][2]
+        run_ms = doc["cylon_tpu_serve_run_ms"]["samples"]
+        tenants = {lab["tenant"] for _, lab, _ in run_ms}
+        les = {lab.get("le") for name, lab, _ in run_ms
+               if name.endswith("_bucket")}
+        if hits != 5 or not {"tenant-a", "tenant-b", "tenant-c"} <= \
+                tenants or "+Inf" not in les or len(les) < 10:
+            raise AssertionError(f"3y (e): scrape cache hits {hits}, "
+                                 f"tenants {tenants}, le {sorted(les)}")
+        out["e"] = {"bytes": len(body), "cache_hit": hits,
+                    "tenants": sorted(tenants), "le_buckets": len(les),
+                    "telemetry_tenants": sorted(telemetry["tenants"])}
+        log(f"[3y] (e) scrape of {len(body)} B parsed: serve_cache_hit "
+            f"{hits:g}, run_ms histograms for {sorted(tenants)} with "
+            f"{len(les)} le buckets")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches_serve"] = {
+        f"{k}_{r['op']}": r["launches"] for k in ("a", "b")
+        for r in out[k]}
+    out["launches_serve"]["d_refresh6"] = out["d"]["refresh6_launches"]
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    out["smi"] = smi_line()
+    report["serve"] = out
+    log(f"[3y] phase {out['phase_seconds']:.1f} s, peak device memory "
+        f"{out['peak_device_bytes'] / 2**30:.2f} GiB, card {out['smi']}")
 
 
 def _segmented_inputs(tables, out_cap):
@@ -3912,6 +4534,17 @@ def phase_timings(report: dict, main: dict, dist: dict, rows: int) -> list:
     return rows_out
 
 
+def _clocked(phase, report: dict, *args, **kwargs):
+    """Run one phase; its wall seconds go to ``report["phase_wall_s"]``
+    under the function's name, and a failed phase's too."""
+    t0 = time.perf_counter()
+    try:
+        return phase(report, *args, **kwargs)
+    finally:
+        report.setdefault("phase_wall_s", {})[phase.__name__] = \
+            time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -3919,6 +4552,10 @@ def main(argv=None) -> int:
                     help="phase 3x's child: one journaled engine run into "
                          "ROOT, its frame to OUT (.npz) and its record to "
                          "OUT's .json; prints no result")
+    ap.add_argument("--serve-profile", metavar="OUT",
+                    help="time 3y's served join_groupby miss against the "
+                         "direct call, with a host profile of each, into "
+                         "OUT (.json); prints no result")
     ap.add_argument("--profile", action="store_true",
                     help="profile one run of each main path, of the set "
                          "ops, of the distributed sorts, of the string "
@@ -3944,68 +4581,75 @@ def main(argv=None) -> int:
         return 2
     if args.durable_worker:
         return durable_worker(*args.durable_worker)
+    if args.serve_profile:
+        return serve_profile(args.serve_profile)
 
     t_start = time.perf_counter()
     report: dict = {"device": torch.cuda.get_device_name(0)}
     kernels = []
     try:
-        phase_build(report)
-        phase_kernels(report)
-        main_state = phase_main_path(report, ROWS)
+        _clocked(phase_build, report)
+        _clocked(phase_kernels, report)
+        main_state = _clocked(phase_main_path, report, ROWS)
         if args.profile:
             phase_profile(report, "single_chip", lambda: pipeline.join_groupby(
                 *main_state["tables"], main_state["out_cap"]))
-        dist = phase_distributed(report, main_state, ROWS)
+        dist = _clocked(phase_distributed, report, main_state, ROWS)
         if args.profile:
             phase_profile(report, "distributed",
                           lambda: pipeline.distributed_join_groupby(
                               dist["left"], dist["right"]))
             phase_stages(report, dist)
-        phase_hash_partition(report, dist, ROWS)
-        ops = phase_operators(report, main_state, ROWS)
+        _clocked(phase_hash_partition, report, dist, ROWS)
+        ops = _clocked(phase_operators, report, main_state, ROWS)
         if args.profile:
             calls = pipeline.operator_calls(ops["left"], ops["right"])
             phase_profile(report, "set_ops", lambda: [
                 calls[op]() for op in ("union", "intersect", "subtract",
                                        "union_rows")])
-        phase_distributed_operators(report, main_state, dist, ops, ROWS)
+        _clocked(phase_distributed_operators, report, main_state, dist, ops,
+                 ROWS)
         if args.profile:
             phase_profile(report, "distributed_sort",
                           lambda: dist["left"].distributed_sort("k"))
         del ops
-        phase_string_join(report, main_state, ROWS, args.profile)
-        phase_string_distributed(report, main_state, ROWS, args.profile)
-        q1 = phase_tpch_q1(report, args.profile)
-        phase_hash_join(report, main_state, ROWS, args.profile)
-        phase_distributed_surface(report, main_state, dist, ROWS)
-        phase_exchange(report, main_state, dist, q1, ROWS, args.profile)
+        _clocked(phase_string_join, report, main_state, ROWS, args.profile)
+        _clocked(phase_string_distributed, report, main_state, ROWS,
+                 args.profile)
+        q1 = _clocked(phase_tpch_q1, report, args.profile)
+        _clocked(phase_hash_join, report, main_state, ROWS, args.profile)
+        _clocked(phase_distributed_surface, report, main_state, dist, ROWS)
+        _clocked(phase_exchange, report, main_state, dist, q1, ROWS,
+                 args.profile)
         del q1
-        phase_process_group(report, main_state, dist, ROWS)
-        kernels = phase_timings(report, main_state, dist, ROWS)
+        _clocked(phase_process_group, report, main_state, dist, ROWS)
+        kernels = _clocked(phase_timings, report, main_state, dist, ROWS)
         del main_state, dist
         gc.collect()
         torch.cuda.empty_cache()
-        data = phase_out_of_core(report, profile=args.profile)
+        data = _clocked(phase_out_of_core, report, profile=args.profile)
         prefix = _prefix_oracle(data, OOC_PREFIX_ROWS)
-        phase_ooc_groupby(report, data, prefix, profile=args.profile)
-        phase_ooc_unique(report, data, prefix)
-        phase_ooc_sort(report, data, prefix, profile=args.profile)
+        _clocked(phase_ooc_groupby, report, data, prefix,
+                 profile=args.profile)
+        _clocked(phase_ooc_unique, report, data, prefix)
+        _clocked(phase_ooc_sort, report, data, prefix, profile=args.profile)
         del prefix
         gc.collect()
-        phase_ooc_repartition(report, data, profile=args.profile)
+        _clocked(phase_ooc_repartition, report, data, profile=args.profile)
         del data
-        phase_ooc_distributed(report, profile=args.profile)
-        phase_oom_refinement(report)
-        phase_oneshot_fallback(report)
+        _clocked(phase_ooc_distributed, report, profile=args.profile)
+        _clocked(phase_oom_refinement, report)
+        _clocked(phase_oneshot_fallback, report)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_front_door(report)
+        _clocked(phase_front_door, report)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_ooc_group(report, profile=args.profile)
-        q10 = phase_planner(report, profile=args.profile)
-        phase_durable(report, q10)
-        del q10
+        _clocked(phase_ooc_group, report, profile=args.profile)
+        q10, tpch = _clocked(phase_planner, report, profile=args.profile)
+        engine = _clocked(phase_durable, report, q10)
+        _clocked(phase_serve, report, q10, tpch, engine)
+        del q10, tpch, engine
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
@@ -4029,6 +4673,9 @@ def main(argv=None) -> int:
             r["launches_durable"] = {
                 step: v.get(r["name"], 0) for step, v in
                 report["durable"]["launches_durable"].items()}
+            r["launches_serve"] = {
+                step: v.get(r["name"], 0) for step, v in
+                report["serve"]["launches_serve"].items()}
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:
@@ -4042,6 +4689,9 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1, default=str)
 
+    log("[wall] phases: " + ", ".join(
+        f"{name[6:]} {secs:.1f} s"
+        for name, secs in report["phase_wall_s"].items()))
     log(f"[wall] chip_smoke.py ran {report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(report["smi"])

@@ -19,8 +19,12 @@ native C++ reader, ``native/``) and Parquet, and ``DataFrame``,
 ``Table``.  ``Table.plan()`` starts a lazy query plan (``plan/``: shuffle
 elision from tracked partitioning, column pruning, the fused join ->
 aggregate shard body, ``explain``), and ``utils`` holds the timing shim,
-the benchmark decorator and ``pow2ceil``.  pandas and pyarrow are
-imported only inside the functions that need them.
+the benchmark decorator and ``pow2ceil``.  ``cylon_tpu_torch.serve``
+(``QueryService``: admission, per-tenant budgets, one scheduler thread,
+the journal as a result cache) and ``cylon_tpu_torch.stream``
+(``StreamTable`` and its incremental ``GroupByQuery`` / ``JoinQuery``)
+are subpackages imported on demand, as in the JAX package.  pandas and
+pyarrow are imported only inside the functions that need them.
 """
 from __future__ import annotations
 

@@ -229,14 +229,84 @@ KNOBS = {k.name: k for k in [
        "manifest blob; the router's encoded tables once it is ported).  "
        "A message larger than this is refused as a ProtocolError, never "
        "silently truncated."),
+    # -- the query service (serve/) -----------------------------------------
+    _K("CYLON_TPU_SERVE_QUEUE_CAP", "int", 64,
+       "Bounded admission queue of the multi-tenant query service: "
+       "submissions past this depth are shed with Code.ResourceExhausted "
+       "and a retry-after hint, never an unbounded wait."),
+    _K("CYLON_TPU_SERVE_TENANT_SHARE", "float", 0.5,
+       "Largest fraction of the admission queue one tenant may occupy: "
+       "beyond ceil(cap * share) queued requests the TENANT is shed while "
+       "others keep admitting."),
+    _K("CYLON_TPU_SERVE_HBM_BUDGET_BYTES", "int", 0,
+       "Per-tenant device-memory admission budget: a request whose "
+       "input-size estimate plus the live hbm.live_bytes watermark "
+       "exceeds it is shed with Code.ResourceExhausted at admission, "
+       "before any device allocation.  0 (default) disables."),
+    _K("CYLON_TPU_SERVE_DEADLINE_S", "float", 0.0,
+       "Default per-request wall-clock budget of the query service "
+       "(per-tenant overridable): the Code.Timeout watchdog arms over the "
+       "whole run and the scheduler stops it at the next pass boundary.  "
+       "0 (default) disables."),
+    _K("CYLON_TPU_SERVE_QUARANTINE_AFTER", "int", 3,
+       "Per-tenant quarantine: a tenant whose requests fail this many "
+       "consecutive times is shed (Code.Unavailable + retry-after) for "
+       "CYLON_TPU_SERVE_QUARANTINE_S.  0 disables."),
+    _K("CYLON_TPU_SERVE_QUARANTINE_S", "float", 30.0,
+       "How long a quarantined tenant stays shed before its failure "
+       "streak resets."),
+    # -- streams (stream/) ---------------------------------------------------
+    _K("CYLON_TPU_STREAM_BATCH_CAP", "int", 0,
+       "Fixed device capacity per streaming micro-batch (rows); 0 "
+       "(default) derives pow2ceil(batch rows) per batch.  A result knob: "
+       "the padded batch shape is part of the stream's cached callables "
+       "and of its persisted-state namespace."),
+    _K("CYLON_TPU_STREAM_STATE_CAP", "int", 0,
+       "Floor for the incremental group-by's persisted-state group "
+       "capacity (rows); 0 (default) derives it from the first batch's "
+       "group count.  A result knob, as CYLON_TPU_STREAM_BATCH_CAP."),
     # -- observability (obs/) ----------------------------------------------
     _K("CYLON_TPU_TRACE", "enum", "auto",
        "Tracing mode: auto (aggregate stopwatch only), 1/on (plus the "
        "bounded event buffer), 0/off (no-op).",
        ("auto", "0", "off", "1", "on")),
     _K("CYLON_TPU_TRACE_DIR", "str", "traces",
-       "Directory for flight-recorder dumps (flight/<run_id>.r<rank>.json) "
-       "and plan-profile artifacts (plan_profile.r<rank>.json)."),
+       "Directory for exported traces and metrics "
+       "(trace[.<run_id>].r<rank>.json), flight-recorder dumps "
+       "(flight/<run_id>.r<rank>.json) and plan-profile artifacts "
+       "(plan_profile.r<rank>.json)."),
+    _K("CYLON_TPU_TRACE_SYNC", "bool", False,
+       "Fence device work (torch.cuda.synchronize) at span boundaries so "
+       "device time lands in the span that launched it instead of the "
+       "span doing the blocking fetch.  Off by default: the fence "
+       "serializes the pipeline."),
+    _K("CYLON_TPU_TRACE_TAIL_MS", "float", 0.0,
+       "Tail-based trace retention: a closing serve request KEEPS its "
+       "buffered span events only when it was slow (above this many "
+       "milliseconds, or above the rolling p99 estimate), failed, or "
+       "head-sampled (CYLON_TPU_TRACE_SAMPLE_N); the others' events are "
+       "discarded at close and counted in trace.tail_dropped.  0 "
+       "(default) keeps every event."),
+    _K("CYLON_TPU_TRACE_SAMPLE_N", "int", 0,
+       "1-in-N head sampling of the request traces the serve layer mints: "
+       "a sampled trace survives tail-based retention regardless of "
+       "latency.  0 (default) disables."),
+    _K("CYLON_TPU_TRACEPARENT", "str", "",
+       "Ambient W3C traceparent adopted as this process's root trace "
+       "context whenever no request context is active.  Empty (default) "
+       "leaves spans unstamped outside requests."),
+    _K("CYLON_TPU_RUN_ID", "str", "",
+       "Logical run id namespacing trace/metrics exports "
+       "(trace.<run_id>.r<rank>.json) and flight-recorder dumps; empty "
+       "(default) keeps the flat per-rank naming."),
+    _K("CYLON_TPU_DEBUG", "bool", False,
+       "Log every span's duration at INFO (cylon_tpu_torch.obs.spans)."),
+    _K("CYLON_TPU_METRICS_PORT", "int", 0,
+       "Per-process OpenMetrics scrape port: a stdlib HTTP listener "
+       "answers GET /metrics with the obs.metrics snapshot in the "
+       "Prometheus text format, started by obs.openmetrics.ensure_server "
+       "(QueryService calls it).  0 (default) disables; a failed bind "
+       "warns and skips."),
     # -- the query planner (plan/) and its statistics catalog -------------
     _K("CYLON_TPU_PLAN", "enum", "auto",
        "Logical-plan optimizer for Table.plan() pipelines: shuffle "
@@ -273,12 +343,14 @@ KNOBS = {k.name: k for k in [
 ]}
 
 #: the knobs whose values change what a computation returns (the
-#: accumulation precision and the exchange realization), folded into
-#: every plan fingerprint by ``trace_cache_token``.  The reference's
+#: accumulation precision, the exchange realization and the stream's
+#: capacities), folded into every plan fingerprint and every cached
+#: stream callable's key by ``trace_cache_token``.  The reference's
 #: segsum, scan and sort modes have no counterpart here: the port always
 #: runs its scan kernels and its one sort.
 RESULT_KNOBS = ("CYLON_TPU_ACCUM", "CYLON_TPU_SHUFFLE_PACK",
-                "CYLON_TPU_SHUFFLE_COMPRESS")
+                "CYLON_TPU_SHUFFLE_COMPRESS", "CYLON_TPU_STREAM_BATCH_CAP",
+                "CYLON_TPU_STREAM_STATE_CAP")
 
 _FALSE_WORDS = ("0", "false", "off", "no")
 

@@ -47,7 +47,7 @@ join -> group-by, group-by, unique, sort) journal every completed pass
 (``durable.RunJournal``) and a fresh process re-invoking the same run
 loads the journaled passes instead of running them; a mesh or
 process-group engine runs unjournaled, as the JAX package's does.
-Elastic execution is not ported (ROADMAP.md queue A, item 11).
+Elastic execution is not ported (ROADMAP.md queue A, item 11b).
 """
 from __future__ import annotations
 
@@ -1155,11 +1155,11 @@ def _agree_on_passes(ctx: CylonContext, *plan) -> None:
 
 def _refuse_elastic(elastic) -> None:
     """``elastic=`` (one process's slice of an elastic gang) needs the
-    gang and its journal, neither of which is ported."""
+    gang and its coordinator, which are not ported yet."""
     if elastic is not None:
         raise CylonError(Code.NotImplemented,
                          "elastic execution is not ported yet (ROADMAP.md "
-                         "queue A, item 11); pass elastic=None")
+                         "queue A, item 11b); pass elastic=None")
 
 
 def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,

@@ -1,17 +1,18 @@
 """Observability for the port: tracing spans, request trace contexts,
-metrics and the failure flight recorder.
+metrics, their exports and the failure flight recorder.
 
-The parts of ``cylon_tpu/obs/`` the out-of-core engine reads: ``spans``
-(``exec.pass`` spans and the instants of faults, retries and OOM splits),
-``tracectx`` (causal trace identity of those spans), ``metrics``
-(``oom.refinements``, ``retry.attempts``, ``exec.parts_run``,
-``hbm.live_bytes``) and ``fleet.flight_record``; and what the planner
-reads: ``stats_catalog`` (the persistent statistics catalog) and
-``export._artifact_path`` (where a plan profile lands).  Host-side; the
-trace exports and OpenMetrics wait for ROADMAP.md queue A, item 11.
+A copy of ``cylon_tpu/obs/``: ``spans`` (nested wall-clock spans and
+instants over every hot path, the flight ring and the event buffer),
+``tracectx`` (causal request identity, W3C traceparent, tail-based
+retention), ``metrics`` (counters, gauges, histograms with cumulative
+``le`` buckets), ``export`` (Chrome-trace/Perfetto and flat metrics JSON
+with per-rank naming), ``openmetrics`` (the Prometheus text exposition
+and its scrape listener), ``fleet`` (process identity, clock alignment,
+``flight_record``) and ``stats_catalog`` (the planner's persistent
+statistics).  Host-side.
 """
 from __future__ import annotations
 
-from . import (export, fleet, metrics, spans, stats_catalog,  # noqa: F401
-               tracectx)
+from . import (export, fleet, metrics, openmetrics, spans,  # noqa: F401
+               stats_catalog, tracectx)
 from .spans import instant, span  # noqa: F401

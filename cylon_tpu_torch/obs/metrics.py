@@ -7,13 +7,16 @@ A copy of ``cylon_tpu/obs/metrics.py``: the shuffle's accounting
 ``shuffle.bytes_per_exchange`` histogram), out-of-core refinements
 (``oom.refinements``), transient retries (``retry.attempts``), parts run
 (``exec.parts_run``), injected faults (``fault.injected``) and the device
-memory watermark (``hbm.live_bytes``).  Plain dict arithmetic on the host;
-``snapshot()`` is deterministic (keys sorted).  The watermark reads the
+memory watermark (``hbm.live_bytes``), and the serve layer's counters and
+per-tenant latency histograms (``serve.*``), whose cumulative ``le``
+buckets the OpenMetrics exposition renders.  Plain dict arithmetic on the
+host; ``snapshot()`` is deterministic (keys sorted).  The watermark reads the
 caching allocator (``torch.cuda.memory_allocated``) where the JAX package
 sums ``jax.live_arrays``.
 """
 from __future__ import annotations
 
+import bisect
 from typing import Dict, Optional
 
 import torch
@@ -22,11 +25,23 @@ _counters: Dict[str, float] = {}
 _gauges: Dict[str, float] = {}
 _hists: Dict[str, "_Hist"] = {}
 
+#: fixed cumulative-bucket boundaries (OpenMetrics ``le`` semantics), the
+#: reference's (``cylon_tpu/obs/metrics.py:40``): a 1-2.5-5 ladder through
+#: 1e6, decades beyond.  Fixed, so histograms of different processes or
+#: runs merge by per-key addition (``fleet.merge_hist``) and render as
+#: cumulative buckets without rebinning.
+LE_BUCKETS: tuple = (1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500,
+                     5000, 10000, 25000, 50000, 100000, 250000, 500000,
+                     1000000, 10000000, 100000000, 1000000000)
+
+
 class _Hist:
     """count/sum/min/max and power-of-two bucket counts (bucket i holds
-    [2**i, 2**(i+1)); values below 1 land in bucket 0)."""
+    [2**i, 2**(i+1)); values below 1 land in bucket 0).  ``as_dict`` also
+    emits the CUMULATIVE ``le`` buckets (``LE_BUCKETS`` and "+Inf");
+    per-boundary counts are kept non-cumulative and accumulated there."""
 
-    __slots__ = ("count", "sum", "min", "max", "buckets")
+    __slots__ = ("count", "sum", "min", "max", "buckets", "le_counts")
 
     def __init__(self):
         self.count = 0
@@ -34,6 +49,8 @@ class _Hist:
         self.min: Optional[float] = None
         self.max: Optional[float] = None
         self.buckets: Dict[int, int] = {}
+        # one slot per LE_BUCKETS boundary and the +Inf overflow slot
+        self.le_counts = [0] * (len(LE_BUCKETS) + 1)
 
     def observe(self, value: float) -> None:
         v = float(value)
@@ -43,12 +60,25 @@ class _Hist:
         self.max = v if self.max is None else max(self.max, v)
         b = max(0, int(v).bit_length() - 1) if v >= 1 else 0
         self.buckets[b] = self.buckets.get(b, 0) + 1
+        self.le_counts[bisect.bisect_left(LE_BUCKETS, v)] += 1
+
+    def le_dict(self) -> Dict[str, int]:
+        """Cumulative {boundary: count of observations <= boundary}; keys
+        are decimal strings plus "+Inf" (== count)."""
+        out: Dict[str, int] = {}
+        acc = 0
+        for bound, n in zip(LE_BUCKETS, self.le_counts):
+            acc += n
+            out[str(bound)] = acc
+        out["+Inf"] = acc + self.le_counts[-1]
+        return out
 
     def as_dict(self) -> Dict[str, object]:
         return {"count": self.count, "sum": self.sum,
                 "min": self.min, "max": self.max,
                 "buckets": {str(k): self.buckets[k]
-                            for k in sorted(self.buckets)}}
+                            for k in sorted(self.buckets)},
+                "le": self.le_dict()}
 
 
 def counter_add(name: str, value: float = 1) -> None:

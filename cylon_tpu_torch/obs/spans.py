@@ -1,4 +1,5 @@
-"""Structured tracing spans: the event substrate of the flight recorder.
+"""Structured tracing spans: the event substrate of the flight recorder
+and the Chrome-trace export.
 
 A copy of ``cylon_tpu/obs/spans.py``.  Every span records (monotonic ns
 start, duration, thread id, nesting depth, attributes).  Three modes, by
@@ -7,19 +8,26 @@ the ``CYLON_TPU_TRACE`` knob (read on every ``span()`` call):
 - ``auto`` (default): the aggregate stopwatch (two ``perf_counter_ns``
   reads and two dict updates per span) and the flight ring;
 - ``1`` / ``on``: aggregates plus the bounded event buffer
-  (``BUFFER_CAP`` events; past it events are dropped and counted);
+  (``BUFFER_CAP`` events; past it events are dropped and counted),
+  which ``obs.export`` writes out;
 - ``0`` / ``off``: a no-op singleton.
 
 Spans measure host wall-clock.  Device work is asynchronous, so its time
 lands in whichever span blocks on it (the engine's pass span blocks on
-its fetch).  The flight ring (``RING_CAP`` events) keeps the most recent
-events in every enabled mode for ``obs.fleet.flight_record``.
-``enable_log`` turns on one INFO log line per finished span (the
-reference's per-span debug log, which ``utils.enable_timing`` flips).
+its fetch); ``CYLON_TPU_TRACE_SYNC=1`` fences at span boundaries
+(``torch.cuda.synchronize`` where the reference blocks on a trivial
+dispatch; nothing to fence in a process that never touched a card) so
+device time lands in the span that launched it.  The flight ring
+(``RING_CAP`` events) keeps the most recent events in every enabled mode
+for ``obs.fleet.flight_record``.  ``CYLON_TPU_DEBUG`` (or
+``enable_log``) logs one INFO line per finished span.  Tail-based
+retention (``obs.tracectx.finish_request``) removes a closed request's
+events through :func:`discard_trace`.
 """
 from __future__ import annotations
 
 import logging
+import sys
 import threading
 import time
 from collections import deque
@@ -60,9 +68,10 @@ class Event(NamedTuple):
 
 _events: List[Event] = []
 _dropped = 0
-# guards buffer appends against the cap: only taken when event buffering
-# is ON — the aggregate-only default never touches it.  Readers
-# (events()) stay lock-free: tuple(_events) is one GIL-atomic C call.
+# guards buffer membership (record vs retention discard): only taken
+# when event buffering is ON — the aggregate-only default never touches
+# it.  Readers (events(), exports) stay lock-free: tuple(_events) is one
+# GIL-atomic C call and the list is only ever appended or rebuilt whole.
 _buf_lock = threading.Lock()
 _totals: Dict[str, float] = {}
 _counts: Dict[str, int] = {}
@@ -75,8 +84,9 @@ _tls = threading.local()
 # events LEADING UP to the failure, not the run's first N.
 _ring: "deque[Event]" = deque(maxlen=RING_CAP)
 
-# per-span INFO log (``enable_log``), off by default
-_log_on = False
+# per-span INFO log: initialized from CYLON_TPU_DEBUG, flipped by
+# enable_log()
+_log_on = bool(config.knob("CYLON_TPU_DEBUG"))
 _log = logging.getLogger("cylon_tpu_torch.spans")
 
 
@@ -102,6 +112,23 @@ def enabled() -> bool:
 
 def events_enabled() -> bool:
     return mode() == EVENTS
+
+
+def sync_enabled() -> bool:
+    return bool(config.knob("CYLON_TPU_TRACE_SYNC"))
+
+
+def _fence() -> None:
+    """Drain the device's launched work (``torch.cuda.synchronize`` on the
+    current card).  A no-op in a process that never initialized CUDA:
+    CPU tensors run synchronously, so there is nothing to drain."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return
+    try:
+        torch.cuda.synchronize()
+    except Exception as e:  # a failed fence must never kill the op it wraps
+        _log.debug("trace sync fence failed: %s: %s", type(e).__name__, e)
 
 
 def ring_events() -> Tuple[Event, ...]:
@@ -143,13 +170,14 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "_t0", "_d", "_buffer", "_trace")
+    __slots__ = ("name", "attrs", "_t0", "_d", "_buffer", "_sync", "_trace")
 
     def __init__(self, name: str, attrs: Optional[Dict[str, object]],
-                 buffer: bool):
+                 buffer: bool, sync: bool):
         self.name = name
         self.attrs = attrs
         self._buffer = buffer
+        self._sync = sync
         self._trace = None
 
     def set(self, **attrs) -> "_Span":
@@ -161,6 +189,8 @@ class _Span:
         return self
 
     def __enter__(self) -> "_Span":
+        if self._sync:
+            _fence()
         # causal identity: become a child span of the active request
         # context (None — the common case — costs one contextvar read)
         self._trace = tracectx.push_span()
@@ -170,6 +200,8 @@ class _Span:
         return self
 
     def __exit__(self, *exc) -> bool:
+        if self._sync:
+            _fence()
         t1 = time.perf_counter_ns()
         _tls.depth = self._d
         dur = t1 - self._t0
@@ -200,7 +232,7 @@ def span(name: str, **attrs):
     m = mode()
     if m == OFF:
         return _NULL
-    return _Span(name, attrs or None, m == EVENTS)
+    return _Span(name, attrs or None, m == EVENTS, sync_enabled())
 
 
 def instant(name: str, **attrs) -> None:
@@ -224,6 +256,21 @@ def instant(name: str, **attrs) -> None:
 def events() -> Tuple[Event, ...]:
     """Snapshot of the buffered events, in record order."""
     return tuple(_events)
+
+
+def discard_trace(trace_id: str) -> int:
+    """Tail-based retention's discard half: remove the buffered events
+    stamped with ``trace_id`` (a fast-and-healthy request closing) and
+    return how many went.  The flight ring is untouched, and the drop
+    counter stays MONOTONE: retention discards are counted apart
+    (``trace.tail_dropped``), never by un-counting overflow drops.  One
+    O(buffer) rebuild under the record lock, so a concurrent append is
+    never lost mid-rebuild."""
+    with _buf_lock:
+        before = len(_events)
+        _events[:] = [e for e in _events
+                      if e.trace is None or e.trace[0] != trace_id]
+        return before - len(_events)
 
 
 def dropped() -> int:

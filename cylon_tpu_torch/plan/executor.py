@@ -30,8 +30,8 @@ for the whole op chain (``LogicalPlan.fingerprint``), one journaled result
 frame — a repeated plan replays from spill with zero device passes and
 zero kernel launches (``plan.cache_hit``), served as a one-shard ``Table``
 on the plan's device.  A plan over a process group runs unjournaled (each
-process would race the others to the cache).  Not ported: the serve
-layer's ``run_service`` (ROADMAP.md queue A, item 11).
+process would race the others to the cache).  :func:`run_service` is
+the serve layer's runner of the ``plan`` op.
 """
 from __future__ import annotations
 
@@ -181,11 +181,15 @@ def execute(plan: "ir.LogicalPlan", ctx=None, pass_guard=None,
 
 def run_service(plan: "ir.LogicalPlan", *, ctx=None, pass_guard=None,
                 **_kw):
-    """The serve layer's runner (op ``"plan"``): not ported, with the
-    serve layer (ROADMAP.md queue A, item 11)."""
-    raise CylonError(Code.NotImplemented,
-                     "the serve layer's plan op is not ported yet "
-                     "(ROADMAP.md queue A, item 11); call execute()")
+    """The serve layer's runner (op ``"plan"``,
+    ``cylon_tpu/plan/executor.py:182``): executes on the plan inputs' own
+    context (the service ``ctx`` is accepted for signature parity: a plan
+    over a 4-shard mesh shuffles across that mesh) and returns ``(host
+    frame, stats)`` with the journal-replay stats shape
+    ``serve.cache.served_from_journal`` reads."""
+    stats: dict = {}
+    t = execute(plan, pass_guard=pass_guard, stats_out=stats)
+    return t.to_numpy(), stats
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,8 @@ exchange ``bytes_sent``/``bytes_saved``, and per-shard row skew with
 the slowest shard named.  Nodes fused into a parent's shard body (the
 join under a fused group-by chain) carry no record of their own — their
 cost is the parent's, exactly as executed.  A copy of
-``cylon_tpu/plan/explain.py``; its ``explain_refresh`` renders the
-streaming tables' refresh plans and waits for them (ROADMAP.md queue A,
-item 11).
+``cylon_tpu/plan/explain.py``; :func:`explain_refresh` renders a stream
+query's refresh plan (``stream/incremental.py``).
 """
 from __future__ import annotations
 
@@ -61,6 +60,37 @@ def explain(plan, optimized: Optional[bool] = None,
     phys = optimizer.optimize(plan, enabled=enabled)
     lines = [_header(phys)]
     _render(plan, phys.root, lines, 1, None)
+    return "\n".join(lines)
+
+
+def explain_refresh(info: dict) -> str:
+    """Render a streaming refresh plan from its ``describe()`` dict (a
+    plain dict, so the plan package never imports the stream package),
+    as ``cylon_tpu/plan/explain.py:64``: the incremental-vs-full decision
+    and WHY."""
+    mode = str(info.get("mode", "full")).upper()
+    lines = [f"refresh [stream={info.get('stream')} "
+             f"watermark={info.get('watermark')} mode={mode} "
+             f"durable={'on' if info.get('durable') else 'off'}]",
+             f"  {mode}: {info.get('reason', '-')}"]
+    if info.get("kind") == "groupby":
+        lines.append(
+            f"  groupby [{', '.join(info.get('by', ()))}] "
+            f"{', '.join(info.get('aggs', ()))}  "
+            f"[{info.get('partials', 0)} persisted partial columns]")
+        if mode == "INCREMENTAL":
+            lines.append("  delta batches -> partial group-by -> one "
+                         "combine with persisted state -> finalize "
+                         "(unchanged)")
+        else:
+            lines.append("  frozen batches 0..N-1 -> concat -> one local "
+                         "group-by (no reusable partial state)")
+    elif info.get("kind") == "join":
+        lines.append(
+            f"  join {info.get('how')} on {', '.join(info.get('on', ()))}  "
+            f"[dim: {info.get('dim_rows')} rows, broadcast once]")
+        lines.append("  delta fact batches probe the static dim; committed "
+                     "probe outputs replay from the journal")
     return "\n".join(lines)
 
 

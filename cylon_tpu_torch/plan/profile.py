@@ -219,7 +219,7 @@ class PlanProfile:
         context runs under an elastic agent — the fleet-level complement
         to the per-node shard-row skew.  Best-effort and read-only: no
         agent leaves the ledger absent.  The port's contexts have no
-        elastic agent until ROADMAP.md queue A, item 11."""
+        elastic agent until ROADMAP.md queue A, item 11b."""
         get = getattr(ctx, "elastic_agent", None)
         agent = get() if callable(get) else None
         if agent is None:

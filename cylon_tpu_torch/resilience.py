@@ -27,14 +27,18 @@ Fault-plan spec grammar (';'- or ','-separated entries)::
     site            fire an OOM on the 1st hit of `site`
     site@N          fire an OOM on the Nth hit (1-based)
     site@N=kind     kind in FAULT_KINDS (oom, timeout, comm, unknown, hang,
-                    delay, and the journal's killhard, journal_corrupt,
-                    cache_evict_race, disk_full, bitrot, sync_partial)
+                    delay, the journal's killhard, journal_corrupt,
+                    cache_evict_race, disk_full, bitrot, sync_partial,
+                    and the serve layer's tenant_flood, shed)
     site@N+=kind    fire on EVERY hit >= N (persistent fault)
 
 e.g. ``CYLON_TPU_FAULT_PLAN="pass_dispatch@2=oom;journal_commit@3=killhard"``.
-A kind of the JAX package that acts on a module not ported yet (the
-gang's ``rank_kill``, the serving layer's ``shed``, ...) fails the parse
-with `Code.NotImplemented` instead of firing as a no-op.
+The serve layer's ``tenant_flood`` (at ``serve.admit``) and ``shed`` (at
+``serve.dispatch``) are kinds too, and `FaultSchedule` composes a seeded
+multi-event timeline into one spec.  A kind of the JAX package that acts
+on a module not ported yet (the gang's ``rank_kill``, the router's
+``replica_sick``, ...) fails the parse with `Code.NotImplemented`
+instead of firing as a no-op.
 """
 from __future__ import annotations
 
@@ -201,8 +205,12 @@ def retry_call(fn, *, policy: Optional[RetryPolicy] = None, site: str = "op",
 #   never serve a torn journal);
 # - `disk_full` raises OSError(ENOSPC) at the spill write, the real errno
 #   of a full journal disk, so the degraded mode runs end to end.
-# The JAX package's other kinds act on the elastic gang or the serving
-# layer, neither of which is ported.
+# The serve layer's kinds: `tenant_flood` raises at the admission probe
+# (serve.admit), which the service turns into a classified shed; `shed`
+# raises at the dispatch probe (serve.dispatch), so a QUEUED request
+# sheds instead of running.
+# The JAX package's other kinds act on the elastic gang, its coordinator
+# or the fleet router, none of which is ported.
 _KIND_MESSAGES = {
     "oom": ("RESOURCE_EXHAUSTED: injected fault at {site} (hit {hit}): "
             "attempting to allocate past HBM capacity"),
@@ -220,17 +228,21 @@ _KIND_MESSAGES = {
                   "(hit {hit}): no space left on device"),
     "bitrot": "injected spill bitrot at {site} (hit {hit})",
     "sync_partial": "injected partial journal sync at {site} (hit {hit})",
+    "tenant_flood": ("RESOURCE_EXHAUSTED: injected tenant flood at {site} "
+                     "(hit {hit}): admission budget exceeded"),
+    "shed": ("UNAVAILABLE: injected shed at {site} (hit {hit}): "
+             "request shed under load"),
 }
 
 FAULT_KINDS = tuple(_KIND_MESSAGES)
 
 # the JAX package's kinds that act on a module the port does not have
-# yet, by its ROADMAP.md queue A item: 11 the elastic gang and the
-# serving layer
+# yet, by its ROADMAP.md queue A item: 11b the elastic gang, its
+# coordinator and the fleet router
 _UNPORTED_KINDS = dict.fromkeys(
     ("rank_kill", "heartbeat_loss", "coordinator_loss",
      "coordinator_restart", "coord_partition", "coord_slow",
-     "tenant_flood", "shed", "replica_sick"), 11)
+     "replica_sick"), "11b")
 
 #: seconds the ``delay`` kind sleeps the probe
 FAULT_DELAY_S = 0.25
@@ -443,6 +455,59 @@ def fault_plan(spec: str):
         yield plan
     finally:
         _OVERRIDE_PLAN = prev
+
+
+class FaultSchedule:
+    """Composable, seeded multi-event chaos timeline.
+
+    Chain :meth:`at` calls to compose any of the registered fault kinds
+    (the engine's, the journal's and the serve layer's) into one
+    `FaultPlan` spec string, which ``CYLON_TPU_FAULT_PLAN`` (a worker's
+    environment) or :meth:`install` (an in-process test) drives.  The
+    schedule's ``seed`` resolves every jittered hit index at parse
+    time, so a timeline is a pure function of (spec, seed): re-running
+    it replays the exact same event order, and sweeping seeds explores
+    different interleavings deterministically.
+
+        sched = (FaultSchedule(seed=11)
+                 .at("serve.admit", "tenant_flood", nth=2)
+                 .at("pass_dispatch", "oom", nth=3, jitter=4)
+                 .at("host_fetch", "delay", nth=1, persistent=True))
+        env["CYLON_TPU_FAULT_PLAN"] = sched.spec()
+    """
+
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+        self._events: List[Tuple[str, str, int, int, bool]] = []
+
+    def at(self, site: str, kind: str, nth: int = 1, jitter: int = 0,
+           persistent: bool = False) -> "FaultSchedule":
+        """Add one event: fire ``kind`` on a hit of ``site`` drawn from
+        ``[nth, nth+jitter]`` by the schedule's seed.  Returns self for
+        chaining.  The kind is checked now, by `FaultPlan.parse`: an
+        unknown kind is `Code.Invalid`, one of a module not ported yet
+        `Code.NotImplemented`."""
+        FaultPlan.parse(f"{site}@1={kind}")
+        self._events.append((site, kind, int(nth), int(jitter),
+                             bool(persistent)))
+        return self
+
+    def spec(self) -> str:
+        """The composed ``CYLON_TPU_FAULT_PLAN`` spec string."""
+        parts = [f"seed={self.seed}"] if self.seed else []
+        for site, kind, nth, jitter, persistent in self._events:
+            at = f"@{nth}" + (f"~{jitter}" if jitter else "")
+            parts.append(f"{site}{at}{'+' if persistent else ''}={kind}")
+        return ";".join(parts)
+
+    def plan(self) -> FaultPlan:
+        """The parsed (jitter-resolved) plan this schedule compiles to."""
+        return FaultPlan.parse(self.spec())
+
+    def install(self):
+        """Context manager installing the schedule as the active fault
+        plan (tests); yields the `FaultPlan` for hit/fired asserts."""
+        return fault_plan(self.spec())
 
 
 def classify(exc: BaseException) -> Code:

@@ -20,7 +20,7 @@ them onto that line and back, bit-exactly:
 Anything else is a classified `Code.SerializationError`.
 :func:`request_key` hashes the canonical encoding of a request (content
 only: no tenant, deadline or trace header).  The router that routes on
-it is ROADMAP.md queue A item 11's.
+it is ROADMAP.md queue A item 11b's.
 """
 from __future__ import annotations
 

@@ -11,11 +11,16 @@ result.  The planner's broadcast hash join and its skew salting run
 through the port's planner (``Table.plan()``, ``CYLON_TPU_PLAN_ADAPTIVE``),
 as the JAX package's cases do.  Still on a stand-in:
 
-- the streaming tables (A11): each micro-batch becomes a table and is
-  appended with ``Table.merge``; the group-by (or join) after the last
+- the streaming tables' appends as ``Table.merge``: each micro-batch
+  becomes a table and is merged on; the group-by (or join) after the last
   append matches pandas over the whole frame and the same op on the frame
-  loaded at once (the reference's cold recompute), floats within rtol
-  1e-12.
+  loaded at once, floats within rtol 1e-12.
+
+The streaming tables themselves run as the JAX package's cases do
+(``test_stream_*_incremental_differential``): the port's ``StreamTable``
+with an empty and a one-row batch among the micro-batches, refreshed
+after every append, each refresh equal to ``recompute_cold()`` and the
+last to pandas.
 
 Tolerances: float sums rtol 1e-9 in wide mode; the group-by cases also run
 narrow (float32 accumulation) at rtol 1e-5.
@@ -393,3 +398,91 @@ def test_stream_join_differential(pctx4, seed):
     for got_col, ref_col in (("v", "v"), ("w", "w")):
         np.testing.assert_allclose(_sorted_values(got[got_col]),
                                    _sorted_values(g[ref_col]), rtol=1e-12)
+
+
+# -- the port's streaming tables, as the JAX package's stream cases ----------
+
+def _as_floats(col):
+    """Exported float columns hold None in an object array for nulls."""
+    return np.array([np.nan if x is None else float(x)
+                     for x in np.asarray(col).ravel()])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_stream_groupby_incremental_differential(seed, tmp_path):
+    """Incremental refresh after EVERY micro-batch (an empty and a
+    one-row batch among them) against the pandas oracle over the frozen
+    concatenation, and at each watermark equal to the cold recompute."""
+    from cylon_tpu_torch.stream import GroupByQuery, StreamTable
+
+    rng = np.random.default_rng(7000 + seed)
+    df = _rand_frame(rng, allow_empty=False)
+    batches, frozen = _split_batches(df, rng)
+    cpu = CylonContext.Init("cpu")
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        s = StreamTable(f"fuzz-gb-{seed}")
+        q = None
+        for b in batches:
+            s.append({c: b[c].to_numpy() for c in b.columns})
+            if q is None:
+                q = GroupByQuery(s, ["k"],
+                                 {"v": ["sum", "count", "min", "max"]},
+                                 ctx=cpu)
+            frame, stats = q.refresh()
+            assert stats["watermark"] == s.watermark
+            cold = q.recompute_cold()
+            for name in cold:
+                a, c = np.asarray(frame[name]), np.asarray(cold[name])
+                assert a.dtype == c.dtype and a.tolist() == c.tolist(), name
+    g = (frozen.groupby("k")
+         .agg(sum_v=("v", "sum"), count_v=("v", "count"),
+              min_v=("v", "min"), max_v=("v", "max")).reset_index()
+         .sort_values("k").reset_index(drop=True))
+    got = (pd.DataFrame({k: frame[k] for k in frame})
+           .sort_values("k").reset_index(drop=True))
+    np.testing.assert_array_equal(got["k"], g["k"])
+    np.testing.assert_array_equal(got["count_v"], g["count_v"])
+    # an all-null group: pandas sums to 0.0, the stream gives a null
+    np.testing.assert_allclose(np.nan_to_num(_as_floats(got["sum_v"])),
+                               g["sum_v"], rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(_as_floats(got["min_v"]), g["min_v"],
+                               rtol=1e-9, atol=1e-12, equal_nan=True)
+    np.testing.assert_allclose(_as_floats(got["max_v"]), g["max_v"],
+                               rtol=1e-9, atol=1e-12, equal_nan=True)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_stream_join_incremental_differential(seed, tmp_path):
+    """The fact stream joined to a static dimension table: every batch
+    probes once, the refresh equals the cold recompute and pandas merging
+    the frozen concatenation."""
+    from cylon_tpu_torch.stream import JoinQuery, StreamTable
+
+    rng = np.random.default_rng(8000 + seed)
+    how = ["inner", "left"][seed % 2]
+    fact = _rand_frame(rng, allow_empty=False)
+    dim = _rand_frame(rng).rename(columns={"v": "w"}).drop_duplicates("k")
+    batches, frozen = _split_batches(fact, rng)
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        s = StreamTable(f"fuzz-join-{seed}")
+        for b in batches:
+            s.append({c: b[c].to_numpy() for c in b.columns})
+        j = JoinQuery(s, {c: dim[c].to_numpy() for c in dim.columns},
+                      on="k", how=how, ctx=CylonContext.Init("cpu"))
+        frame, stats = j.refresh()
+        assert stats["parts_run"] == len(batches)
+        cold = j.recompute_cold()
+        for name in cold:
+            a, c = np.asarray(frame[name]), np.asarray(cold[name])
+            assert a.dtype == c.dtype and a.tolist() == c.tolist(), name
+    g = frozen.merge(dim, on="k", how=how)
+    first_val = next(c for c in frame if c not in ("l_k", "r_k", "k"))
+    assert len(np.asarray(frame[first_val])) == len(g)
+    for got_col, ref_col in (("l_v", "v"), ("r_w", "w")):
+        if got_col not in frame:
+            got_col = ref_col  # no name collision: unprefixed
+        np.testing.assert_allclose(
+            np.sort(np.nan_to_num(_as_floats(frame[got_col]), nan=-7e9)),
+            np.sort(np.nan_to_num(g[ref_col].to_numpy(dtype=float),
+                                  nan=-7e9)),
+            rtol=1e-12)

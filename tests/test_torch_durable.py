@@ -41,9 +41,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = CylonContext.Init("cpu")
 
 #: cases of tests/test_durable.py that wait for a later ROADMAP item: both
-#: drive the elastic coordinator's journal placement (A11)
-WAITING = {"test_coordinator_journal_reply_placement": "A11",
-           "test_fleet_anti_entropy_converges": "A11"}
+#: drive the elastic coordinator's journal placement (A11b)
+WAITING = {"test_coordinator_journal_reply_placement": "A11b",
+           "test_fleet_anti_entropy_converges": "A11b"}
 
 
 def _join_inputs(rng, n=3000):
@@ -1315,7 +1315,7 @@ def test_wire_blob_digest_contract():
 
 def test_durable_waits_name_their_item():
     """Every case of tests/test_durable.py is ported here under its own
-    name, except the two that drive the elastic coordinator (A11)."""
+    name, except the two that drive the elastic coordinator (A11b)."""
     import ast
 
     with open(os.path.join(REPO, "tests", "test_durable.py")) as f:
@@ -1323,8 +1323,8 @@ def test_durable_waits_name_their_item():
                  if isinstance(n, ast.FunctionDef)
                  and n.name.startswith("test_")}
     ported = {n for n in globals() if n.startswith("test_")}
-    assert WAITING == {"test_coordinator_journal_reply_placement": "A11",
-                       "test_fleet_anti_entropy_converges": "A11"}
+    assert WAITING == {"test_coordinator_journal_reply_placement": "A11b",
+                       "test_fleet_anti_entropy_converges": "A11b"}
     assert set(WAITING) <= names
     assert names - set(WAITING) <= ported, names - set(WAITING) - ported
     assert len(names - set(WAITING)) == 44
@@ -1554,7 +1554,7 @@ def test_journal_syncer_takes_heartbeat_json(tmp_path, no_live_journal,
     ``journal_guard`` the GC replication guard, and each
     ``journal_sync`` hint a pull on the syncer's own thread; ``close``
     clears the guard and the peers.  (The coordinator that sends these
-    replies is A11's.)"""
+    replies is A11b's.)"""
     src, dst = tmp_path / "src", tmp_path / "dst"
     frame = _mk_run(src, fp="a" * 64)
     os.makedirs(dst)

@@ -397,13 +397,13 @@ def test_run_passes_streams_positional_passes_with_retry():
 
 
 def test_fault_plan_hook_kinds_match_reference():
-    """The port keeps the kinds the engine's probes and the run journal's
-    act on, each with the reference's message; every other reference kind
-    is refused."""
+    """The port keeps the kinds the engine's probes, the run journal's and
+    the serve layer's act on, each with the reference's message; every
+    other reference kind is refused."""
     assert set(presilience.FAULT_KINDS) == {
         "oom", "timeout", "comm", "unknown", "hang", "delay", "killhard",
         "journal_corrupt", "cache_evict_race", "disk_full", "bitrot",
-        "sync_partial"}
+        "sync_partial", "tenant_flood", "shed"}
     assert set(rresilience.FAULT_KINDS) == (
         set(presilience.FAULT_KINDS) | set(presilience._UNPORTED_KINDS))
     for kind in presilience.FAULT_KINDS:

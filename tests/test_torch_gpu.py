@@ -1027,3 +1027,76 @@ def test_journaled_engine_resumes_on_the_card(gen, tmp_path):
         for k in base:
             assert np.array_equal(got[k].view(np.uint8),
                                   base[k].view(np.uint8)), k
+
+
+@pytest.mark.gpu
+def test_served_join_groupby_on_the_card_equals_the_direct_call(gen,
+                                                                tmp_path):
+    """A ``join_groupby`` served by ``QueryService()`` (the card's default
+    context; its scheduler thread binds that card) equals the direct
+    engine call bit for bit and launches the kernels; its repeat under a
+    durable dir is a result-cache hit that launches none."""
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.exec import chunked_join_groupby_tables
+    from cylon_tpu_torch.serve import QueryService
+
+    rng = np.random.default_rng(17)
+    n = 1 << 18
+    left = {"k": rng.integers(0, n, n).astype(np.int32),
+            "a": rng.random(n).astype(np.float32)}
+    right = {"k": rng.integers(0, n, n).astype(np.int32),
+             "b": rng.random(n).astype(np.float32)}
+    kw = dict(on="k", group_by="l_k", agg={"a": ["sum", "mean"]},
+              passes=4)
+    direct, _ = chunked_join_groupby_tables(left, right, **kw)
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        with QueryService() as svc:
+            scan.reset_launches()
+            served, _ = svc.submit("t", "join_groupby", left, right,
+                                   **kw).result(timeout=300)
+            assert scan.LAUNCHES["scan_1d"] > 0
+            scan.reset_launches()
+            hit = svc.submit("t", "join_groupby", left, right, **kw)
+            again, _ = hit.result(timeout=300)
+            assert hit.cache_hit
+            assert scan.LAUNCHES == {"scan_1d": 0, "segmented_scan": 0}
+    for frame in (served, again):
+        assert list(frame) == list(direct)
+        for k in direct:
+            assert np.asarray(frame[k]).tobytes() == \
+                np.asarray(direct[k]).tobytes(), k
+
+
+@pytest.mark.gpu
+def test_stream_refresh_on_the_card_equals_recompute_cold(gen, tmp_path):
+    """An incremental group-by on the card (float32 sums through the scan
+    kernels): each refresh equals ``recompute_cold()`` bit for bit, the
+    second folds only the new batches, and the sums agree with a float64
+    oracle within rtol 1e-5."""
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.stream import GroupByQuery, StreamTable
+
+    rng = np.random.default_rng(23)
+    batches = [{"k": rng.integers(0, 1 << 15, 1 << 16).astype(np.int64),
+                "v": rng.random(1 << 16)} for _ in range(6)]
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        s = StreamTable("card")
+        for b in batches[:4]:
+            s.append(b)
+        q = GroupByQuery(s, ["k"], {"v": ["sum", "mean", "count"]})
+        f4, st4 = q.refresh()
+        for b in batches[4:]:
+            s.append(b)
+        scan.reset_launches()
+        f6, st6 = q.refresh()
+        assert scan.LAUNCHES["segmented_scan"] > 0
+        assert st4["parts_run"] == 4 and st6["parts_run"] == 2
+        cold = q.recompute_cold()
+    for k in cold:
+        assert np.asarray(f6[k]).tobytes() == np.asarray(cold[k]).tobytes()
+    k = np.concatenate([b["k"] for b in batches])
+    v = np.concatenate([b["v"] for b in batches])
+    keys, inv = np.unique(k, return_inverse=True)
+    np.testing.assert_array_equal(f6["k"], keys)
+    np.testing.assert_allclose(f6["sum_v"], np.bincount(inv, v), rtol=1e-5)
+    np.testing.assert_array_equal(f6["count_v"], np.bincount(inv))

@@ -39,9 +39,10 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    # every module of the package, the out-of-core engine's and the
-    # journal's (durable_lease, durable_sync, net/, router/) included
-    assert int(out.stdout.split()[-1]) >= 71
+    # every module of the package, the out-of-core engine's, the
+    # journal's (durable_lease, durable_sync, net/, router/) and the
+    # serving layer's (serve/, stream/, obs/openmetrics) included
+    assert int(out.stdout.split()[-1]) >= 79
 
 
 def test_import_loads_neither_pandas_nor_pyarrow():
@@ -54,6 +55,8 @@ def test_import_loads_neither_pandas_nor_pyarrow():
         "from cylon_tpu_torch import frame, index, io, native, series\n"
         "from cylon_tpu_torch.io import arrow_io, csv_config\n"
         "from cylon_tpu_torch.native import build\n"
+        "from cylon_tpu_torch import serve, stream\n"
+        "from cylon_tpu_torch.obs import export, openmetrics\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('pandas', 'pyarrow', 'jax',\n"
         "                                    'cylon_tpu'))\n"
@@ -68,11 +71,17 @@ def test_import_loads_neither_pandas_nor_pyarrow():
                                     "native", "native/build", "frame",
                                     "series", "index", "durable_lease",
                                     "durable_sync", "net", "net/control",
-                                    "router", "router/wire"])
+                                    "router", "router/wire", "serve",
+                                    "serve/service", "serve/cache",
+                                    "stream", "stream/state",
+                                    "stream/table", "stream/incremental",
+                                    "obs/openmetrics", "obs/export",
+                                    "obs/fleet", "obs/tracectx"])
 def test_front_door_modules_import_no_jax(module):
-    """The I/O layer, the native bindings, the frames and the journal's
-    stdlib modules (its lease, transport and wire codec) are copies of the
-    JAX package's modules, never imports of them."""
+    """The I/O layer, the native bindings, the frames, the journal's
+    stdlib modules (its lease, transport and wire codec) and the serving
+    layer (the query service, streams, the OpenMetrics exposition) are
+    copies of the JAX package's modules, never imports of them."""
     path = PKG / f"{module}.py"
     if not path.exists():
         path = PKG / module / "__init__.py"
@@ -115,6 +124,15 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     with pytest.raises(CylonError, match="no CUDA device"):
         pipeline.out_of_core_join_groupby(
             (x, x.astype(np.float32), x, x.astype(np.float32)), 2)
+    from cylon_tpu_torch.serve import QueryService
+    from cylon_tpu_torch.stream import GroupByQuery, StreamTable
+
+    with pytest.raises(CylonError, match="no CUDA device"):
+        QueryService()
+    s = StreamTable("no-card")
+    s.append({"k": x})
+    with pytest.raises(CylonError, match="no CUDA device"):
+        GroupByQuery(s, "k", {"k": "count"})
     # an explicit CPU request runs
     col = column.from_numpy(x, device="cpu")
     assert col.data.device.type == "cpu"

@@ -17,10 +17,9 @@ to the port on ``MeshConfig(devices=["cpu"], world_size=...)``:
   of exchanges, collective launches and count gathers.
 
 The plan-granularity journal replay runs in both packages under a
-durable dir (``test_journal_replay_zero_compiles``).  The case of
-``tests/test_plan.py`` that waits for a later item (``WAITING``): the
-serve layer's plan op (A11); ``test_plan_waits_name_their_item`` shows
-the port refusing it.
+durable dir (``test_journal_replay_zero_compiles``), and so does the
+serve layer's plan op (``test_serve_plan_op_and_cache_hit``).  No case of
+``tests/test_plan.py`` waits for a later item (``WAITING`` is empty).
 """
 import contextlib
 
@@ -34,15 +33,15 @@ from cylon_tpu.obs import metrics as robs_metrics
 from cylon_tpu.plan import col as rcol
 from cylon_tpu.plan import lit as rlit
 from cylon_tpu.plan import optimizer as roptimizer
-from cylon_tpu_torch import (Code, CylonContext, CylonError, MeshConfig,
-                             Table, config)
+from cylon_tpu_torch import (CylonContext, CylonError, MeshConfig, Table,
+                             config)
 from cylon_tpu_torch.obs import metrics as obs_metrics
 from cylon_tpu_torch.parallel import collectives
 from cylon_tpu_torch.plan import col, lit, optimizer
 from cylon_tpu_torch.plan import executor as plan_executor
 
 #: cases of tests/test_plan.py that wait for a later ROADMAP item
-WAITING = {"test_serve_plan_op_and_cache_hit": "A11"}
+WAITING: dict = {}
 
 WORLDS = (1, 2, 4)
 REF_FIXTURE = {1: "local_ctx", 2: "ctx2", 4: "ctx4"}
@@ -507,20 +506,71 @@ def test_shuffles_elided_counter(pair):
 
 
 def test_plan_waits_name_their_item(pair, tmp_path):
-    """The serve layer's plan op (A11) is not ported: ``run_service``
-    raises naming A11.  (The journal replay is: a durable dir makes
-    ``execute`` journal, ``test_journal_replay_zero_compiles``.)"""
+    """Nothing of test_plan.py waits: the serve layer's plan op runs
+    (``run_service`` returns the host frame and the journal-replay stats
+    the service reads), and every case of test_plan.py has a
+    counterpart here."""
+    import ast
+    import os
+
     from cylon_tpu_torch.plan import run_service
 
     rng = np.random.default_rng(16)
-    _, pt = _tables(_raw(rng), *pair(4))
-    _, pr = _tables(_raw_right(rng), *pair(4))
+    rt, pt = _tables(_raw(rng), *pair(4))
+    rr, pr = _tables(_raw_right(rng), *pair(4))
     q = _join_groupby(pt, pr, col, lit)
-    assert WAITING == {"test_serve_plan_op_and_cache_hit": "A11"}
-    with pytest.raises(CylonError, match="item 11") as e:
-        run_service(q)
-    assert e.value.code == Code.NotImplemented
+    rq = _join_groupby(rt, rr, rcol, rlit)
+    assert WAITING == {}
+    frame, stats = run_service(q)
+    assert stats["parts_run"] == 1 and stats["cache_hit"] is False
+    assert stats["rows"] == len(frame["k"])
+    got = pd.DataFrame(frame).sort_values("k").reset_index(drop=True)
+    want = _sorted_pd(rq.execute(), "k")
+    pd.testing.assert_frame_equal(got, want, check_exact=False, rtol=1e-5,
+                                  atol=1e-6)
     assert q.approx_input_bytes() > 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "test_plan.py")) as f:
+        names = {n.name for n in ast.parse(f.read()).body
+                 if isinstance(n, ast.FunctionDef)
+                 and n.name.startswith("test_")}
+    ported = {n for n in globals() if n.startswith("test_")}
+    assert "test_serve_plan_op_and_cache_hit" in names & ported
+
+
+def test_serve_plan_op_and_cache_hit(pair, tmp_path):
+    """A planned Q submitted to both services: the first run executes on
+    the plan inputs' own 4-shard mesh (the service's context is the CPU
+    device), the repeat is a result-cache hit, and the frames agree with
+    each other and with the reference's."""
+    from cylon_tpu.serve import QueryService as RQueryService
+    from cylon_tpu_torch.serve import QueryService
+
+    rng = np.random.default_rng(18)
+    rt, pt = _tables(_raw(rng), *pair(4))
+    rr, pr = _tables(_raw_right(rng), *pair(4))
+    rq, q = _both(_join_groupby, (rt, rr), (pt, pr))
+    assert q.approx_input_bytes() > 0
+    with rconfig.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path / "ref")):
+        with RQueryService() as rsvc:
+            want = rsvc.submit("tenant-a", "plan", rq).result(
+                timeout=300)[0]
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path / "port")):
+        with QueryService(ctx=CylonContext.Init("cpu")) as svc:
+            tk = svc.submit("tenant-a", "plan", q)
+            frame, stats = tk.result(timeout=300)
+            assert stats["parts_run"] == 1 and not stats["cache_hit"]
+            tk2 = svc.submit("tenant-a", "plan", q)
+            frame2, stats2 = tk2.result(timeout=300)
+            assert tk2.cache_hit, stats2
+            st = svc.stats()
+    assert st["completed"] == 2 and st["cache_hits"] == 1, st
+    a = pd.DataFrame(frame).sort_values("k").reset_index(drop=True)
+    b = pd.DataFrame(frame2).sort_values("k").reset_index(drop=True)
+    pd.testing.assert_frame_equal(a, b)
+    w = pd.DataFrame(want).sort_values("k").reset_index(drop=True)
+    pd.testing.assert_frame_equal(a, w, check_exact=False, rtol=1e-5,
+                                  atol=1e-6)
 
 
 def test_journal_replay_zero_compiles(pair, tmp_path):

@@ -10,10 +10,12 @@ cardinalities and selectivities, and the analyzed plan's node lines
 (without their timings and shard skews: the packages place rows by
 different hashes on the CPU) must agree.
 
-``test_profile.py``'s cases that wait for a later item
-(``WAITING``): the OpenMetrics rendering and server, the histogram
-buckets, the coordinator's metrics verb and the fleet tooling, and the
-serve op under the profiler knob (all A11).
+The OpenMetrics cases render, parse and scrape the port's exposition and
+hold it against the reference's (``obs/openmetrics.py``, cumulative
+``le`` buckets, tenant and rank labels); ``trace_report`` reads the
+port's plan profile and metrics.  ``test_profile.py``'s cases that wait
+for a later item (``WAITING``): the coordinator's metrics verb and its
+dead-rank pruning (A11b, the elastic coordinator).
 """
 import json
 import os
@@ -31,7 +33,8 @@ from cylon_tpu.plan import optimizer as roptimizer
 from cylon_tpu_torch import (CylonContext, CylonError, MeshConfig, Table,
                              config, resilience)
 from cylon_tpu_torch.obs import fleet as obs_fleet
-from cylon_tpu_torch.obs import stats_catalog
+from cylon_tpu_torch.obs import metrics as obs_metrics
+from cylon_tpu_torch.obs import openmetrics, stats_catalog
 from cylon_tpu_torch.plan import PlanProfile, col, lit
 from cylon_tpu_torch.plan import executor as plan_executor
 from cylon_tpu_torch.plan import optimizer as plan_optimizer
@@ -40,19 +43,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: planner-adjacent cases of tests/test_profile.py that wait for an item
 WAITING = {
-    "test_hist_le_buckets_cumulative_and_merge": "A11",
-    "test_hist_le_merge_with_legacy_hist": "A11",
-    "test_openmetrics_render_matches_snapshot_and_parses": "A11",
-    "test_openmetrics_parse_rejects_malformed": "A11",
-    "test_openmetrics_hostile_tenant_roundtrip": "A11",
-    "test_openmetrics_server_scrape": "A11",
-    "test_openmetrics_knob_disabled_and_ensure": "A11",
-    "test_render_fleet_rank_labels": "A11",
-    "test_coordinator_metrics_verb_and_fleet_status": "A11",
-    "test_metrics_pruned_with_dead_rank": "A11",
-    "test_trace_report_plan_flag": "A11",
-    "test_trace_report_compression_counters": "A11",
-    "test_run_service_with_profiler_knob": "A11",
+    "test_coordinator_metrics_verb_and_fleet_status": "A11b",
+    "test_metrics_pruned_with_dead_rank": "A11b",
 }
 
 
@@ -387,6 +379,249 @@ def test_profile_cache_hit_path(ctx4, mesh4, tmp_path):
             assert "served from journal" in plan.explain(analyze=True)
 
 
+# ---------------------------------------------------------------------------
+# histogram le buckets, OpenMetrics render / parse / scrape
+# ---------------------------------------------------------------------------
+
+
+def test_hist_le_buckets_cumulative_and_merge():
+    from cylon_tpu.obs import metrics as robs_metrics
+
+    h, rh = obs_metrics._Hist(), robs_metrics._Hist()
+    for v in (0.5, 1.0, 3.0, 70.0, 900.0, 1e6, 5e9):
+        h.observe(v)
+        rh.observe(v)
+    d = h.as_dict()
+    assert d == rh.as_dict()  # the reference's dict, key for key
+    assert d["count"] == 7 and d["min"] == 0.5 and d["max"] == 5e9
+    le = d["le"]
+    assert le["1"] == 2
+    assert le["5"] == 3
+    assert le["100"] == 4
+    assert le["1000"] == 5
+    assert le["1000000"] == 6
+    assert le["1000000000"] == 6
+    assert le["+Inf"] == d["count"]
+    vals = list(le.values())
+    assert vals == sorted(vals), "cumulative buckets must be monotone"
+    m = obs_fleet.merge_hist(d, d)
+    assert m["count"] == 14
+    assert m["le"]["1"] == 4 and m["le"]["+Inf"] == 14
+    assert m["le"]["+Inf"] == m["count"]
+
+
+def test_hist_le_merge_with_legacy_hist():
+    legacy = {"count": 2, "sum": 3.0, "min": 1.0, "max": 2.0,
+              "buckets": {"0": 2}}
+    new = obs_metrics._Hist()
+    new.observe(4.0)
+    m = obs_fleet.merge_hist(legacy, new.as_dict())
+    assert m["count"] == 3 and m["le"]["+Inf"] == 1
+
+
+def test_openmetrics_render_matches_snapshot_and_parses():
+    from cylon_tpu.obs import openmetrics as ropenmetrics
+
+    snap = {"counters": {"shuffle.bytes_sent": 123,
+                         "serve.admitted": 4},
+            "gauges": {"elastic.epoch": 2.0},
+            "histograms": {}}
+    h = obs_metrics._Hist()
+    for v in (3.0, 900.0):
+        h.observe(v)
+    snap["histograms"]["serve.run_ms[acme]"] = h.as_dict()
+    text = openmetrics.render(snap)
+    doc = openmetrics.parse(text)
+    assert doc == ropenmetrics.parse(text)  # the two parsers agree
+    c = doc["cylon_tpu_shuffle_bytes_sent_total"]
+    assert c["type"] == "counter"
+    assert c["samples"][0][2] == 123
+    g = doc["cylon_tpu_elastic_epoch"]
+    assert g["type"] == "gauge" and g["samples"][0][2] == 2
+    hist = doc["cylon_tpu_serve_run_ms"]
+    assert hist["type"] == "histogram"
+    by_name = {}
+    for sname, labels, value in hist["samples"]:
+        assert labels.get("tenant") == "acme"
+        by_name.setdefault(sname, []).append((labels, value))
+    assert by_name["cylon_tpu_serve_run_ms_count"][0][1] == 2
+    assert by_name["cylon_tpu_serve_run_ms_sum"][0][1] == 903.0
+    inf = [v for lab, v in by_name["cylon_tpu_serve_run_ms_bucket"]
+           if lab["le"] == "+Inf"]
+    assert inf == [2]
+    # sample for sample the reference's rendering (bar the identity gauge)
+    strip = [ln for ln in text.splitlines() if "build_info" not in ln]
+    rstrip = [ln for ln in ropenmetrics.render(snap).splitlines()
+              if "build_info" not in ln]
+    assert strip == rstrip
+
+
+def test_openmetrics_parse_rejects_malformed():
+    with pytest.raises(ValueError, match="EOF"):
+        openmetrics.parse("# TYPE cylon_tpu_x counter\ncylon_tpu_x 1\n")
+    with pytest.raises(ValueError, match="precedes"):
+        openmetrics.parse("cylon_tpu_x 1\n# EOF\n")
+    bad = ("# TYPE cylon_tpu_h histogram\n"
+           'cylon_tpu_h_bucket{le="1"} 5\n'
+           'cylon_tpu_h_bucket{le="+Inf"} 3\n'
+           "cylon_tpu_h_sum 1\ncylon_tpu_h_count 3\n# EOF\n")
+    with pytest.raises(ValueError, match="monotone"):
+        openmetrics.parse(bad)
+
+
+def test_openmetrics_hostile_tenant_roundtrip():
+    h = obs_metrics._Hist()
+    h.observe(3.0)
+    for tenant in ('a}b', 'a"b', "a\nb", "a\\b"):
+        snap = {"counters": {f"serve.shed[{tenant}]": 2}, "gauges": {},
+                "histograms": {f"serve.run_ms[{tenant}]": h.as_dict()}}
+        doc = openmetrics.parse(openmetrics.render(snap))
+        _, labels, v = doc["cylon_tpu_serve_shed_total"]["samples"][0]
+        assert labels["tenant"] == tenant and v == 2
+        hs = doc["cylon_tpu_serve_run_ms"]["samples"]
+        assert all(lab["tenant"] == tenant for _, lab, _ in hs)
+
+
+def test_openmetrics_server_scrape():
+    import urllib.error
+    import urllib.request
+
+    before = obs_metrics.counter_value("test.scrape_probe")
+    obs_metrics.counter_add("test.scrape_probe", 11)
+    srv = openmetrics.start_server(0)
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/metrics", timeout=5
+        ).read().decode()
+        doc = openmetrics.parse(body)
+        samples = doc["cylon_tpu_test_scrape_probe_total"]["samples"]
+        assert samples[0][2] == before + 11
+        obs_metrics.counter_add("test.scrape_probe", 1)
+        body2 = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/metrics", timeout=5
+        ).read().decode()
+        doc2 = openmetrics.parse(body2)
+        assert doc2["cylon_tpu_test_scrape_probe_total"]["samples"][0][2] \
+            == before + 12
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/nope", timeout=5)
+    finally:
+        srv.close()
+
+
+def test_openmetrics_knob_disabled_and_ensure(tmp_path):
+    """Disabled by default; with ``CYLON_TPU_METRICS_PORT`` set the
+    query service brings the knob-driven listener up once."""
+    import socket
+    import urllib.request
+
+    from cylon_tpu_torch.serve import QueryService
+
+    with config.knob_env(CYLON_TPU_METRICS_PORT=None):
+        assert openmetrics.ensure_server() is None
+    openmetrics.stop_server()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        with config.knob_env(CYLON_TPU_METRICS_PORT=str(port)):
+            with QueryService(ctx=CylonContext.Init("cpu")):
+                srv = openmetrics.ensure_server()
+                assert srv is not None and srv.port == port
+                assert openmetrics.ensure_server() is srv
+                body = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=5
+                ).read().decode()
+        openmetrics.parse(body)
+    finally:
+        openmetrics.stop_server()
+
+
+def test_render_fleet_rank_labels():
+    snaps = {"0": {"counters": {"x.y": 1}},
+             "1": {"counters": {"x.y": 2}},
+             "coord": {"counters": {"x.y": 3}}}
+    doc = openmetrics.parse(openmetrics.render_fleet(snaps))
+    samples = doc["cylon_tpu_x_y_total"]["samples"]
+    got = {lab["rank"]: v for _, lab, v in samples}
+    assert got == {"0": 1, "1": 2, "coord": 3}
+
+
+# ---------------------------------------------------------------------------
+# trace_report over the port's artifacts; the serve path under the
+# profiler knob
+# ---------------------------------------------------------------------------
+
+
+def _load_tool(name):
+    import importlib.util
+
+    p = os.path.join(REPO, "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_{name}_port", p)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_trace_report_plan_flag(mesh4, tmp_path, capsys):
+    t, t2 = _tables(Table, mesh4, _raw(np.random.default_rng(29)))
+    with config.knob_env(CYLON_TPU_TRACE_DIR=str(tmp_path)):
+        _, prof = _q(t, t2).profile()
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": [], "otherData": {}}))
+    tr = _load_tool("trace_report")
+    rc = tr.main([str(trace), "--plan", prof.artifact_path])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "plan profile" in out
+    assert "scan" in out and "groupby" in out
+    rep = tr.report_dict(str(trace), None, 10, prof.artifact_path)
+    assert rep["plan"]["kind"] == "cylon_tpu.plan_profile"
+    assert any(n["rows"] == 400 for n in rep["plan"]["nodes"])
+    with pytest.raises(ValueError, match="not a plan profile"):
+        tr.load_plan_profile(str(trace))
+
+
+def test_trace_report_compression_counters(tmp_path, capsys):
+    """The port's own metrics export, read by trace_report."""
+    from cylon_tpu_torch.obs import export as obs_export
+
+    tr = _load_tool("trace_report")
+    trace = tmp_path / "trace.r0.json"
+    trace.write_text(json.dumps({"traceEvents": [], "otherData": {}}))
+    saved = obs_metrics.snapshot()
+    obs_metrics.reset()
+    try:
+        obs_metrics.counter_add("shuffle.bytes_sent", 1000)
+        obs_metrics.counter_add("shuffle.bytes_saved", 4000)
+        obs_metrics.gauge_set("shuffle.compress_ratio", 5.0)
+        metrics_p = obs_export.export_metrics(
+            path=str(tmp_path / "metrics.r0.json"))
+    finally:
+        obs_metrics.reset()
+        for k, v in saved["counters"].items():
+            obs_metrics.counter_add(k, v)
+    rc = tr.main([str(trace), metrics_p])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "bytes saved (compression)" in out
+    assert "4000" in out and "5.00x" in out
+    rep = tr.report_dict(str(trace), metrics_p, 10)
+    assert rep["counters"]["shuffle.bytes_saved"] == 4000
+    assert rep["gauges"]["shuffle.compress_ratio"] == 5.0
+
+
+def test_run_service_with_profiler_knob(mesh4, tmp_path):
+    t, t2 = _tables(Table, mesh4, _raw(np.random.default_rng(31)))
+    with config.knob_env(CYLON_TPU_PROFILE="1",
+                         CYLON_TPU_TRACE_DIR=str(tmp_path)):
+        frame, stats = plan_executor.run_service(_q(t, t2))
+    assert stats["rows"] == len(next(iter(frame.values())))
+    assert [f for f in os.listdir(tmp_path)
+            if f.startswith("plan_profile")]
+
+
 def test_profile_waits_name_their_item():
     """The cases that wait are test_profile.py's own, and each names its
     ROADMAP item."""
@@ -399,4 +634,4 @@ def test_profile_waits_name_their_item():
     ported = {n for n in globals() if n.startswith("test_")}
     assert set(WAITING) <= names
     assert names <= set(WAITING) | ported, names - set(WAITING) - ported
-    assert set(WAITING.values()) == {"A11"}
+    assert set(WAITING.values()) == {"A11b"}

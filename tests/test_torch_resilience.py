@@ -90,8 +90,9 @@ def test_env_fault_plan_and_journal_kinds():
                                         - set(pres.FAULT_KINDS)))
 def test_unported_fault_kinds_are_refused(kind):
     """Every kind of the reference's grammar the port lacks names the
-    ROADMAP item that brings the module it acts on."""
-    with pytest.raises(CylonError, match=r"item 11\)") as e:
+    ROADMAP item that brings the module it acts on (11b: the gang, its
+    coordinator and the router)."""
+    with pytest.raises(CylonError, match=r"item 11b\)") as e:
         pres.FaultPlan.parse(f"pass_dispatch@1={kind}")
     assert e.value.code == Code.NotImplemented
 

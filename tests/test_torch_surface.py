@@ -6,7 +6,7 @@ signatures, and the port's twin of
 
 Named exclusions: ``TPUConfig`` is the port's ``MeshConfig``;
 ``ElasticConfig`` and ``CylonContext.elastic_agent`` wait for the elastic
-gang (ROADMAP A11).
+gang (ROADMAP A11b).
 """
 import inspect
 import threading
@@ -22,9 +22,9 @@ from cylon_tpu.context import CylonContext as RefContext
 from cylon_tpu_torch import (CylonContext, JoinAlgorithm, JoinConfig,
                              JoinType, MeshConfig, Table)
 
-#: reference name -> the port's name for it, or None: waits for A11
+#: reference name -> the port's name for it, or None: waits for A11b
 RENAMED = {"TPUConfig": "MeshConfig", "ElasticConfig": None}
-CONTEXT_EXCLUDED = {"elastic_agent": "A11"}
+CONTEXT_EXCLUDED = {"elastic_agent": "A11b"}
 
 
 def _public(cls):
