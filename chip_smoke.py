@@ -232,6 +232,37 @@ Phases, each of which fails the run on error:
    latency histograms with their ``le`` buckets and
    ``serve_cache_hit`` 5.  It prints the phase's seconds, peak device
    memory and the card's name and power limit.
+3z. the fleet on one card: five children of this script, each its own
+   process with its own CUDA context on the card, started together after
+   the kernels were built.  (a) the elastic gang: an
+   ``elastic.Coordinator(3)`` here and three ``--elastic-worker``
+   children, each an ``ElasticConfig`` context of one shard on the card
+   running ``elastic_run`` over 3x's data and call partitioned by
+   splitmix64 (``mode="hash"``, 8 passes) into a shared journal; rank 1
+   dies at its 2nd pass boundary (``elastic.pass.r1@2=rank_kill``, rc
+   137).  The coordinator's ledger must record a ``heartbeat timeout``
+   and an epoch of at least 1, each survivor's frame must equal the
+   unjournaled one-process run made here bit for bit, and each
+   survivor's assembly must load all 8 passes and launch nothing; it
+   prints each rank's parts per epoch, launches and seconds, the
+   seconds from the kill to the epoch bump and each agent's longest
+   heartbeat gap.  (b) the query router: a ``QueryRouter(2)`` here and
+   two ``--replica-worker`` children (a ``QueryService`` on the card
+   behind a ``ReplicaServer``, attached to an ``elastic.Agent``) sharing
+   one journal, each with an idempotent ``kjoin`` op behind
+   ``router.pass.r<rank>``: one ``join_groupby`` of 2^21 rows per side
+   through ``RouterClient.route`` (a miss), the same again (cache
+   affinity: the same replica, a journal hit with no launch), the same
+   from a second tenant pinned to the other replica (cache affinity off:
+   a hit of the shared journal there, no launch), then a flood of 12
+   ``kjoin`` of 2^18 rows per side from 3 tenants while replica 1 dies
+   at its 3rd (``router.pass.r1@3=rank_kill``): every answer bit for bit
+   the direct call, every refusal a classified retryable ``Unavailable``
+   or ``ResourceExhausted``, at least one re-route, replica 1 fenced,
+   and ``tools/fleet_status.py --json --replicas`` rc 0 listing both
+   replicas' breakers.  Per request it prints the route seconds, the
+   replica, its run seconds and launches (from the children's records),
+   and the wire bytes with the client's encode and decode seconds;
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -245,7 +276,8 @@ Phases, each of which fails the run on error:
 It prints the script's wall time, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name and power limit line, and, last, ``{"ok": true,
 "device": {...}}``.  ``--durable-worker ROOT OUT`` is phase 3x's
-child and prints no result; ``--serve-profile OUT`` (``serve_profile``)
+child, ``--elastic-worker RANK WORLD ADDR OUT`` and ``--replica-worker
+RANK WORLD ADDR OUT`` are 3z's; they print no result; ``--serve-profile OUT`` (``serve_profile``)
 times 3y's served ``join_groupby`` miss against the same call made
 directly, with a host profile of each, and prints no result.  Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -255,7 +287,7 @@ hash join's included), of the set ops, of the distributed sorts, of the
 string paths, of Q1, of a second out-of-core sweep (whose device busy
 share of its wall time is the engine's idle measure) and of a second run
 of 3m, 3o, 3p and 3q, of one 3v engine run and of each 3w query
-(planned), and a stage breakdown of one distributed run.  Phases 3i-3y
+(planned), and a stage breakdown of one distributed run.  Phases 3i-3z
 run after phase 4, once the earlier phases' tensors are freed.
 """
 from __future__ import annotations
@@ -4365,6 +4397,628 @@ def phase_serve(report: dict, q10_plan, tpch: dict, engine: dict) -> None:
         f"{out['peak_device_bytes'] / 2**30:.2f} GiB, card {out['smi']}")
 
 
+FLEET_RANKS = 3
+FLEET_PASSES = DURABLE_PASSES
+FLEET_KILL_PLAN = "elastic.pass.r1@2=rank_kill"  # dies at its 2nd pass
+FLEET_RUN_ID = "chip-3z"
+ROUTE_ROWS = 1 << 21  # rows per side of a routed join_groupby
+ROUTE_PASSES = 4
+FLOOD_REQUESTS = 12
+FLOOD_TENANTS = 3
+FLOOD_ROWS = 1 << 18  # rows per side of a flood kjoin
+FLOOD_KILL_PLAN = "router.pass.r1@3=rank_kill"  # dies at its 3rd kjoin
+FLEET_CHILD_TIMEOUT_S = 240
+FLEET_SNAPSHOT_S = 0.2
+
+
+def _write_json(path: str, rec: dict) -> None:
+    """Atomic (tmp + rename): a child killed mid-write leaves the last
+    whole snapshot.  The tmp name carries the thread too, so two threads
+    of one process never rename each other's file away."""
+    import threading
+
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    with open(tmp, "w") as f:
+        json.dump(rec, f, default=str)
+    os.replace(tmp, path)
+
+
+def _fleet_engine(left, right, ctx, sl=None):
+    """3z (a)'s engine call: 3x's, partitioned by splitmix64
+    (``mode="hash"``, whose part ids the gang assigns), on ``ctx``; one
+    gang member's slice when ``sl`` is an ``elastic.ElasticSlice``."""
+    from cylon_tpu_torch.exec import chunked_join_groupby_tables
+
+    return chunked_join_groupby_tables(
+        left, right, on="k", group_by="l_k",
+        agg={"a": ["sum"], "b": ["mean"]}, passes=FLEET_PASSES,
+        mode="hash", ctx=ctx, elastic=sl)
+
+
+def elastic_worker(rank: str, world: str, addr: str, out: str) -> int:
+    """``chip_smoke.py --elastic-worker RANK WORLD ADDR OUT.npz``: one
+    member of 3z (a)'s gang.  An ``ElasticConfig`` context (one shard on
+    the card) joins the coordinator at ADDR; ``elastic_run`` drives its
+    slices of the journaled engine call (``CYLON_TPU_DURABLE_DIR`` from
+    the parent) until the gang's rendezvous, then assembles the whole
+    frame from the journal.  Writes the frame to OUT.npz and, before each
+    pass and at the end, its record (the parts of each epoch, launches,
+    seconds, the longest heartbeat gap) to OUT's .json.  A
+    ``rank_kill`` in ``CYLON_TPU_FAULT_PLAN`` ends it with rc 137 at a
+    pass boundary.  Prints no result line."""
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import CylonContext, ElasticConfig, elastic
+    from cylon_tpu_torch.cuda import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    left, right = _durable_inputs()
+    ctx = CylonContext.InitDistributed(ElasticConfig(int(rank),
+                                                     coordinator=addr))
+    agent = ctx.elastic_agent()
+    meta = os.path.splitext(out)[0] + ".json"
+    rec = {"rank": int(rank), "world": int(world), "epochs": []}
+
+    def snapshot():
+        rec.update(beat_gap_max_s=agent.beat_gap_max_s,
+                   process_s=time.perf_counter() - t_start)
+        _write_json(meta, rec)
+
+    def run_parts(sl):
+        ep = {"epoch": sl.epoch, "world": sl.world, "parts": list(sl.parts)}
+        rec["epochs"].append(ep)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+
+        def guard():
+            # the record as of this pass boundary, before the guard's
+            # fault probe can end the process
+            ep.update(launches=_launch_counts(),
+                      seconds=time.perf_counter() - t0)
+            snapshot()
+            sl.guard()
+
+        try:
+            _, stats = _fleet_engine(left, right, ctx, elastic.ElasticSlice(
+                sl.parts, sl.epoch, sl.world, guard))
+            ep["parts_run"] = stats.get("parts_run", 0)
+            ep["passes_skipped"] = stats.get("passes_skipped")
+        finally:
+            torch.cuda.synchronize()
+            ep.update(launches=_launch_counts(),
+                      seconds=time.perf_counter() - t0)
+            snapshot()
+
+    def finalize():
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        res, stats = _fleet_engine(left, right, ctx)
+        torch.cuda.synchronize()
+        rec["finalize"] = {"seconds": time.perf_counter() - t0,
+                           "launches": _launch_counts(),
+                           "passes_skipped": stats.get("passes_skipped"),
+                           "parts_run": stats.get("parts_run", 0)}
+        return res
+
+    try:
+        res = elastic.elastic_run(agent, FLEET_PASSES, run_parts,
+                                  finalize=finalize, run_id=FLEET_RUN_ID)
+    except elastic.CoordinatorLost as e:
+        print(f"rank {rank}: coordinator lost: {e}", file=sys.stderr)
+        return 3
+    except elastic.EpochChanged as e:
+        print(f"rank {rank}: fenced: {e}", file=sys.stderr)
+        return 4
+    np.savez(out, **res)
+    rec.update(epoch=agent.epoch, members=list(agent.members),
+               columns=list(res), build_s={
+                   src: info[0] for src, info in build.BUILD_INFO.items()})
+    snapshot()
+    ctx.Finalize()  # a clean leave
+    return 0
+
+
+def replica_worker(rank: str, world: str, addr: str, out: str) -> int:
+    """``chip_smoke.py --replica-worker RANK WORLD ADDR OUT.json``: one
+    serving replica of 3z (b): a ``QueryService`` on the card behind a
+    ``ReplicaServer``, attached to an ``elastic.Agent`` of the router at
+    ADDR, with an idempotent ``kjoin`` op behind the fault site
+    ``router.pass.r<RANK>``.  Every ``join_groupby`` and ``kjoin`` it
+    runs is recorded (launches, run seconds, the request's tag) in
+    OUT.json, rewritten after each request and every FLEET_SNAPSHOT_S; it
+    stands down when the router goes away.  Prints no result line."""
+    import threading
+
+    import torch
+
+    from cylon_tpu_torch import CylonContext, elastic, resilience
+    from cylon_tpu_torch.cuda import build
+    from cylon_tpu_torch.exec import chunked_join
+    from cylon_tpu_torch.router import ReplicaServer
+    from cylon_tpu_torch.serve import QueryService
+    from cylon_tpu_torch.serve import service as service_mod
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    r = int(rank)
+    calls: list = []
+    lock = threading.Lock()
+    live: dict = {}  # the agent and the replica server, once they exist
+
+    def snapshot():
+        with lock:
+            rec = {"rank": r, "world": int(world), "calls": list(calls),
+                   "beat_gap_max_s": live["agent"].beat_gap_max_s,
+                   "address": list(live["rep"].address),
+                   "build_s": {src: info[0] for src, info
+                               in build.BUILD_INFO.items()},
+                   "process_s": time.perf_counter() - t_start}
+            # the scheduler thread (after each request) and the main
+            # loop both snapshot: one writer at a time, newest last
+            _write_json(out, rec)
+
+    def counted(op, runner):
+        # the scheduler thread runs one request at a time, so the
+        # process-wide launch counters zeroed here are this request's
+        def run(*args, **kwargs):
+            tag = kwargs.get("tag")
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            res, stats = runner(*args, **kwargs)
+            torch.cuda.synchronize()
+            with lock:
+                calls.append({"op": op, "tag": tag,
+                              "run_s": time.perf_counter() - t0,
+                              "launches": _launch_counts(),
+                              "passes_skipped": stats.get("passes_skipped"),
+                              "parts_run": stats.get("parts_run", 0)})
+            snapshot()  # before a later request's fault can end us
+            return res, stats
+        return run
+
+    def kjoin(left, right, *, ctx=None, pass_guard=None, tag=None, **kw):
+        resilience.fault_point(f"router.pass.r{r}")
+        return chunked_join(left, right, ctx=ctx, pass_guard=pass_guard,
+                            **kw)
+
+    service_mod._RUNNERS["join_groupby"] = counted(
+        "join_groupby", service_mod._RUNNERS["join_groupby"])
+    agent = live["agent"] = elastic.Agent(addr, r).start()
+    svc = QueryService(ctx=CylonContext.Init("cuda"), name=f"replica{r}")
+    svc.register_op("kjoin", counted("kjoin", kjoin), idempotent=True)
+    rep = live["rep"] = ReplicaServer(svc)
+    rep.attach(agent)
+    try:
+        while not (agent.coordinator_down or agent.fenced):
+            time.sleep(FLEET_SNAPSHOT_S)
+            snapshot()
+    finally:
+        snapshot()
+        rep.close()
+        svc.close(timeout=10.0)
+    return 0
+
+
+class _WireClock:
+    """Times the router client's request encoding and reply decoding on
+    the calling thread (``wire.encode_payload`` / ``wire.decode_value``,
+    which ``RouterClient.route`` calls), with the encoded bytes."""
+
+    def __init__(self):
+        import threading
+
+        self._local = threading.local()
+
+    def __enter__(self):
+        from cylon_tpu_torch.router import wire
+
+        self._enc, self._dec = wire.encode_payload, wire.decode_value
+        clock = self
+
+        def encode_payload(args, kwargs):
+            t0 = time.perf_counter()
+            p = clock._enc(args, kwargs)
+            clock._note(encode_s=time.perf_counter() - t0,
+                        request_bytes=wire.payload_nbytes(p))
+            return p
+
+        def decode_value(v):
+            t0 = time.perf_counter()
+            nbytes = wire.payload_nbytes(v)
+            out = clock._dec(v)
+            clock._note(decode_s=time.perf_counter() - t0,
+                        reply_bytes=nbytes)
+            return out
+
+        wire.encode_payload, wire.decode_value = encode_payload, decode_value
+        return self
+
+    def __exit__(self, *exc):
+        from cylon_tpu_torch.router import wire
+
+        wire.encode_payload, wire.decode_value = self._enc, self._dec
+
+    def _note(self, **kw):
+        self.take().update(kw)
+
+    def take(self) -> dict:
+        """This thread's record since the last ``reset``."""
+        if getattr(self._local, "rec", None) is None:
+            self._local.rec = {}
+        return self._local.rec
+
+    def reset(self) -> None:
+        self._local.rec = {}
+
+
+def _wait_all(procs: dict, timeout: float, on_poll=None) -> dict:
+    """Wait for every child, polling every 10 ms (``on_poll(now)`` each
+    round); the instant each one exited, by key.  Kills the stragglers
+    past ``timeout`` and raises."""
+    ended: dict = {}
+    deadline = time.perf_counter() + timeout
+    while len(ended) < len(procs):
+        now = time.perf_counter()
+        for key, p in procs.items():
+            if key not in ended and p.poll() is not None:
+                ended[key] = now
+        if on_poll is not None:
+            on_poll(now)
+        if now > deadline:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+            raise AssertionError(f"3z: children {sorted(set(procs) - set(ended))} "
+                                 f"still running after {timeout:g} s")
+        time.sleep(0.01)
+    return ended
+
+
+def _child_log(tmp: str, key) -> str:
+    path = os.path.join(tmp, f"{key[0]}{key[1]}.log")
+    try:
+        with open(path, errors="replace") as f:
+            return f.read()[-3000:]
+    except OSError:
+        return ""
+
+
+def phase_fleet(report: dict, engine: dict) -> None:
+    """Phase 3z: the fleet on one card (see the module docstring).  Five
+    children of this script share the card: three gang members
+    (``--elastic-worker``) and two serving replicas
+    (``--replica-worker``), started together after the kernels were
+    built, so none of them runs ``nvcc``."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cylon_tpu_torch import CylonContext, config, elastic, pipeline
+    from cylon_tpu_torch.exec import chunked_join, chunked_join_groupby_tables
+    from cylon_tpu_torch.router import QueryRouter, RouterClient
+    from cylon_tpu_torch.status import Code, CylonError
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    script = os.path.abspath(__file__)
+    tmp = tempfile.mkdtemp(prefix="cylon_fleet_")
+    card = CylonContext.Init("cuda")
+    procs: dict = {}
+    logs: list = []
+    coord = router = None
+    out: dict = {"rows_per_side": DURABLE_ROWS, "passes": FLEET_PASSES,
+                 "kill_plan": FLEET_KILL_PLAN, "route_rows": ROUTE_ROWS,
+                 "flood_rows": FLOOD_ROWS, "flood_kill_plan": FLOOD_KILL_PLAN}
+    try:
+        coord = elastic.Coordinator(
+            FLEET_RANKS, log_dir=os.path.join(tmp, "coord")).start()
+        router = QueryRouter(2).start()
+        caddr = f"{coord.address[0]}:{coord.address[1]}"
+        raddr = f"{router.address[0]}:{router.address[1]}"
+        base_env = {k: v for k, v in os.environ.items()
+                    if k not in ("CYLON_TPU_FAULT_PLAN",
+                                 "CYLON_TPU_DURABLE_DIR",
+                                 "CYLON_TPU_COORD_DIR")}
+        children = [("gang", r, "--elastic-worker", caddr,
+                     os.path.join(tmp, f"gang{r}.npz"),
+                     {"CYLON_TPU_DURABLE_DIR": os.path.join(tmp, "gang"),
+                      **({"CYLON_TPU_FAULT_PLAN": FLEET_KILL_PLAN}
+                         if r == 1 else {})})
+                    for r in range(FLEET_RANKS)]
+        children += [("replica", r, "--replica-worker", raddr,
+                      os.path.join(tmp, f"replica{r}.json"),
+                      {"CYLON_TPU_DURABLE_DIR": os.path.join(tmp, "fleet"),
+                       "CYLON_TPU_COORD_RECONNECT_S": "0",
+                       **({"CYLON_TPU_FAULT_PLAN": FLOOD_KILL_PLAN}
+                          if r == 1 else {})})
+                     for r in range(2)]
+        t_spawn = time.perf_counter()
+        for kind, r, flag, addr, path, extra in children:
+            log_f = open(os.path.join(tmp, f"{kind}{r}.log"), "w")
+            logs.append(log_f)
+            world = FLEET_RANKS if kind == "gang" else 2
+            procs[(kind, r)] = subprocess.Popen(
+                [sys.executable, script, flag, str(r), str(world), addr,
+                 path], env={**base_env, **extra}, stdout=log_f,
+                stderr=subprocess.STDOUT)
+
+        # (a) the gang: rank 1 dies at its 2nd pass boundary
+        gang = {k: p for k, p in procs.items() if k[0] == "gang"}
+        seen = {}
+
+        def watch(now):
+            if "formed" not in seen and \
+                    len(coord.view().members) == FLEET_RANKS:
+                seen["formed"] = now
+            if "epoch" not in seen and coord.view().epoch >= 1:
+                seen["epoch"] = now
+
+        ended = _wait_all(gang, FLEET_CHILD_TIMEOUT_S, watch)
+        rcs = {r: gang[("gang", r)].returncode for r in range(FLEET_RANKS)}
+        if rcs != {0: 0, 1: 137, 2: 0}:
+            raise AssertionError(f"3z (a): exit codes {rcs} (want 1 killed "
+                                 f"with 137, 0 and 2 rc 0); rank logs: "
+                                 + " | ".join(_child_log(tmp, ("gang", r))
+                                              for r in range(FLEET_RANKS)))
+        if coord._dead.get(1) != "heartbeat timeout" \
+                or coord.view().epoch < 1:
+            raise AssertionError(f"3z (a): the ledger says {coord._dead} "
+                                 f"at epoch {coord.view().epoch}")
+        left, right = engine["left"], engine["right"]
+        t0 = time.perf_counter()
+        base, _ = _fleet_engine(left, right, card)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t0
+        ranks = {}
+        for r in range(FLEET_RANKS):
+            with open(os.path.join(tmp, f"gang{r}.json")) as f:
+                ranks[r] = json.load(f)
+        for r in (0, 2):
+            got = dict(np.load(os.path.join(tmp, f"gang{r}.npz")))
+            _same_frames(f"3z (a) rank {r}", got, base)
+            fin = ranks[r]["finalize"]
+            if fin["passes_skipped"] != FLEET_PASSES or \
+                    any(fin["launches"].values()):
+                raise AssertionError(f"3z (a) rank {r}: finalize {fin}")
+        gang_launches: dict = {}
+        for r, rec in ranks.items():
+            for ep in rec["epochs"]:
+                for k, n in (ep.get("launches") or {}).items():
+                    gang_launches[k] = gang_launches.get(k, 0) + n
+        out["gang"] = {
+            "ranks": ranks, "exit_codes": rcs,
+            "kill_to_epoch_s": seen["epoch"] - ended[("gang", 1)],
+            "spawn_to_formed_s": seen.get("formed", t_spawn) - t_spawn,
+            "spawn_to_done_s": max(ended.values()) - t_spawn,
+            "base_s": base_s, "launches": gang_launches,
+            "dead": dict(coord._dead), "epoch": coord.view().epoch}
+        for r, rec in ranks.items():
+            log(f"[3z] (a) rank {r} rc {rcs[r]}: epochs " + "; ".join(
+                f"{ep['epoch']}: parts {ep['parts']} launches "
+                f"{ep.get('launches')} in {ep.get('seconds', 0):.2f} s"
+                for ep in rec["epochs"]) + f"; finalize "
+                f"{rec.get('finalize')}; process {rec['process_s']:.2f} s, "
+                f"longest heartbeat gap {rec['beat_gap_max_s']:.3f} s")
+        log(f"[3z] (a) kill -> epoch bump {out['gang']['kill_to_epoch_s']:.3f}"
+            f" s; ledger {coord._dead}; survivors bit for bit the one-process "
+            f"run ({base_s:.2f} s); gang launches {gang_launches}")
+
+        # (b) the router over the two replicas
+        deadline = time.perf_counter() + FLEET_CHILD_TIMEOUT_S
+        while len(router._replica_view()) < 2:
+            if time.perf_counter() > deadline or any(
+                    procs[("replica", r)].poll() is not None
+                    for r in range(2)):
+                raise AssertionError("3z (b): the replicas never registered: "
+                                     + _child_log(tmp, ("replica", 0)))
+            time.sleep(0.05)
+        lk, lv, rk, rv = pipeline.make_data(ROUTE_ROWS, pipeline.SEED)
+        r_left, r_right = {"k": lk, "a": lv}, {"k": rk, "b": rv}
+        rkw = dict(on="k", group_by="l_k", agg={"a": ["sum"], "b": ["mean"]},
+                   passes=ROUTE_PASSES)
+        direct, _ = chunked_join_groupby_tables(r_left, r_right, ctx=card,
+                                                **rkw)
+        client = RouterClient(raddr)
+        requests = []
+        with _WireClock() as wclock:
+            for step, tenant in (("miss", "tenant-a"), ("hit", "tenant-a"),
+                                 ("other", "tenant-b")):
+                if step == "other":
+                    # pin tenant-b to the replica that did not serve the
+                    # miss; cache affinity off, so the pin decides
+                    other = 1 - requests[0]["replica"]
+                    router._pin(router._tenant_affinity, "tenant-b", other)
+                wclock.reset()
+                t0 = time.perf_counter()
+                with config.knob_env(CYLON_TPU_ROUTER_CACHE_AFFINITY=(
+                        "0" if step == "other" else None)):
+                    res, stats = client.route(tenant, "join_groupby", r_left,
+                                              r_right, timeout_s=300, **rkw)
+                secs = time.perf_counter() - t0
+                _same_frames(f"3z (b) {step}", res, direct)
+                requests.append({"step": step, "tenant": tenant,
+                                 "route_s": secs,
+                                 "replica": stats["router"]["replica"],
+                                 "cache_hit": stats["router"]["cache_hit"],
+                                 "reroutes": stats["router"]["reroutes"],
+                                 **wclock.take()})
+        if [q["cache_hit"] for q in requests] != [False, True, True] or \
+                requests[1]["replica"] != requests[0]["replica"] or \
+                requests[2]["replica"] == requests[0]["replica"]:
+            raise AssertionError(f"3z (b): placement or hits {requests}")
+
+        flood = [(f"flood-t{i % FLOOD_TENANTS}", pipeline.make_data(
+            FLOOD_ROWS, pipeline.SEED + 1 + i)) for i in range(FLOOD_REQUESTS)]
+        fkw = dict(on="k", passes=2, mode="hash")
+        flood_direct = [chunked_join({"k": d[0], "a": d[1]},
+                                     {"k": d[2], "b": d[3]}, ctx=card,
+                                     **fkw)[0] for _, d in flood]
+        answers: list = [None] * FLOOD_REQUESTS
+
+        def one(i):
+            tenant, d = flood[i]
+            t0 = time.perf_counter()
+            try:
+                res, stats = client.route(
+                    tenant, "kjoin", {"k": d[0], "a": d[1]},
+                    {"k": d[2], "b": d[3]}, tag=i, timeout_s=300, **fkw)
+                try:
+                    _same_frames(f"3z (b) flood {i}", res, flood_direct[i])
+                    same = True
+                except AssertionError:
+                    same = False
+                answers[i] = {"i": i, "tenant": tenant, "answered": True,
+                              "bit_identical": same,
+                              "route_s": time.perf_counter() - t0,
+                              "replica": stats["router"]["replica"],
+                              "reroutes": stats["router"]["reroutes"]}
+            except CylonError as e:
+                answers[i] = {"i": i, "tenant": tenant, "answered": False,
+                              "route_s": time.perf_counter() - t0,
+                              "code": e.code.name,
+                              "retry_after_s": e.retry_after_s,
+                              "error": e.msg[:200]}
+
+        t_flood = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in range(FLOOD_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        flood_s = time.perf_counter() - t_flood
+        if any(t.is_alive() for t in threads) or None in answers:
+            raise AssertionError("3z (b): a flood request hung")
+        for a in answers:
+            if a["answered"] and not a["bit_identical"]:
+                raise AssertionError(f"3z (b): flood request {a['i']} "
+                                     "differs from the direct call")
+            if not a["answered"] and (
+                    a["code"] not in (Code.Unavailable.name,
+                                      Code.ResourceExhausted.name)
+                    or a["retry_after_s"] is None):
+                raise AssertionError(f"3z (b): flood request {a} failed "
+                                     "unclassified")
+        if procs[("replica", 1)].wait(timeout=60) != 137:
+            raise AssertionError("3z (b): replica 1 was not killed: "
+                                 + _child_log(tmp, ("replica", 1)))
+        deadline = time.perf_counter() + 30
+        while 1 not in router._dead:
+            if time.perf_counter() > deadline:
+                raise AssertionError("3z (b): replica 1 never fenced")
+            time.sleep(0.05)
+        rstat = router.router_status()
+        if rstat["reroutes"] < 1:
+            raise AssertionError(f"3z (b): no re-route ({rstat})")
+        fs = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(script), "tools",
+                                          "fleet_status.py"), raddr,
+             "--json", "--replicas"], capture_output=True, text=True,
+            timeout=60)
+        table = json.loads(fs.stdout) if fs.returncode == 0 else None
+        if table is None or set(table["breakers"]) != {"0", "1"}:
+            raise AssertionError(f"3z (b): fleet_status rc {fs.returncode}: "
+                                 f"{fs.stdout[-500:]} {fs.stderr[-500:]}")
+        router.stop()
+        _wait_all({k: p for k, p in procs.items() if k[0] == "replica"},
+                  60)
+        if procs[("replica", 0)].returncode != 0:
+            raise AssertionError("3z (b): replica 0 rc "
+                                 f"{procs[('replica', 0)].returncode}: "
+                                 + _child_log(tmp, ("replica", 0)))
+        replicas = {}
+        for r in range(2):
+            with open(os.path.join(tmp, f"replica{r}.json")) as f:
+                replicas[r] = json.load(f)
+        # each replica's join_groupby calls in order are its share of
+        # the three routed requests, in order
+        jg = {r: [c for c in replicas[r]["calls"]
+                  if c["op"] == "join_groupby"] for r in range(2)}
+        for q in requests:
+            c = jg[q["replica"]].pop(0)
+            q.update(serve_run_ms=c["run_s"] * 1e3, launches=c["launches"],
+                     passes_skipped=c["passes_skipped"])
+        if any(requests[i]["launches"].get(k) for i in (1, 2)
+               for k in requests[i]["launches"]):
+            raise AssertionError(f"3z (b): a journal hit launched "
+                                 f"{requests}")
+        by_tag = {c["tag"]: (r, c) for r in range(2)
+                  for c in replicas[r]["calls"] if c["op"] == "kjoin"}
+        for a in answers:
+            hit = by_tag.get(a["i"])
+            if hit is not None:
+                a.update(ran_on=hit[0], serve_run_ms=hit[1]["run_s"] * 1e3,
+                         launches=hit[1]["launches"])
+        router_launches: dict = {}
+        for r in range(2):
+            for c in replicas[r]["calls"]:
+                for k, n in c["launches"].items():
+                    router_launches[k] = router_launches.get(k, 0) + n
+        out["router"] = {
+            "requests": requests, "flood": answers, "flood_s": flood_s,
+            "answered": sum(a["answered"] for a in answers),
+            "refused": sum(not a["answered"] for a in answers),
+            "router_status": rstat, "fleet_status": table,
+            "replica_beat_gap_max_s": {
+                r: replicas[r]["beat_gap_max_s"] for r in range(2)},
+            "launches": router_launches}
+        for q in requests:
+            log(f"[3z] (b) {q['step']} ({q['tenant']}): route "
+                f"{q['route_s']:.3f} s on replica {q['replica']}, serve.run_ms"
+                f" {q['serve_run_ms']:.1f}, cache hit {q['cache_hit']}, "
+                f"launches {q['launches']}; wire {q.get('request_bytes')} B "
+                f"out / {q.get('reply_bytes')} B back, encode "
+                f"{q.get('encode_s', 0):.3f} s, decode "
+                f"{q.get('decode_s', 0):.3f} s")
+        for a in answers:
+            log(f"[3z] (b) flood {a['i']} ({a['tenant']}): "
+                + (f"served by replica {a['replica']} in {a['route_s']:.3f} s"
+                   f" (reroutes {a['reroutes']}, serve.run_ms "
+                   f"{a.get('serve_run_ms', 0):.1f}, launches "
+                   f"{a.get('launches')})" if a["answered"] else
+                   f"refused {a['code']} retry after {a['retry_after_s']} s "
+                   f"after {a['route_s']:.3f} s"))
+        log(f"[3z] (b) flood {flood_s:.2f} s: {out['router']['answered']} "
+            f"answered bit for bit, {out['router']['refused']} refused "
+            f"classified; router reroutes {rstat['reroutes']}, abandoned "
+            f"{rstat['abandoned']}; replica 1 fenced "
+            f"({router._dead.get(1)}); fleet_status breakers "
+            f"{table['breakers']}; replica heartbeat gaps "
+            f"{out['router']['replica_beat_gap_max_s']}; launches "
+            f"{router_launches}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
+        if router is not None:
+            router.stop()
+        if coord is not None:
+            coord.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches_fleet"] = {"gang": out["gang"]["launches"],
+                             "router": out["router"]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["smi"] = smi_line()
+    report["fleet"] = out
+    log(f"[3z] phase {out['seconds']:.1f} s, card {out['smi']}")
+
+
 def _segmented_inputs(tables, out_cap):
     """The segmented scan's inputs on the main path: the join output's
     masked SUM column and its group boundaries, built as
@@ -4552,6 +5206,17 @@ def main(argv=None) -> int:
                     help="phase 3x's child: one journaled engine run into "
                          "ROOT, its frame to OUT (.npz) and its record to "
                          "OUT's .json; prints no result")
+    ap.add_argument("--elastic-worker", nargs=4,
+                    metavar=("RANK", "WORLD", "ADDR", "OUT"),
+                    help="phase 3z's gang member: joins the coordinator at "
+                         "ADDR, runs its slices of the journaled engine and "
+                         "writes the assembled frame to OUT (.npz); prints "
+                         "no result")
+    ap.add_argument("--replica-worker", nargs=4,
+                    metavar=("RANK", "WORLD", "ADDR", "OUT"),
+                    help="phase 3z's serving replica: a QueryService on the "
+                         "card behind a ReplicaServer of the router at ADDR, "
+                         "its record in OUT (.json); prints no result")
     ap.add_argument("--serve-profile", metavar="OUT",
                     help="time 3y's served join_groupby miss against the "
                          "direct call, with a host profile of each, into "
@@ -4581,6 +5246,10 @@ def main(argv=None) -> int:
         return 2
     if args.durable_worker:
         return durable_worker(*args.durable_worker)
+    if args.elastic_worker:
+        return elastic_worker(*args.elastic_worker)
+    if args.replica_worker:
+        return replica_worker(*args.replica_worker)
     if args.serve_profile:
         return serve_profile(args.serve_profile)
 
@@ -4649,7 +5318,9 @@ def main(argv=None) -> int:
         q10, tpch = _clocked(phase_planner, report, profile=args.profile)
         engine = _clocked(phase_durable, report, q10)
         _clocked(phase_serve, report, q10, tpch, engine)
-        del q10, tpch, engine
+        del q10, tpch
+        _clocked(phase_fleet, report, engine)
+        del engine
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
@@ -4676,6 +5347,9 @@ def main(argv=None) -> int:
             r["launches_serve"] = {
                 step: v.get(r["name"], 0) for step, v in
                 report["serve"]["launches_serve"].items()}
+            r["launches_fleet"] = {
+                part: v.get(r["name"], 0) for part, v in
+                report["fleet"]["launches_fleet"].items()}
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:

@@ -23,17 +23,22 @@ the benchmark decorator and ``pow2ceil``.  ``cylon_tpu_torch.serve``
 (``QueryService``: admission, per-tenant budgets, one scheduler thread,
 the journal as a result cache) and ``cylon_tpu_torch.stream``
 (``StreamTable`` and its incremental ``GroupByQuery`` / ``JoinQuery``)
-are subpackages imported on demand, as in the JAX package.  pandas and
+are subpackages imported on demand, as in the JAX package, and so is
+``cylon_tpu_torch.router`` (``QueryRouter``, ``RouterClient``,
+``ReplicaServer``: many serving replicas behind one front door).
+``elastic`` holds the elastic gang (``Coordinator``, ``Agent``,
+``elastic_run``), which an ``ElasticConfig`` context joins.  pandas and
 pyarrow are imported only inside the functions that need them.
 """
 from __future__ import annotations
 
-from . import (column, compute, config, context, dtypes, durable, exec,
-               interop, io, native, obs, pipeline, plan, precision,
+from . import (column, compute, config, context, dtypes, durable, elastic,
+               exec, interop, io, native, obs, pipeline, plan, precision,
                resilience, status, table, utils)
 from .column import Column, default_device
 from .config import JoinAlgorithm, JoinConfig, JoinType, SortOptions
-from .context import CommType, CylonContext, LocalConfig, MeshConfig
+from .context import (CommType, CylonContext, ElasticConfig, LocalConfig,
+                      MeshConfig)
 from .frame import DataFrame
 from .index import (CategoricalIndex, ColumnIndex, Index, Int64Index,
                     IntegerIndex, NumericIndex, RangeIndex)
@@ -45,11 +50,13 @@ from .table import Table
 __version__ = "0.1.0"
 
 __all__ = ["AggOp", "CategoricalIndex", "Code", "Column", "ColumnIndex",
-           "CommType", "CylonContext", "CylonError", "DataFrame", "Index",
+           "CommType", "CylonContext", "CylonError", "DataFrame",
+           "ElasticConfig", "Index",
            "Int64Index", "IntegerIndex", "JoinAlgorithm", "JoinConfig",
            "JoinType", "LocalConfig", "MeshConfig", "NumericIndex",
            "RangeIndex", "Series", "SortOptions", "Status", "Table",
            "__version__", "column", "compute", "config", "context",
-           "default_device", "dtypes", "durable", "exec", "interop", "io",
+           "default_device", "dtypes", "durable", "elastic", "exec",
+           "interop", "io",
            "native", "obs", "pipeline", "precision", "resilience", "status",
            "table"]

@@ -226,9 +226,79 @@ KNOBS = {k.name: k for k in [
        "disables."),
     _K("CYLON_TPU_ROUTER_MAX_LINE_BYTES", "int", 64 << 20,
        "Wire cap for one data-plane message (a journal peer's spill or "
-       "manifest blob; the router's encoded tables once it is ported).  "
+       "manifest blob, the router's route verb and its replica proxy, "
+       "which carry whole encoded tables).  "
        "A message larger than this is refused as a ProtocolError, never "
        "silently truncated."),
+    # -- the elastic gang (elastic.py) ---------------------------------------
+    _K("CYLON_TPU_ELASTIC", "bool", False,
+       "Env-driven elastic opt-in: with this set (and "
+       "CYLON_TPU_ELASTIC_COORD pointing at the coordinator) every "
+       "distributed CylonContext joins the membership gang at its process "
+       "id.  ElasticConfig contexts join explicitly regardless.  Off "
+       "(default) keeps the fixed-world behaviour."),
+    _K("CYLON_TPU_ELASTIC_COORD", "str", "",
+       "Elastic coordinator address (host:port) agents join; empty means "
+       "no coordinator is configured (elastic contexts refuse to start)."),
+    _K("CYLON_TPU_HEARTBEAT_S", "float", 0.5,
+       "Elastic agent heartbeat cadence in seconds (also the rendezvous "
+       "barrier's poll interval)."),
+    _K("CYLON_TPU_HEARTBEAT_TIMEOUT_S", "float", 2.5,
+       "Silence after which the coordinator declares a rank dead and "
+       "bumps the membership epoch (shrink-and-resume).  Must exceed "
+       "CYLON_TPU_HEARTBEAT_S: agents refuse to start under a pair that "
+       "would fence every rank at once."),
+    _K("CYLON_TPU_COORD_DIR", "str", "",
+       "Durable coordinator state root: the membership ledger, epoch, "
+       "incarnation, fence set, rendezvous latches and skew ledger go to "
+       "an fsync'd append-only COORD_LOG.jsonl (torn-tail tolerant), so a "
+       "restarted coordinator recovers its ledger, bumps its incarnation "
+       "and the epoch once, and survivors resume.  Empty (default) "
+       "disables coordinator durability."),
+    _K("CYLON_TPU_COORD_RECONNECT_S", "float", 10.0,
+       "Bounded coordinator-reconnect window: after 3 failed control "
+       "round trips an agent keeps re-joining under seeded full-jitter "
+       "backoff for this many seconds (local passes keep running and "
+       "journaling) before CoordinatorLost fires (Code.Unavailable).  0 "
+       "fails after the 3 missed ticks."),
+    _K("CYLON_TPU_CLOCK_SYNC_N", "int", 8,
+       "Round trips per clock-alignment handshake when an elastic agent "
+       "joins (NTP-style best-of-N offset against the coordinator clock, "
+       "refined one round per heartbeat)."),
+    _K("CYLON_TPU_FAULT_DELAY_S", "float", 0.25,
+       "Sleep of the `delay`, `coord_slow` and `replica_sick` fault kinds "
+       "(a seeded straggler that keeps heartbeating and computing)."),
+    # -- the query router (router/) ----------------------------------------
+    _K("CYLON_TPU_ROUTER_CACHE_AFFINITY", "bool", True,
+       "Fleet query router: steer a repeated request fingerprint to the "
+       "replica that last served it, so the caches it warmed are reused "
+       "(any replica can replay the run from the shared journal; affinity "
+       "is latency, never correctness).  Off: tenant affinity and least "
+       "load only."),
+    _K("CYLON_TPU_ROUTER_POLL_S", "float", 0.05,
+       "Router-side cadence for polling a proxied request on its replica "
+       "(the first poll is immediate, so a journal hit returns in one "
+       "round trip)."),
+    _K("CYLON_TPU_ROUTER_RPC_TIMEOUT_S", "float", 5.0,
+       "Socket timeout for one router->replica proxy verb (submit, poll, "
+       "cancel); a slow verb counts toward the replica-death detection "
+       "that re-routes."),
+    _K("CYLON_TPU_ROUTER_TIMEOUT_S", "float", 600.0,
+       "Absolute per-request bound at the router when the caller gave no "
+       "timeout_s or deadline_s: past it the router cancels the proxied "
+       "ticket and answers Code.Timeout."),
+    _K("CYLON_TPU_ROUTER_HEDGE_MS", "float", 0.0,
+       "Hedged requests: milliseconds after the primary submit before the "
+       "router re-places an in-flight hedge-safe request on a second "
+       "replica (the floor under the per-fingerprint p99 estimate; the "
+       "first terminal ticket wins, the loser is cancelled).  0 (default) "
+       "disables."),
+    _K("CYLON_TPU_ROUTER_BREAKER_FAILURES", "int", 3,
+       "Replica health breakers: consecutive classified failures before a "
+       "replica's breaker opens and placement skips it.  0 disables."),
+    _K("CYLON_TPU_ROUTER_BREAKER_COOLDOWN_S", "float", 5.0,
+       "Seconds an open replica breaker holds before half-open admits one "
+       "real request as a health probe."),
     # -- the query service (serve/) -----------------------------------------
     _K("CYLON_TPU_SERVE_QUEUE_CAP", "int", 64,
        "Bounded admission queue of the multi-tenant query service: "

@@ -20,6 +20,12 @@ local shards' devices, ``ctx.shard_ids`` their global ids,
 rank.  Each collective runs its in-process part over the local shards and
 crosses processes with one torch collective (``ctx.group``).  A group of
 one process (``num_processes=1``) is how one card runs the group path.
+
+An ``ElasticConfig`` context (``cylon_tpu/context.py:80``) is one member
+of an elastic gang: the process keeps its own shards (by default one on
+the current CUDA card) and joins the gang's coordinator
+(``elastic.py``) once they exist; ``GetRank`` is then the gang rank and
+``GetNeighbours`` the live members.
 """
 from __future__ import annotations
 
@@ -96,6 +102,28 @@ class MeshConfig(CommConfig):
         return CommType.MESH
 
 
+class ElasticConfig(MeshConfig):
+    """Config for one member of an elastic gang (``cylon_tpu/context.py:
+    80``): each process drives its own shards while a TCP control plane
+    (``elastic.py``: a coordinator and one agent per process, heartbeats,
+    epoch-numbered membership) tracks who is alive.  On a membership
+    change the gang re-forms at the shrunken world and the durable
+    journal carries completed work across the shrink.
+
+    ``rank``: this process's gang rank; ``coordinator``: ``host:port`` of
+    the running `elastic.Coordinator` (default: the
+    ``CYLON_TPU_ELASTIC_COORD`` knob).  ``devices``/``world_size`` set
+    this process's shards as on `MeshConfig`; with neither, one shard on
+    the current CUDA card."""
+
+    def __init__(self, rank: int, coordinator: Optional[str] = None,
+                 devices: Optional[Sequence] = None,
+                 world_size: Optional[int] = None):
+        super().__init__(devices=devices, world_size=world_size)
+        self.rank = int(rank)
+        self.coordinator = coordinator
+
+
 @dataclass(frozen=True)
 class Group:
     """This process's place in the default ``torch.distributed`` group:
@@ -119,6 +147,9 @@ def _visible_cuda_devices() -> List[torch.device]:
 def _base_devices(cfg: MeshConfig) -> List[torch.device]:
     if cfg.devices is not None:
         return [torch.device(d) for d in cfg.devices]
+    if isinstance(cfg, ElasticConfig) and cfg.local_device_ids is None:
+        _visible_cuda_devices()  # one member per card: the current one
+        return [torch.device("cuda", torch.cuda.current_device())]
     if cfg.local_device_ids is not None:
         _visible_cuda_devices()
         return [torch.device("cuda", int(i)) for i in cfg.local_device_ids]
@@ -210,6 +241,7 @@ class CylonContext:
         self.distributed = distributed
         self.group: Optional[Group] = None
         self._owns_group = False
+        self._elastic_agent = None
         if not distributed:
             self.devices = [resolve_device(device)]
             self.shard_ids = [0]
@@ -227,6 +259,22 @@ class CylonContext:
             self.group, self._owns_group = _join_group(cfg, self.devices)
         first = self.group.rank * world if self.group else 0
         self.shard_ids = list(range(first, first + world))
+        if isinstance(cfg, ElasticConfig):
+            # join the gang AFTER the shards exist: membership is a
+            # control-plane fact over per-process contexts (the gang
+            # re-forms, a context never reshapes)
+            from . import elastic
+
+            self._elastic_agent = elastic.connect(cfg.rank, cfg.coordinator)
+        else:
+            # the environment's opt-in (CYLON_TPU_ELASTIC=1 and
+            # CYLON_TPU_ELASTIC_COORD): a distributed context joins the
+            # gang at its process id, with no code change
+            from . import elastic
+
+            if elastic.elastic_enabled():
+                rank = cfg.process_id if cfg.process_id is not None else 0
+                self._elastic_agent = elastic.connect(rank)
 
     @staticmethod
     def Init(device=None) -> "CylonContext":
@@ -242,8 +290,16 @@ class CylonContext:
 
     # -- identity ----------------------------------------------------------
     def GetRank(self) -> int:
-        """The process rank: 0 when one process drives every shard."""
+        """The process rank: the gang rank under an elastic agent, else
+        the group rank, 0 when one process drives every shard."""
+        if self._elastic_agent is not None:
+            return self._elastic_agent.rank
         return self.group.rank if self.group else 0
+
+    def elastic_agent(self):
+        """The `elastic.Agent` this context joined the gang with, or None
+        for a fixed-world context."""
+        return self._elastic_agent
 
     def num_processes(self) -> int:
         return self.group.size if self.group else 1
@@ -257,8 +313,12 @@ class CylonContext:
         return self.GetWorldSize()
 
     def GetNeighbours(self, include_self: bool = False) -> List[int]:
-        """The other ranks of the world (the reference's non-elastic
-        branch, ``cylon_tpu/context.py:215-216``)."""
+        """The other ranks: under an elastic agent the LIVE gang members
+        (the shard count is per process and says nothing about peers),
+        else the other ranks of the world."""
+        if self._elastic_agent is not None:
+            return [m for m in self._elastic_agent.members
+                    if include_self or m != self._elastic_agent.rank]
         return [i for i in range(self.GetWorldSize())
                 if include_self or i != self.GetRank()]
 
@@ -332,8 +392,10 @@ class CylonContext:
 
     def Finalize(self) -> None:
         """Wait for the devices (and the other processes), then leave the
-        process group this context formed."""
+        process group this context formed and the elastic gang."""
         self.Barrier()
+        if self._elastic_agent is not None:
+            self._elastic_agent.leave()
         if self._owns_group:
             import torch.distributed as dist
 

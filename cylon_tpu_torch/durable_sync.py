@@ -30,7 +30,8 @@ cooperating mechanisms, all host-side:
   coordinator diffs them against ``CYLON_TPU_DURABLE_RF`` and hands
   under-replicated fingerprints back in its heartbeat replies, which
   :meth:`JournalSyncer.on_heartbeat` takes as plain JSON (the coordinator
-  itself is ROADMAP.md queue A item 11b's ``elastic.Coordinator``).  The
+  is ``elastic.Coordinator``, whose ``_journal_reply_locked`` computes
+  them).  The
   syncer pulls whole runs, every spill first (each verified against the
   peer manifest's sha256) and the manifest LAST via atomic rename, so a
   sync killed at ANY point (fault kind ``sync_partial``) leaves no

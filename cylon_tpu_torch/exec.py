@@ -47,7 +47,10 @@ join -> group-by, group-by, unique, sort) journal every completed pass
 (``durable.RunJournal``) and a fresh process re-invoking the same run
 loads the journaled passes instead of running them; a mesh or
 process-group engine runs unjournaled, as the JAX package's does.
-Elastic execution is not ported (ROADMAP.md queue A, item 11b).
+``elastic=`` (an ``elastic.ElasticSlice``) runs one gang member's slice
+of a one-shard engine: only the slice's parts, its guard before every
+pass, its world and epoch journaled as per-pass provenance, under the
+same world-independent run fingerprint (``elastic.elastic_run``).
 """
 from __future__ import annotations
 
@@ -1024,7 +1027,9 @@ def _journal_done(journal, stats: Dict, frames: List, total: int) -> None:
     """After a journaled stream: mark the run complete when nothing was
     quarantined (every pass the plan needed is journaled, so the run is a
     complete result-cache entry), then let the size-cap GC reclaim older
-    runs."""
+    runs.  An elastic gang member's slice passes no journal: it journals
+    its parts but never marks the run done (the assembly over every part
+    does)."""
     if journal is not None and not stats.get("quarantined"):
         journal.record_done(len(frames), total)
         durable.gc_journal()
@@ -1067,7 +1072,10 @@ def chunked_join(left, right, *, on=None, left_on=None, right_on=None,
     shard, the mesh every pass is sharded over (``_chunked_distributed``);
     the default is the CUDA card.  ``pass_guard`` is called before every
     pass; raising there stops the stream at the next pass boundary.
-    ``elastic`` must be None (the elastic gang is not ported).  With
+    ``elastic`` (an ``elastic.ElasticSlice``) restricts a one-shard run
+    to the slice's parts, calls its guard before every pass and journals
+    its world and epoch (a context of more than one shard refuses it).
+    With
     ``CYLON_TPU_DURABLE_DIR`` set a one-shard run is journaled: a repeat
     (or a fresh process after a crash) loads the journaled passes,
     counted in ``stats["passes_skipped"]``.
@@ -1153,13 +1161,43 @@ def _agree_on_passes(ctx: CylonContext, *plan) -> None:
                          "frames to the out-of-core engine")
 
 
-def _refuse_elastic(elastic) -> None:
-    """``elastic=`` (one process's slice of an elastic gang) needs the
-    gang and its coordinator, which are not ported yet."""
-    if elastic is not None:
-        raise CylonError(Code.NotImplemented,
-                         "elastic execution is not ported yet (ROADMAP.md "
-                         "queue A, item 11b); pass elastic=None")
+def _compose_guards(*guards):
+    """One pass-boundary guard from several optional ones (the elastic
+    epoch check, the serve layer's cancellation and deadline): None when
+    all are None, the single guard unwrapped, else one calling them in
+    order."""
+    gs = [g for g in guards if g is not None]
+    if not gs:
+        return None
+    if len(gs) == 1:
+        return gs[0]
+
+    def guard():
+        for g in gs:
+            g()
+    return guard
+
+
+def _refuse_elastic_mesh(ctx, elastic) -> None:
+    """An elastic member drives one shard per process: a live mesh of
+    several shards cannot be reshaped under a run, so the gang re-forms
+    instead (``cylon_tpu/exec.py:1135-1140``)."""
+    if elastic is not None and ctx.GetWorldSize() > 1:
+        raise CylonError(Code.Invalid,
+                         "elastic execution drives one shard per process "
+                         "(gang re-init on membership change); pass a "
+                         "one-shard context: a live mesh cannot be "
+                         "reshaped under a run")
+
+
+def _journal_elastic(fp: str, op: str, elastic):
+    """Open the run's journal, with an elastic slice's world and epoch as
+    per-pass provenance.  The fingerprint stays world-independent: a
+    gang at any membership (and a one-process re-invocation) shares one
+    journal."""
+    return durable.open_run(
+        fp, op, world=None if elastic is None else elastic.world,
+        epoch=None if elastic is None else elastic.epoch)
 
 
 def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
@@ -1167,7 +1205,6 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
                     left_prefix: str = "l_", right_prefix: str = "r_",
                     elastic=None, pass_guard=None):
     t_plan0 = time.perf_counter()
-    _refuse_elastic(elastic)
     names_l, arrs_l = _as_host_frame(left)
     names_r, arrs_r = _as_host_frame(right)
     lon = _resolve_keys(names_l, on, left_on, "left")
@@ -1229,6 +1266,7 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
                          and every_gb_is_key and len(positions) >= 1
                          and positions == list(range(len(positions))))
 
+    _refuse_elastic_mesh(ctx, elastic)
     if ctx.GetWorldSize() > 1:
         _agree_on_passes(ctx, counts_l, counts_r, n_passes, mode_used,
                          cfg, names_l, names_r,
@@ -1305,7 +1343,7 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
              if aggs_req is not None else None,
              int(ddof), int(n_passes), mode_used, 1),
             ((names_l, arrs_l), (names_r, arrs_r)))
-        journal = durable.open_run(fp, op)
+        journal = _journal_elastic(fp, op, elastic)
 
     def make_exec(parts, level):
         pid_l_lvl, pid_r_lvl = plan.pids(level)
@@ -1341,9 +1379,13 @@ def _chunked_engine(left, right, *, on, left_on, right_on, how, group_by,
 
     t_plan, t_run0, frames, total = _stream_recoverable(
         make_exec, plan, t_plan0, policy=policy, stats=stats,
-        prefetch=prefetch, journal=journal, pass_guard=pass_guard,
+        prefetch=prefetch, journal=journal,
+        parts=None if elastic is None else elastic.parts,
+        pass_guard=_compose_guards(
+            None if elastic is None else elastic.guard, pass_guard),
         device=device)
-    _journal_done(journal, stats, frames, total)
+    _journal_done(journal if elastic is None else None, stats, frames,
+                  total)
     result = _concat_host(frames)
     if gb_names is not None and not final_per_pass:
         result, total = _combine_partials(result, gb_names, aggs_req,
@@ -1539,7 +1581,6 @@ def chunked_groupby(data, by, agg: Dict, *, passes: int = 4, ddof: int = 0,
 
     Returns (dict of host columns, stats)."""
     t0 = time.perf_counter()
-    _refuse_elastic(elastic)
     names, arrs = _as_host_frame(data)
     by_names = _resolve_keys(names, by, None, "group")
     aggs_req = _normalize_agg(agg, names)
@@ -1551,6 +1592,7 @@ def chunked_groupby(data, by, agg: Dict, *, passes: int = 4, ddof: int = 0,
     out_names = list(by_names) + [f"{op.name.lower()}_{n}"
                                   for n, op in aggs_req]
     ctx = _engine_context(ctx)
+    _refuse_elastic_mesh(ctx, elastic)
     world = ctx.GetWorldSize()
     extra: Dict = {}
     if world > 1:
@@ -1591,7 +1633,7 @@ def chunked_groupby(data, by, agg: Dict, *, passes: int = 4, ddof: int = 0,
                  tuple((n, int(o)) for n, o in aggs_req),
                  int(ddof), int(n_passes), mode_used, 1),
                 ((names, arrs),))
-            journal = durable.open_run(fp, "groupby")
+            journal = _journal_elastic(fp, "groupby", elastic)
 
         def make_exec(parts, level):
             pid_lvl, _ = plan.pids(level)
@@ -1610,8 +1652,12 @@ def chunked_groupby(data, by, agg: Dict, *, passes: int = 4, ddof: int = 0,
 
         t_plan, t_run0, frames, total = _stream_recoverable(
             make_exec, plan, t0, stats=extra, journal=journal,
-            pass_guard=pass_guard, device=device)
-        _journal_done(journal, extra, frames, total)
+            parts=None if elastic is None else elastic.parts,
+            pass_guard=_compose_guards(
+                None if elastic is None else elastic.guard, pass_guard),
+            device=device)
+        _journal_done(journal if elastic is None else None, extra, frames,
+                      total)
     result = _concat_host(frames)
     t_run = time.perf_counter() - t_run0
     stats = {"passes": n_passes, "mode": mode_used, "world": world,

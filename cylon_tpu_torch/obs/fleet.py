@@ -20,9 +20,9 @@ A copy of ``cylon_tpu/obs/fleet.py``:
   failed request).  The dump is atomic (tmp + rename), and a failed dump
   is logged and swallowed: the recorder never kills the path it records.
 
-The coordinator that calls ``measure_offset`` and ``set_incarnation`` is
-the elastic gang's (ROADMAP.md queue A, item 11b).  Host-side stdlib
-only.
+The elastic gang's coordinator and agents (``elastic.py``) call
+``measure_offset``, ``set_rank`` and ``set_incarnation``.  Host-side
+stdlib only.
 """
 from __future__ import annotations
 

@@ -218,8 +218,8 @@ class PlanProfile:
         slowest-participant attribution) into the profile when the
         context runs under an elastic agent — the fleet-level complement
         to the per-node shard-row skew.  Best-effort and read-only: no
-        agent leaves the ledger absent.  The port's contexts have no
-        elastic agent until ROADMAP.md queue A, item 11b."""
+        agent (``ctx.elastic_agent()`` is None) leaves the ledger
+        absent."""
         get = getattr(ctx, "elastic_agent", None)
         agent = get() if callable(get) else None
         if agent is None:

@@ -29,16 +29,16 @@ Fault-plan spec grammar (';'- or ','-separated entries)::
     site@N=kind     kind in FAULT_KINDS (oom, timeout, comm, unknown, hang,
                     delay, the journal's killhard, journal_corrupt,
                     cache_evict_race, disk_full, bitrot, sync_partial,
-                    and the serve layer's tenant_flood, shed)
+                    the serve layer's tenant_flood, shed, the elastic
+                    gang's rank_kill, heartbeat_loss, coordinator_loss,
+                    coordinator_restart, coord_partition, coord_slow,
+                    and the router's replica_sick)
     site@N+=kind    fire on EVERY hit >= N (persistent fault)
 
 e.g. ``CYLON_TPU_FAULT_PLAN="pass_dispatch@2=oom;journal_commit@3=killhard"``.
 The serve layer's ``tenant_flood`` (at ``serve.admit``) and ``shed`` (at
 ``serve.dispatch``) are kinds too, and `FaultSchedule` composes a seeded
-multi-event timeline into one spec.  A kind of the JAX package that acts
-on a module not ported yet (the gang's ``rank_kill``, the router's
-``replica_sick``, ...) fails the parse with `Code.NotImplemented`
-instead of firing as a no-op.
+multi-event timeline into one spec.
 """
 from __future__ import annotations
 
@@ -209,8 +209,22 @@ def retry_call(fn, *, policy: Optional[RetryPolicy] = None, site: str = "op",
 # (serve.admit), which the service turns into a classified shed; `shed`
 # raises at the dispatch probe (serve.dispatch), so a QUEUED request
 # sheds instead of running.
-# The JAX package's other kinds act on the elastic gang, its coordinator
-# or the fleet router, none of which is ported.
+# The elastic gang's kinds (elastic.py):
+# - `rank_kill` is killhard under the gang's name: os._exit(137) at a
+#   pass boundary (`elastic.pass.r<rank>`), a preempted member the
+#   survivors must detect, shrink past and resume without;
+# - `heartbeat_loss` raises at the agent's heartbeat probe, which catches
+#   it and goes silent for good (a partition: the process computes on);
+# - `coordinator_loss` raises at the coordinator's detector probe, which
+#   drops the control socket; `coordinator_restart` there restarts the
+#   coordinator in place from its durable log (incarnation and epoch
+#   bump, same address);
+# - `coord_partition` raises at the agent's RPC probe, which turns it
+#   into a ConnectionError (control messages dropped one way);
+#   `coord_slow` sleeps the coordinator's verb handler for
+#   fault_delay_s() and continues.
+# The router's `replica_sick` sleeps its probe for fault_delay_s() and
+# continues: a replica that turns slow while staying alive and correct.
 _KIND_MESSAGES = {
     "oom": ("RESOURCE_EXHAUSTED: injected fault at {site} (hit {hit}): "
             "attempting to allocate past HBM capacity"),
@@ -232,20 +246,26 @@ _KIND_MESSAGES = {
                      "(hit {hit}): admission budget exceeded"),
     "shed": ("UNAVAILABLE: injected shed at {site} (hit {hit}): "
              "request shed under load"),
+    "rank_kill": "injected rank kill at {site} (hit {hit})",
+    "heartbeat_loss": ("UNAVAILABLE: injected heartbeat loss at {site} "
+                       "(hit {hit}): network error"),
+    "coordinator_loss": ("UNAVAILABLE: injected coordinator loss at {site} "
+                         "(hit {hit}): connection closed"),
+    "coordinator_restart": ("UNAVAILABLE: injected coordinator restart at "
+                            "{site} (hit {hit}): takeover in progress"),
+    "coord_partition": ("UNAVAILABLE: injected control partition at {site} "
+                        "(hit {hit}): packet dropped"),
+    "coord_slow": "injected slow control verb at {site} (hit {hit})",
+    "replica_sick": "injected sick replica at {site} (hit {hit})",
 }
 
 FAULT_KINDS = tuple(_KIND_MESSAGES)
 
-# the JAX package's kinds that act on a module the port does not have
-# yet, by its ROADMAP.md queue A item: 11b the elastic gang, its
-# coordinator and the fleet router
-_UNPORTED_KINDS = dict.fromkeys(
-    ("rank_kill", "heartbeat_loss", "coordinator_loss",
-     "coordinator_restart", "coord_partition", "coord_slow",
-     "replica_sick"), "11b")
 
-#: seconds the ``delay`` kind sleeps the probe
-FAULT_DELAY_S = 0.25
+def fault_delay_s() -> float:
+    """Seconds the ``delay``, ``coord_slow`` and ``replica_sick`` kinds
+    sleep the probe (``CYLON_TPU_FAULT_DELAY_S``)."""
+    return max(0.0, float(config.knob("CYLON_TPU_FAULT_DELAY_S")))
 
 
 class InjectedFault(RuntimeError):
@@ -312,12 +332,6 @@ class FaultPlan:
                 if entry.endswith("+"):
                     persistent = True
                     entry = entry[:-1]
-            if kind in _UNPORTED_KINDS:
-                raise CylonError(Code.NotImplemented,
-                                 f"fault kind {kind!r} in "
-                                 f"CYLON_TPU_FAULT_PLAN entry {raw!r} acts "
-                                 f"on a module not ported yet (ROADMAP.md "
-                                 f"queue A, item {_UNPORTED_KINDS[kind]})")
             if kind not in _KIND_MESSAGES:
                 raise CylonError(Code.Invalid,
                                  f"bad fault kind {kind!r} in "
@@ -415,10 +429,11 @@ def fault_point(site: str) -> None:
         obs_spans.instant("fault.injected", site=site, kind=kind,
                           hit=plan.hits[site])
         obs_metrics.counter_add("fault.injected")
-        if kind in ("killhard", "sync_partial"):
+        if kind in ("killhard", "rank_kill", "sync_partial"):
             # simulate kill -9 / preemption: no cleanup, no atexit, no
             # flushed buffers (and no CUDA teardown) — exactly what the
-            # journal must survive
+            # journal must survive (rank_kill: what the gang's survivors
+            # must detect, shrink past and resume without)
             os._exit(137)
         if kind in ("journal_corrupt", "bitrot", "cache_evict_race", "hang"):
             from . import durable
@@ -432,8 +447,8 @@ def fault_point(site: str) -> None:
             else:
                 time.sleep(max(1.5 * durable.deadline_s(), 0.05))
             return
-        if kind == "delay":
-            time.sleep(FAULT_DELAY_S)
+        if kind in ("delay", "coord_slow", "replica_sick"):
+            time.sleep(fault_delay_s())
             return
         if kind == "disk_full":
             # the genuine errno, so classification (and any errno-based

@@ -19,8 +19,8 @@ them onto that line and back, bit-exactly:
 
 Anything else is a classified `Code.SerializationError`.
 :func:`request_key` hashes the canonical encoding of a request (content
-only: no tenant, deadline or trace header).  The router that routes on
-it is ROADMAP.md queue A item 11b's.
+only: no tenant, deadline or trace header), the key the query router
+(``service.py``) steers repeats on.
 """
 from __future__ import annotations
 

@@ -44,8 +44,9 @@ join; per-tenant queue-wait and run histograms
 knob-driven listener (``CYLON_TPU_METRICS_PORT``) the service starts.
 ``QueryService()`` with no ``ctx`` serves on the CUDA card and raises
 without one; pass ``ctx=CylonContext.Init("cpu")`` to serve on the CPU.
-Attaching to an elastic agent waits for the gang (ROADMAP.md queue A,
-item 11b).
+:meth:`QueryService.attach_to_agent` rides the telemetry on an elastic
+agent's heartbeats; ``router.ReplicaServer`` serves a service to the
+fleet's query router.
 """
 from __future__ import annotations
 
@@ -877,14 +878,29 @@ class QueryService:
     # -- fleet integration --------------------------------------------------
 
     def attach_to_agent(self, agent) -> "QueryService":
-        """Wire :meth:`telemetry` onto an elastic agent's heartbeats: the
-        agent and its coordinator are not ported yet."""
-        raise CylonError(Code.NotImplemented,
-                         "attach_to_agent needs the elastic agent, not "
-                         "ported yet (ROADMAP.md queue A, item 11b); read "
-                         "telemetry() directly")
+        """Wire this service's :meth:`telemetry` onto an elastic agent's
+        heartbeats (``agent.attach_telemetry``).  One call is durable
+        across coordinator restarts: the callable lives on the agent,
+        whose reconnect path pushes an immediate heartbeat after a
+        re-join, so a restarted coordinator's ``status`` verb
+        repopulates this service's queue depth and per-tenant SLO
+        histograms without waiting out a heartbeat interval.
+        :meth:`telemetry` runs on the agent's heartbeat thread and
+        reads host counters only (no device call)."""
+        agent.attach_telemetry(self.telemetry)
+        obs_spans.instant("serve.telemetry_attached", service=self.name,
+                          rank=getattr(agent, "rank", None))
+        return self
 
     # -- introspection ------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        """The device this service runs on: its context's card by index,
+        or the CPU."""
+        if self._card is not None:
+            return torch.device("cuda", self._card)
+        return self._ctx.devices[0]
 
     def queue_depth(self) -> int:
         with self._lock:

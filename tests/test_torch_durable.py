@@ -4,9 +4,10 @@ checkpoints, cross-process crash-resume, pass deadlines, poison-pass
 quarantine, the GC lease, scrubbing, read-repair, replication and
 ``tools/journal_fsck.py`` on a root the port wrote.
 
-44 of ``tests/test_durable.py``'s 46 cases, under the same names and at
-the same sizes, on the CPU (``ctx=CylonContext.Init("cpu")``); the other
-two need the elastic coordinator (``WAITING``).  Then the cases across
+All 46 of ``tests/test_durable.py``'s cases, under the same names and at
+the same sizes, on the CPU (``ctx=CylonContext.Init("cpu")``), two of
+them through the elastic coordinator's journal placement.  Then the
+cases across
 the two packages: a frame spills to the same bytes (and sha256) in both,
 each package's ``RunJournal`` loads a run the other wrote, and a
 journaled (and resumed) port engine run equals the reference's
@@ -39,11 +40,6 @@ from .torch_parity import assert_frames_equal
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = CylonContext.Init("cpu")
-
-#: cases of tests/test_durable.py that wait for a later ROADMAP item: both
-#: drive the elastic coordinator's journal placement (A11b)
-WAITING = {"test_coordinator_journal_reply_placement": "A11b",
-           "test_fleet_anti_entropy_converges": "A11b"}
 
 
 def _join_inputs(rng, n=3000):
@@ -1315,7 +1311,7 @@ def test_wire_blob_digest_contract():
 
 def test_durable_waits_name_their_item():
     """Every case of tests/test_durable.py is ported here under its own
-    name, except the two that drive the elastic coordinator (A11b)."""
+    name: none waits."""
     import ast
 
     with open(os.path.join(REPO, "tests", "test_durable.py")) as f:
@@ -1323,11 +1319,8 @@ def test_durable_waits_name_their_item():
                  if isinstance(n, ast.FunctionDef)
                  and n.name.startswith("test_")}
     ported = {n for n in globals() if n.startswith("test_")}
-    assert WAITING == {"test_coordinator_journal_reply_placement": "A11b",
-                       "test_fleet_anti_entropy_converges": "A11b"}
-    assert set(WAITING) <= names
-    assert names - set(WAITING) <= ported, names - set(WAITING) - ported
-    assert len(names - set(WAITING)) == 44
+    assert names <= ported, names - ported
+    assert len(names) == 46
 
 
 @pytest.mark.fault
@@ -1547,14 +1540,121 @@ def test_oneshot_fallback_is_journaled(rng, tmp_path):
                                       base[k][order(base)], err_msg=k)
 
 
+def test_coordinator_journal_reply_placement():
+    """The anti-entropy placement math, unit-level: guards only
+    load-bearing copies (holders < RF), assigns exactly RF - holders
+    pullers deterministically, counts DISTINCT roots (shared-filesystem
+    replicas are one copy), and goes quiet at RF=1."""
+    from cylon_tpu_torch import elastic
+
+    coord = elastic.Coordinator(world=3)
+    fp = "a" * 64
+    rec = {"digest": "d1", "complete": True, "pinned": False,
+           "passes": 2, "bytes": 100}
+    coord._last_hb = {0: 0.0, 1: 0.0, 2: 0.0}
+    coord._telemetry = {
+        0: {"journal": {"addr": ["h0", 1], "root": "/r0",
+                        "digests": {fp: rec}}},
+        1: {"journal": {"addr": ["h1", 2], "root": "/r1", "digests": {}}},
+        2: {"journal": {"addr": ["h2", 3], "root": "/r2", "digests": {}}},
+    }
+    with config.knob_env(CYLON_TPU_DURABLE_RF="2"):
+        holder = coord._journal_reply_locked(0)
+        puller = coord._journal_reply_locked(1)
+        spare = coord._journal_reply_locked(2)
+    # the only copy is load-bearing: guarded on the holder, hinted to
+    # exactly the FIRST non-holder rank, nothing for the spare
+    assert holder["journal_guard"] == [fp]
+    assert "journal_sync" not in holder
+    assert puller["journal_sync"] == [
+        {"fingerprint": fp, "from": ["h0", 1], "pinned": False}]
+    assert "journal_sync" not in spare and "journal_guard" not in spare
+    assert set(puller["journal_peers"]) == {"0", "2"}
+    # rank 1 now holds a copy too: replicated to target -> no guard, no
+    # hints, GC free to evict either copy
+    coord._telemetry[1]["journal"]["digests"] = {fp: dict(rec)}
+    with config.knob_env(CYLON_TPU_DURABLE_RF="2"):
+        assert "journal_guard" not in coord._journal_reply_locked(0)
+        assert "journal_sync" not in coord._journal_reply_locked(2)
+    # shared root: two ranks advertising ONE realpath are one copy
+    coord._telemetry[1]["journal"]["root"] = "/r0"
+    with config.knob_env(CYLON_TPU_DURABLE_RF="2"):
+        assert coord._journal_reply_locked(0)["journal_guard"] == [fp]
+        assert coord._journal_reply_locked(2)["journal_sync"][0][
+            "fingerprint"] == fp
+    # RF=1: anti-entropy off — no guards, no hints, ever
+    with config.knob_env(CYLON_TPU_DURABLE_RF="1"):
+        r0 = coord._journal_reply_locked(0)
+        assert "journal_guard" not in r0 and "journal_sync" not in r0
+    # a dead rank's advertisement stops counting
+    coord._telemetry[1]["journal"]["root"] = "/r1"
+    coord._telemetry[1]["journal"]["digests"] = {}
+    coord._dead[1] = "fenced"
+    with config.knob_env(CYLON_TPU_DURABLE_RF="2"):
+        assert set(coord._journal_reply_locked(0)["journal_peers"]) == {"2"}
+
+
+def test_fleet_anti_entropy_converges(tmp_path, no_live_journal):
+    """The tentpole, in-process: two replicas with DISTINCT journal
+    roots heartbeat a real coordinator; the run only root 0 holds is
+    hinted to root 1 over the beats and arrives complete, loadable and
+    bit-identical — no direct wiring between the replicas."""
+    from cylon_tpu_torch import elastic
+
+    roots = [tmp_path / "r0", tmp_path / "r1"]
+    frame = _mk_run(roots[0], fp="a" * 64)
+    os.makedirs(roots[1], exist_ok=True)
+    coord = elastic.Coordinator(world=2, heartbeat_timeout_s=2.0).start()
+    addr = f"{coord.address[0]}:{coord.address[1]}"
+    servers, syncers, agents = [], [], []
+    try:
+        for r in range(2):
+            srv = durable_sync.JournalPeerServer(str(roots[r]))
+            sy = durable_sync.JournalSyncer(str(roots[r]))
+            a = elastic.Agent(addr, r, interval_s=0.05, timeout_s=2.0)
+
+            def tel(sy=sy, srv=srv):
+                j = sy.telemetry()
+                j["addr"] = list(srv.address)
+                return {"journal": j}
+
+            a.attach_telemetry(tel)
+            a.attach_journal_sync(sy.on_heartbeat)
+            a.start()
+            servers.append(srv)
+            syncers.append(sy)
+            agents.append(a)
+        deadline = time.time() + 30
+        target = roots[1] / ("a" * 64) / durable.MANIFEST
+        while time.time() < deadline and not os.path.exists(target):
+            time.sleep(0.05)
+        assert os.path.exists(target), "anti-entropy never converged"
+        # while under-replicated the holder's GC guard was installed;
+        # after convergence the run loads bit-identical from root 1
+        with config.knob_env(CYLON_TPU_DURABLE_DIR=str(roots[1])):
+            j = durable.open_run("a" * 64, "test")
+            assert j.completed_count() == 2
+            loaded, rows = j.load_pass(0, 0)
+        _assert_bit_identical(loaded, frame)
+    finally:
+        for a in agents:
+            a.stop()
+        for s in syncers:
+            s.close()
+        for s in servers:
+            s.close()
+        coord.stop()
+    assert durable._REPLICATION_GUARD is None, "syncer close left a guard"
+
+
 def test_journal_syncer_takes_heartbeat_json(tmp_path, no_live_journal,
                                              peerless):
     """``JournalSyncer.on_heartbeat`` takes a coordinator's reply as plain
     JSON: ``journal_peers`` becomes the read-repair registry,
     ``journal_guard`` the GC replication guard, and each
     ``journal_sync`` hint a pull on the syncer's own thread; ``close``
-    clears the guard and the peers.  (The coordinator that sends these
-    replies is A11b's.)"""
+    clears the guard and the peers.  (``elastic.Coordinator`` sends these
+    replies: ``test_fleet_anti_entropy_converges``.)"""
     src, dst = tmp_path / "src", tmp_path / "dst"
     frame = _mk_run(src, fp="a" * 64)
     os.makedirs(dst)

@@ -397,15 +397,16 @@ def test_run_passes_streams_positional_passes_with_retry():
 
 
 def test_fault_plan_hook_kinds_match_reference():
-    """The port keeps the kinds the engine's probes, the run journal's and
-    the serve layer's act on, each with the reference's message; every
-    other reference kind is refused."""
+    """The port keeps every kind of the reference (the engine's probes',
+    the run journal's, the serve layer's, the elastic gang's and the
+    router's), each with the reference's message."""
     assert set(presilience.FAULT_KINDS) == {
         "oom", "timeout", "comm", "unknown", "hang", "delay", "killhard",
         "journal_corrupt", "cache_evict_race", "disk_full", "bitrot",
-        "sync_partial", "tenant_flood", "shed"}
-    assert set(rresilience.FAULT_KINDS) == (
-        set(presilience.FAULT_KINDS) | set(presilience._UNPORTED_KINDS))
+        "sync_partial", "tenant_flood", "shed", "rank_kill",
+        "heartbeat_loss", "coordinator_loss", "coordinator_restart",
+        "coord_partition", "coord_slow", "replica_sick"}
+    assert set(rresilience.FAULT_KINDS) == set(presilience.FAULT_KINDS)
     for kind in presilience.FAULT_KINDS:
         assert presilience._KIND_MESSAGES[kind] \
             == rresilience._KIND_MESSAGES[kind]

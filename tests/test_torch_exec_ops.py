@@ -521,17 +521,46 @@ def test_pass_guard_stops_the_stream_at_the_third_pass(rng, world, op):
 
 
 def test_elastic_is_not_ported(rng):
+    """``elastic=`` takes an ``elastic.ElasticSlice`` on one shard: the
+    run covers only the slice's parts (their frames are those of the
+    full run's same passes), the slice's guard runs before each of its
+    passes, and a context of several shards refuses it (Invalid), as
+    the reference's engine does."""
+    from cylon_tpu_torch import elastic
+
     df = _groupby_frame(rng, 100)
+    calls = []
+    sl = elastic.ElasticSlice(parts=[1, 3], epoch=0, world=2,
+                              guard=lambda: calls.append(1))
+    for run in (
+            lambda e: pexec.chunked_join(df, df, on="g", passes=4,
+                                         mode="hash", ctx=CPU, elastic=e),
+            lambda e: pexec.chunked_join_groupby_tables(
+                df, df, on="g", group_by="l_g", agg={"l_v": "sum"},
+                passes=4, mode="hash", ctx=CPU, elastic=e),
+            lambda e: pexec.chunked_groupby(df, "g", {"v": "sum"}, passes=4,
+                                            mode="hash", ctx=CPU,
+                                            elastic=e)):
+        calls.clear()
+        part, st = run(sl)
+        full, _ = run(None)
+        assert len(calls) == 2 and st["parts_run"] == 2
+        key = next(iter(full))
+        got = np.sort(np.asarray(part[key]))
+        assert 0 < got.size < np.asarray(full[key]).size
+        assert np.isin(got, np.asarray(full[key])).all()
+    mesh = CylonContext.InitDistributed(MeshConfig(devices=["cpu"],
+                                                   world_size=2))
     for call in (
-            lambda: pexec.chunked_join(df, df, on="g", ctx=CPU, elastic=1),
+            lambda: pexec.chunked_join(df, df, on="g", ctx=mesh, elastic=sl),
             lambda: pexec.chunked_join_groupby_tables(
                 df, df, on="g", group_by="l_g", agg={"l_v": "sum"},
-                ctx=CPU, elastic=1),
-            lambda: pexec.chunked_groupby(df, "g", {"v": "sum"}, ctx=CPU,
-                                          elastic=1)):
-        with pytest.raises(CylonError, match="item 11") as e:
+                ctx=mesh, elastic=sl),
+            lambda: pexec.chunked_groupby(df, "g", {"v": "sum"}, ctx=mesh,
+                                          elastic=sl)):
+        with pytest.raises(CylonError, match="one shard per process") as e:
             call()
-        assert e.value.code == Code.NotImplemented
+        assert e.value.code == Code.Invalid
 
 
 def test_standalone_operators_without_a_card_raise(rng, monkeypatch):

@@ -1100,3 +1100,92 @@ def test_stream_refresh_on_the_card_equals_recompute_cold(gen, tmp_path):
     np.testing.assert_array_equal(f6["k"], keys)
     np.testing.assert_allclose(f6["sum_v"], np.bincount(inv, v), rtol=1e-5)
     np.testing.assert_array_equal(f6["count_v"], np.bincount(inv))
+
+
+#: one gang member on the card, run as ``python -c GANG_MEMBER RANK WORLD
+#: ADDR OUT ROWS`` (``test_elastic_gang_on_the_card_survives_a_kill``)
+GANG_MEMBER = """
+import sys
+import numpy as np
+from cylon_tpu_torch import CylonContext, ElasticConfig, elastic
+from cylon_tpu_torch.exec import chunked_join_groupby_tables
+
+rank, world, addr, out, n = sys.argv[1:6]
+rng = np.random.default_rng(17)
+n = int(n)
+left = {"k": rng.integers(0, n, n).astype(np.int32),
+        "a": rng.random(n).astype(np.float32)}
+right = {"k": rng.integers(0, n, n).astype(np.int32),
+         "b": rng.random(n).astype(np.float32)}
+ctx = CylonContext.InitDistributed(ElasticConfig(int(rank),
+                                                 coordinator=addr))
+
+def run(sl=None):
+    return chunked_join_groupby_tables(
+        left, right, on="k", group_by="l_k",
+        agg={"a": ["sum"], "b": ["mean"]}, passes=6, mode="hash",
+        ctx=ctx, elastic=sl)
+
+res, stats = elastic.elastic_run(ctx.elastic_agent(), 6, run,
+                                 finalize=run, run_id="gpu-gang")
+np.savez(out, **res)
+assert stats["passes_skipped"] == 6, stats
+ctx.Finalize()
+"""
+
+
+@pytest.mark.gpu
+def test_elastic_gang_on_the_card_survives_a_kill(gen, tmp_path):
+    """A 2-rank elastic gang on the card (each rank its own process and
+    CUDA context, ``ElasticConfig`` with one shard) at 2^16 rows per
+    side: rank 1 dies at its 2nd pass boundary (``rank_kill``, rc 137),
+    the coordinator reaps it, and rank 0's frame, assembled from the
+    shared journal, equals the one-process run on the card bit for
+    bit."""
+    import os
+    import subprocess
+    import sys
+
+    from cylon_tpu_torch import CylonContext, elastic
+    from cylon_tpu_torch.exec import chunked_join_groupby_tables
+
+    n = 1 << 16
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    coord = elastic.Coordinator(2).start()
+    procs = []
+    try:
+        addr = f"{coord.address[0]}:{coord.address[1]}"
+        for r in range(2):
+            env = {k: v for k, v in os.environ.items()
+                   if k != "CYLON_TPU_FAULT_PLAN"}
+            env["CYLON_TPU_DURABLE_DIR"] = str(tmp_path / "journal")
+            env["PYTHONPATH"] = repo
+            if r == 1:
+                env["CYLON_TPU_FAULT_PLAN"] = "elastic.pass.r1@2=rank_kill"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", GANG_MEMBER, str(r), "2", addr,
+                 str(tmp_path / f"out{r}.npz"), str(n)], cwd=repo, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        outs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                for p in procs]
+        assert procs[1].returncode == 137, outs[1][-2000:]
+        assert procs[0].returncode == 0, outs[0][-3000:]
+        assert coord._dead[1] == "heartbeat timeout"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        coord.stop()
+    rng = np.random.default_rng(17)
+    left = {"k": rng.integers(0, n, n).astype(np.int32),
+            "a": rng.random(n).astype(np.float32)}
+    right = {"k": rng.integers(0, n, n).astype(np.int32),
+             "b": rng.random(n).astype(np.float32)}
+    base, _ = chunked_join_groupby_tables(
+        left, right, on="k", group_by="l_k",
+        agg={"a": ["sum"], "b": ["mean"]}, passes=6, mode="hash",
+        ctx=CylonContext.Init("cuda"))
+    got = dict(np.load(tmp_path / "out0.npz"))
+    assert list(got) == list(base)
+    for k in base:
+        assert np.array_equal(got[k].view(np.uint8), base[k].view(np.uint8)), k

@@ -45,6 +45,25 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert int(out.stdout.split()[-1]) >= 79
 
 
+def test_fleet_modules_load_no_jax():
+    """``cylon_tpu_torch.elastic`` and ``cylon_tpu_torch.router`` (the
+    gang, the router, its replicas) load neither jax nor the JAX
+    package, whose ``elastic.py`` and ``router/`` they copy."""
+    code = (
+        "import sys\n"
+        "import cylon_tpu_torch.elastic\n"
+        "import cylon_tpu_torch.router\n"
+        "from cylon_tpu_torch.router import QueryRouter, ReplicaServer\n"
+        "from cylon_tpu_torch import ElasticConfig, net\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 def test_import_loads_neither_pandas_nor_pyarrow():
     """``import cylon_tpu_torch`` (its I/O layer, native library bindings
     and frames included) loads neither pandas nor pyarrow: each is imported
@@ -76,7 +95,9 @@ def test_import_loads_neither_pandas_nor_pyarrow():
                                     "stream", "stream/state",
                                     "stream/table", "stream/incremental",
                                     "obs/openmetrics", "obs/export",
-                                    "obs/fleet", "obs/tracectx"])
+                                    "obs/fleet", "obs/tracectx",
+                                    "elastic", "router/service",
+                                    "router/replica"])
 def test_front_door_modules_import_no_jax(module):
     """The I/O layer, the native bindings, the frames, the journal's
     stdlib modules (its lease, transport and wire codec) and the serving

@@ -13,9 +13,8 @@ different hashes on the CPU) must agree.
 The OpenMetrics cases render, parse and scrape the port's exposition and
 hold it against the reference's (``obs/openmetrics.py``, cumulative
 ``le`` buckets, tenant and rank labels); ``trace_report`` reads the
-port's plan profile and metrics.  ``test_profile.py``'s cases that wait
-for a later item (``WAITING``): the coordinator's metrics verb and its
-dead-rank pruning (A11b, the elastic coordinator).
+port's plan profile and metrics, and the unchanged
+``tools/fleet_status.py`` the port's coordinator's metrics verb.
 """
 import json
 import os
@@ -40,12 +39,7 @@ from cylon_tpu_torch.plan import executor as plan_executor
 from cylon_tpu_torch.plan import optimizer as plan_optimizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-#: planner-adjacent cases of tests/test_profile.py that wait for an item
-WAITING = {
-    "test_coordinator_metrics_verb_and_fleet_status": "A11b",
-    "test_metrics_pruned_with_dead_rank": "A11b",
-}
+TOOLS = os.path.join(REPO, "tools")
 
 
 @pytest.fixture(scope="module")
@@ -622,9 +616,104 @@ def test_run_service_with_profiler_knob(mesh4, tmp_path):
             if f.startswith("plan_profile")]
 
 
+# -- the coordinator's metrics verb and fleet_status ---------------------
+
+def test_coordinator_metrics_verb_and_fleet_status(capsys):
+    import time as time_mod
+
+    from cylon_tpu_torch import elastic
+
+    sys.path.insert(0, TOOLS)
+    try:
+        import fleet_status
+    finally:
+        sys.path.remove(TOOLS)
+
+    obs_metrics.counter_add("test.fleet_probe", 5)
+    c = elastic.Coordinator(2, heartbeat_timeout_s=5.0).start()
+    a0 = elastic.Agent(c.address, 0, interval_s=0.05,
+                       timeout_s=5.0).start()
+    a1 = elastic.Agent(c.address, 1, interval_s=0.05,
+                       timeout_s=5.0).start()
+    try:
+        addr = f"{c.address[0]}:{c.address[1]}"
+        deadline = time_mod.monotonic() + 10.0
+        st = {}
+        while time_mod.monotonic() < deadline:
+            # raw=True returns the per-rank snapshots (--json's shape);
+            # the default reply carries ONLY the exposition text
+            st = fleet_status.request(addr, {"cmd": "metrics",
+                                             "raw": True})
+            if {"0", "1"} <= set(st.get("ranks") or {}):
+                break
+            time_mod.sleep(0.05)
+        assert {"0", "1", "coord"} <= set(st["ranks"]), list(st["ranks"])
+        assert "openmetrics" not in st  # one representation per reply
+        text_reply = fleet_status.request(addr, {"cmd": "metrics"})
+        assert "ranks" not in text_reply
+        doc = openmetrics.parse(text_reply["openmetrics"])
+        samples = doc["cylon_tpu_test_fleet_probe_total"]["samples"]
+        ranks = {lab["rank"] for _, lab, v in samples}
+        assert {"0", "1"} <= ranks
+        # CLI: --openmetrics prints the exposition text
+        rc = fleet_status.main([addr, "--openmetrics"])
+        assert rc == 0
+        out = capsys.readouterr().out
+        openmetrics.parse(out)
+        # --max-reply-bytes degrade: a tiny cap warns instead of the
+        # historical hard ConnectionError; a one-chunk reply still
+        # parses (truncation only bites replies spanning reads)
+        rc = fleet_status.main([addr, "--openmetrics",
+                                "--max-reply-bytes", "64"])
+        err = capsys.readouterr().err
+        assert "WARNING" in err and "max-reply-bytes" in err
+        # parseable one-chunk reply (rc 0, warned) vs a genuinely
+        # truncated multi-read reply (rc 3 — distinct from rc 1
+        # "unreachable": the coordinator DID answer)
+        assert rc in (0, 3)
+    finally:
+        a0.leave()
+        a1.leave()
+        c.stop()
+
+
+def test_metrics_pruned_with_dead_rank():
+    import time as time_mod
+
+    from cylon_tpu_torch import elastic
+    from cylon_tpu_torch.net import control
+
+    c = elastic.Coordinator(2, heartbeat_timeout_s=5.0).start()
+    a0 = elastic.Agent(c.address, 0, interval_s=0.05,
+                       timeout_s=5.0).start()
+    a1 = elastic.Agent(c.address, 1, interval_s=0.05,
+                       timeout_s=5.0).start()
+    try:
+        deadline = time_mod.monotonic() + 10.0
+        while time_mod.monotonic() < deadline:
+            resp = control.request(c.address,
+                                   {"cmd": "metrics", "raw": True})
+            if {"0", "1"} <= set(resp.get("ranks") or {}):
+                break
+            time_mod.sleep(0.05)
+        a1.leave()  # clean death: rank 1's metrics must leave the view
+        deadline = time_mod.monotonic() + 10.0
+        while time_mod.monotonic() < deadline:
+            resp = control.request(c.address,
+                                   {"cmd": "metrics", "raw": True})
+            if "1" not in (resp.get("ranks") or {}):
+                break
+            time_mod.sleep(0.05)
+        assert "1" not in resp["ranks"], list(resp["ranks"])
+        assert "0" in resp["ranks"]
+    finally:
+        a0.leave()
+        c.stop()
+
+
 def test_profile_waits_name_their_item():
-    """The cases that wait are test_profile.py's own, and each names its
-    ROADMAP item."""
+    """Every case of test_profile.py is ported here under its own name:
+    none waits."""
     import ast
 
     with open(os.path.join(REPO, "tests", "test_profile.py")) as f:
@@ -632,6 +721,4 @@ def test_profile_waits_name_their_item():
                  if isinstance(n, ast.FunctionDef)
                  and n.name.startswith("test_")}
     ported = {n for n in globals() if n.startswith("test_")}
-    assert set(WAITING) <= names
-    assert names <= set(WAITING) | ported, names - set(WAITING) - ported
-    assert set(WAITING.values()) == {"A11b"}
+    assert names <= ported, names - ported

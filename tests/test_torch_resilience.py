@@ -82,19 +82,41 @@ def test_env_fault_plan_and_journal_kinds():
     with pres.fault_plan("d@1=delay") as plan:
         t0 = time.perf_counter()
         pres.fault_point("d")  # sleeps, raises nothing
-        assert time.perf_counter() - t0 >= pres.FAULT_DELAY_S
+        assert time.perf_counter() - t0 >= pres.fault_delay_s()
     assert plan.fired == [("d", "delay", 1)]
 
 
-@pytest.mark.parametrize("kind", sorted(set(rres.FAULT_KINDS)
-                                        - set(pres.FAULT_KINDS)))
+@pytest.mark.parametrize("kind", ["delay", "coord_slow", "replica_sick"])
+def test_fault_delay_knob_drives_the_sleeping_kinds(kind):
+    """``CYLON_TPU_FAULT_DELAY_S`` (read per hit, so a worker's
+    environment sets it) is how long the three sleeping kinds stall
+    their probe before it continues; both packages read it alike."""
+    with pconfig.knob_env(CYLON_TPU_FAULT_DELAY_S="0.05"):
+        assert pres.fault_delay_s() == rres.fault_delay_s() == 0.05
+        with pres.fault_plan(f"s@1={kind}") as plan:
+            t0 = time.perf_counter()
+            pres.fault_point("s")
+            assert time.perf_counter() - t0 >= 0.05
+        assert plan.fired == [("s", kind, 1)]
+    with pconfig.knob_env(CYLON_TPU_FAULT_DELAY_S="-1"):
+        assert pres.fault_delay_s() == 0.0
+
+
+@pytest.mark.parametrize("kind", ["coord_partition", "coord_slow",
+                                  "coordinator_loss", "coordinator_restart",
+                                  "heartbeat_loss", "rank_kill",
+                                  "replica_sick"])
 def test_unported_fault_kinds_are_refused(kind):
-    """Every kind of the reference's grammar the port lacks names the
-    ROADMAP item that brings the module it acts on (11b: the gang, its
-    coordinator and the router)."""
-    with pytest.raises(CylonError, match=r"item 11b\)") as e:
-        pres.FaultPlan.parse(f"pass_dispatch@1={kind}")
-    assert e.value.code == Code.NotImplemented
+    """The gang's, the control plane's and the router's kinds parse as
+    the reference's do, with its messages; an unknown kind is still
+    refused, classified Invalid."""
+    spec = f"pass_dispatch@2+={kind}"
+    assert _rules(pres.FaultPlan.parse(spec)) == \
+        _rules(rres.FaultPlan.parse(spec))
+    assert pres._KIND_MESSAGES[kind] == rres._KIND_MESSAGES[kind]
+    with pytest.raises(CylonError) as e:
+        pres.FaultPlan.parse(f"pass_dispatch@1={kind}x")
+    assert e.value.code == Code.Invalid
 
 
 @pytest.mark.parametrize("jitter,seed", [("none", 0), ("full", 0),

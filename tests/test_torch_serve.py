@@ -706,9 +706,17 @@ def test_per_tenant_slo_latency_histograms():
     assert tel["tenants"]["slo-b"]["served"] == 1
     with QueryService(ctx=CPU) as svc2:
         assert svc2.telemetry()["tenants"] == {}
-        with pytest.raises(CylonError, match="11b") as ei:
-            svc2.attach_to_agent(object())
-        assert ei.value.code == Code.NotImplemented
+
+        class _Agent:
+            rank = 3
+            fn = None
+
+            def attach_telemetry(self, fn):
+                self.fn = fn
+
+        agent = _Agent()
+        assert svc2.attach_to_agent(agent) is svc2
+        assert agent.fn() == svc2.telemetry()
     obs_metrics.reset()
 
 

@@ -16,9 +16,8 @@ root, except in the cross-package case, where a log the reference
 appended replays in the port (both fingerprints of the batch log are
 knob-blind and keyed alike).
 
-``test_stream.py``'s case that waits for a later item (``WAITING``): the
-router's hedging gate (A11b); the serve path of that case runs here in
-``test_serve_refresh_op_and_cache_hit``.
+Every case of ``test_stream.py`` has a counterpart here under its own
+name.
 """
 import hashlib
 import json
@@ -44,9 +43,6 @@ from .torch_parity import assert_frames_equal
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = CylonContext.Init("cpu")
-
-#: cases of tests/test_stream.py that wait for a later ROADMAP item
-WAITING = {"test_serve_refresh_op_cache_and_hedge_safety": "A11b"}
 
 
 def _digest(frame) -> str:
@@ -428,8 +424,8 @@ def test_pinned_stream_state_survives_gc(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_serve_refresh_op_and_cache_hit(tmp_path):
-    """The serve path of ``test_serve_refresh_op_cache_and_hedge_safety``
-    (its router half waits for A11b): a spec submitted to the service
+    """The serve path against the reference's: a spec submitted to the
+    service
     rebuilds the stream from the journal on the service's device, a
     repeat at an unchanged watermark is a result-cache hit, and a fresh
     ``run_refresh`` of the spec replays it."""
@@ -468,6 +464,34 @@ def test_serve_refresh_op_and_cache_hit(tmp_path):
     _same_as_ref(frame, want)
 
 
+def test_serve_refresh_op_cache_and_hedge_safety(tmp_path):
+    """``refresh`` is a hedge-safe op of the router (its literal twin of
+    the service's ops, as the reference's), and a repeated refresh at an
+    unchanged watermark is a result-cache hit bit for bit, the contract
+    that makes a hedged duplicate harmless on any replica sharing the
+    journal."""
+    from cylon_tpu.router.service import HEDGE_SAFE_OPS as RHEDGE
+    from cylon_tpu_torch.router.service import HEDGE_SAFE_OPS
+    from cylon_tpu_torch.serve.service import OPS, QueryService
+
+    assert "refresh" in OPS and "refresh" in HEDGE_SAFE_OPS
+    assert HEDGE_SAFE_OPS == frozenset(OPS) == RHEDGE
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path)):
+        s = StreamTable("served")
+        for b in _batches(seed=31):
+            s.append(b)
+        spec = {"kind": "groupby", "stream": "served", "by": ["k"],
+                "agg": {"v": ["sum", "count"]}}
+        with QueryService(ctx=CPU) as svc:
+            frame, stats = svc.submit("tenant-a", "refresh", spec).result(
+                timeout=300)
+            assert stats["watermark"] == 3 and stats["parts_run"] >= 1
+            tk2 = svc.submit("tenant-b", "refresh", spec)
+            frame2, _ = tk2.result(timeout=300)
+            assert tk2.cache_hit
+            _assert_bit_identical(frame2, frame)
+
+
 # ---------------------------------------------------------------------------
 # observability surfaces
 # ---------------------------------------------------------------------------
@@ -494,8 +518,8 @@ def test_explain_refresh_renders_decision(tmp_path):
 
 
 def test_stream_waits_name_their_item():
-    """The cases that wait are test_stream.py's own, each names its
-    ROADMAP item, and every other case has a counterpart here."""
+    """Every case of test_stream.py has a counterpart here: none
+    waits."""
     import ast
 
     with open(os.path.join(REPO, "tests", "test_stream.py")) as f:
@@ -503,6 +527,4 @@ def test_stream_waits_name_their_item():
                  if isinstance(n, ast.FunctionDef)
                  and n.name.startswith("test_")}
     ported = {n for n in globals() if n.startswith("test_")}
-    assert set(WAITING) <= names
-    assert names - set(WAITING) <= ported, names - set(WAITING) - ported
-    assert set(WAITING.values()) == {"A11b"}
+    assert names <= ported, names - ported

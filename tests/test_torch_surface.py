@@ -4,9 +4,7 @@
 signatures, and the port's twin of
 ``tests/test_join.py::test_join_config_parity``.
 
-Named exclusions: ``TPUConfig`` is the port's ``MeshConfig``;
-``ElasticConfig`` and ``CylonContext.elastic_agent`` wait for the elastic
-gang (ROADMAP A11b).
+Named renames: ``TPUConfig`` is the port's ``MeshConfig``.
 """
 import inspect
 import threading
@@ -22,9 +20,8 @@ from cylon_tpu.context import CylonContext as RefContext
 from cylon_tpu_torch import (CylonContext, JoinAlgorithm, JoinConfig,
                              JoinType, MeshConfig, Table)
 
-#: reference name -> the port's name for it, or None: waits for A11b
-RENAMED = {"TPUConfig": "MeshConfig", "ElasticConfig": None}
-CONTEXT_EXCLUDED = {"elastic_agent": "A11b"}
+#: reference name -> the port's name for it
+RENAMED = {"TPUConfig": "MeshConfig"}
 
 
 def _public(cls):
@@ -34,9 +31,6 @@ def _public(cls):
 @pytest.mark.parametrize("name", sorted(cylon_tpu.__all__))
 def test_top_level_names(name):
     port_name = RENAMED.get(name, name)
-    if port_name is None:  # a named exclusion: not in the port yet
-        assert name not in cylon_tpu_torch.__all__
-        return
     assert port_name in cylon_tpu_torch.__all__, name
     assert hasattr(cylon_tpu_torch, port_name), name
 
@@ -50,9 +44,6 @@ def test_top_level_imports():
 
 @pytest.mark.parametrize("member", _public(RefContext))
 def test_context_members(member):
-    if member in CONTEXT_EXCLUDED:
-        assert not hasattr(CylonContext, member)
-        return
     assert hasattr(CylonContext, member), member
 
 
@@ -159,3 +150,21 @@ def test_next_sequence_is_locked():
     for t in threads:
         t.join()
     assert sorted(seen) == list(range(1, 801))
+
+
+def test_elastic_config_signature_and_context():
+    """``ElasticConfig`` takes the reference's parameters, is a
+    ``MeshConfig``, and a context without a coordinator refuses it."""
+    from cylon_tpu.context import ElasticConfig as RefElastic
+    from cylon_tpu_torch import CylonError, ElasticConfig
+    from cylon_tpu_torch import config as pconfig
+
+    assert list(inspect.signature(ElasticConfig).parameters) == \
+        list(inspect.signature(RefElastic).parameters)
+    cfg = ElasticConfig(3, devices=["cpu"])
+    assert isinstance(cfg, MeshConfig) and cfg.rank == 3
+    assert cfg.coordinator is None
+    with pconfig.knob_env(CYLON_TPU_ELASTIC_COORD=None):
+        with pytest.raises(CylonError, match="CYLON_TPU_ELASTIC_COORD"):
+            CylonContext.InitDistributed(cfg)
+    assert CylonContext.Init("cpu").elastic_agent() is None

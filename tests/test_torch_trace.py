@@ -13,8 +13,8 @@ exported trace must read in the repo's stdlib tools
 critical-path cases feed the tool synthetic events through the port's
 ``export.load_trace``.
 
-``test_trace.py``'s case that waits for a later item (``WAITING``): the
-trace across an elastic barrier (A11b).
+Every case of ``test_trace.py`` has a counterpart here, the trace across
+an elastic barrier included.
 """
 import json
 import os
@@ -27,7 +27,7 @@ import pytest
 from cylon_tpu.obs import openmetrics as ropenmetrics
 from cylon_tpu.obs import tracectx as rtracectx
 from cylon_tpu_torch import (CylonContext, MeshConfig, Table, config,
-                             durable)
+                             durable, elastic)
 from cylon_tpu_torch.net import control
 from cylon_tpu_torch.obs import export as obs_export
 from cylon_tpu_torch.obs import fleet as obs_fleet
@@ -43,8 +43,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAIT_S = 180.0
 CPU = CylonContext.Init("cpu")
 
-#: cases of tests/test_trace.py that wait for a later ROADMAP item
-WAITING = {"test_barrier_propagates_trace_across_ranks": "A11b"}
+#: elastic control-plane cadence of the barrier case (as test_trace.py's)
+HB = dict(interval_s=0.05, timeout_s=0.5, reconnect_s=0.0)
+HB_TIMEOUT = 0.4
 
 
 @pytest.fixture()
@@ -667,9 +668,64 @@ def test_trace_sync_fences_only_where_cuda_ran(clean_trace, monkeypatch):
     assert len(calls) == 2
 
 
+# -- propagation across an elastic barrier (the coordinator wire) ------
+
+def test_barrier_propagates_trace_across_ranks(clean_trace):
+    """Rank 0 arrives at a rendezvous carrying a request context; the
+    coordinator latches it, stamps its rendezvous bookkeeping with it,
+    and echoes it to rank 1 — which arrived with NO context and adopts
+    the requester's trace."""
+    c = elastic.Coordinator(2, heartbeat_timeout_s=HB_TIMEOUT).start()
+    addr = f"{c.address[0]}:{c.address[1]}"
+    agents = [elastic.Agent(addr, r, **HB).start() for r in range(2)]
+    ctx = tracectx.new_trace()
+    try:
+        for a in agents:
+            a.wait_formed()
+        epoch = agents[0].view().epoch
+        with config.knob_env(CYLON_TPU_TRACE="1"):
+            results = {}
+
+            def other():  # rank 1: no context of its own
+                results[1] = agents[1].barrier("b1", epoch)
+
+            th = threading.Thread(target=other, daemon=True)
+            th.start()
+            with tracectx.activate(ctx):
+                agents[0].barrier("b1", epoch)
+            th.join(WAIT_S)
+            assert 1 in results, "rank 1 never left the barrier"
+        # rank 1 adopted the requester's trace over the wire
+        adopted = agents[1].barrier_trace
+        assert adopted is not None
+        assert adopted.trace_id == ctx.trace_id
+        # the coordinator's rendezvous bookkeeping joined the trace too
+        skew = [e for e in obs_spans.events()
+                if e.name == "collective.skew"]
+        assert skew and skew[-1].attrs.get("trace_id") == ctx.trace_id
+        st = control.request(c.address, {"cmd": "status"})
+        assert st["collectives"][-1].get("trace_id") == ctx.trace_id
+        # the latch is per-rendezvous: a later UNTRACED rendezvous must
+        # not adopt the finished request's trace (stale adoption would
+        # stamp an unrelated run's spans with a closed request's id)
+        results.clear()
+        th2 = threading.Thread(
+            target=lambda: results.setdefault(
+                1, agents[1].barrier("b2", epoch)), daemon=True)
+        th2.start()
+        agents[0].barrier("b2", epoch)
+        th2.join(WAIT_S)
+        assert 1 in results, "rank 1 never left barrier b2"
+        assert agents[1].barrier_trace is None
+    finally:
+        for a in agents:
+            a.stop()
+        c.stop()
+
+
 def test_trace_waits_name_their_item():
-    """The cases that wait are test_trace.py's own, each names its
-    ROADMAP item, and every other case has a counterpart here."""
+    """Every case of test_trace.py has a counterpart here: none
+    waits."""
     import ast
 
     with open(os.path.join(REPO, "tests", "test_trace.py")) as f:
@@ -677,6 +733,4 @@ def test_trace_waits_name_their_item():
                  if isinstance(n, ast.FunctionDef)
                  and n.name.startswith("test_")}
     ported = {n for n in globals() if n.startswith("test_")}
-    assert set(WAITING) <= names
-    assert names - set(WAITING) <= ported, names - set(WAITING) - ported
-    assert set(WAITING.values()) == {"A11b"}
+    assert names <= ported, names - ported
