@@ -111,8 +111,9 @@ Phases, each of which fails the run on error:
    sweep), and the result must equal phase 3's numpy ``bincount`` oracle
    (keys and group count exact, SUM and MEAN within rtol 1e-5 of
    float64);
-3j. OOM refinement on the card with no injected fault: phase 3's 2^26-row
-   data through the engine at 2 and at 4 passes uncapped (each run's peak
+3j. OOM refinement on the card with no injected fault: ``bench.py`` data
+   at 2^25 rows per side (cut from phase 3's 2^26 for the script's time)
+   through the engine at 2 and at 4 passes uncapped (each run's peak
    reserved memory recorded), then at 2 passes with the caching allocator
    capped between the two peaks: it must split at least once and equal
    the uncapped run (keys and group count exact, sums and means rtol
@@ -176,7 +177,7 @@ Phases, each of which fails the run on error:
 3w. TPC-H Q10 and Q5 through the query planner
    (``pipeline.tpch_q10_plan``, ``tpch_q5_plan``) at SF-1 (cut from
    BASELINE config 4's SF-100 for the time) on SHARDS shards of the
-   in-process mesh, the tables drawn by ``examples/tpch_data.py``; each
+   in-process mesh, the tables drawn by the port's ``tpch_data``; each
    planned and eager (``CYLON_TPU_PLAN=0``): the first run with the
    counters and metrics zeroed around it (all three kernels must launch,
    at least one shuffle elided when planned), best-of-3 ms, exchanges and
@@ -263,6 +264,20 @@ Phases, each of which fails the run on error:
    replicas' breakers.  Per request it prints the route seconds, the
    replica, its run seconds and launches (from the children's records),
    and the wire bytes with the client's encode and decode seconds;
+3aa. the BASELINE example drivers (``cylon_tpu_torch/examples``) through
+   their own ``run`` functions on the card, each with its golden check
+   on, the launch counters zeroed just before each and read just after:
+   ``join_csv`` (2^19 rows per CSV, the join's row count against a numpy
+   ``bincount`` oracle), TPC-H Q1, Q3, Q6 and eager Q5 (SF-0.1 each), the
+   out-of-core Q5 chain (SF-1 in 4 passes, on 3w's tables and pandas
+   oracle), ``shuffle_bench.run`` (2^24 rows on SHARDS shards, per-shard
+   Parquet into a temporary directory), ``shuffle_bench.run_ooc`` (2^24
+   rows into 8 targets in 2 passes),
+   ``scaling`` (weak, 2^22 rows per shard, worlds 1, 2 and 4 on the one
+   card: the rung's overhead, not scaling across cards) and
+   ``etl_to_torch`` (2M events, 5,000 users, 50 Adam steps, a finite
+   loss); it prints each driver's record, wall seconds, launches and peak
+   device memory, and the phase must launch every kernel;
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -287,7 +302,7 @@ hash join's included), of the set ops, of the distributed sorts, of the
 string paths, of Q1, of a second out-of-core sweep (whose device busy
 share of its wall time is the engine's idle measure) and of a second run
 of 3m, 3o, 3p and 3q, of one 3v engine run and of each 3w query
-(planned), and a stage breakdown of one distributed run.  Phases 3i-3z
+(planned), and a stage breakdown of one distributed run.  Phases 3i-3aa
 run after phase 4, once the earlier phases' tensors are freed.
 """
 from __future__ import annotations
@@ -2302,7 +2317,11 @@ def _sorted_groups(res: dict):
     return [np.asarray(res[k])[order] for k in ("key", "agg0", "agg1")]
 
 
-def phase_oom_refinement(report: dict, rows: int = ROWS) -> None:
+# cut from ROWS for the script's time once 3aa came (PERF.md §4)
+OOM_ROWS = ROWS // 2
+
+
+def phase_oom_refinement(report: dict, rows: int = OOM_ROWS) -> None:
     """Phase 3j: a real device OOM refines the plan.  The engine at 2 and
     4 passes, uncapped, gives each run's peak reserved memory; then the
     caching allocator is capped between the two and 2 passes must split
@@ -3268,21 +3287,11 @@ TPCH_SF = 1.0  # cut from BASELINE config 4's SF-100 for the time (PERF.md §4)
 
 
 def _tpch_data(sf: float) -> dict:
-    """Q10's and Q5's tables as ``examples/tpch_data.py`` draws them
-    (imported: numpy only)."""
-    import numpy as np
+    """Q10's and Q5's tables as ``cylon_tpu_torch/examples/tpch_data.py``
+    draws them for Q5 (``tpch_q5.draw``, seed 0)."""
+    from cylon_tpu_torch.examples import tpch_q5
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from examples import tpch_data
-
-    rng = np.random.default_rng(0)
-    raw = {"c": tpch_data.customer(sf, rng), "o": tpch_data.orders(sf, rng)}
-    raw["l"] = tpch_data.lineitem(sf, rng, q5_keys=True,
-                                  orders_rows=len(raw["o"]["o_orderkey"]))
-    raw["s"] = tpch_data.supplier(sf, rng)
-    raw["n"] = tpch_data.nation()
-    raw["r"] = tpch_data.region()
-    return raw
+    return tpch_q5.draw(sf)
 
 
 def _tpch_oracles(raw: dict) -> dict:
@@ -3355,7 +3364,7 @@ def phase_planner(report: dict, profile: bool = False):
     bytes sent planned against eager; peak device memory.  Returns the
     Q10 plan (its tables stay on the card) for phases 3x and 3y, and for
     3y its pandas oracle and the host columns of lineitem and orders its
-    stream reads."""
+    stream reads, and for 3aa the host tables and the Q5 oracle."""
     import numpy as np
     import torch
 
@@ -3391,7 +3400,8 @@ def phase_planner(report: dict, profile: bool = False):
     serve_inputs = {
         "q10_oracle": oracles["q10"],
         "lineitem": {c: raw["l"][c] for c in SERVE_STREAM_COLUMNS},
-        "orders": {c: raw["o"][c] for c in SERVE_ORDERS_COLUMNS}}
+        "orders": {c: raw["o"][c] for c in SERVE_ORDERS_COLUMNS},
+        "raw": raw, "q5_oracle": oracles["q5"]}
     del raw
     for q, plan in plans.items():
         rec: dict = {}
@@ -5019,6 +5029,123 @@ def phase_fleet(report: dict, engine: dict) -> None:
     log(f"[3z] phase {out['seconds']:.1f} s, card {out['smi']}")
 
 
+# -- phase 3aa: the BASELINE example drivers ---------------------------------
+
+# Every scale below is the full preset's except where cut for the
+# script's time (PERF.md §4): host work leads each driver's wall, mostly
+# the upload of lineitem's two object-array flag columns (encoded per
+# cell on the host) and the pandas checks
+EXAMPLE_JOIN_ROWS = 1 << 19  # rows per CSV, cut from 5M: writing is host-bound
+EXAMPLE_Q1_SF = 0.1  # Q1, Q6 and eager Q5, cut from SF-1
+EXAMPLE_Q3_SF = 0.1  # cut from SF-0.5
+EXAMPLE_Q5_OOC_PASSES = 4  # SF-1 (3w's tables) in 4 passes, cut from SF-10
+EXAMPLE_SHUFFLE_ROWS = 1 << 24  # cut from 2^27 (the Parquet egress)
+# 2^23 rows per pass, cut from the full preset's 2^26 (2^30 in 16); 3p
+# already runs 2^30 rows
+EXAMPLE_SHUFFLE_OOC = dict(rows=1 << 24, world=8, passes=2)
+EXAMPLE_SCALING_ROWS = 1 << 22  # rows per shard, weak
+EXAMPLE_ETL = dict(events=2_000_000, users=5_000, steps=50)
+
+
+def _join_csv_oracle(rows: int, seed: int = 0) -> int:
+    """Inner-join rows of ``join_csv``'s two files: its keys drawn again
+    from the seed, per key the product of the two sides' counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = []
+    for _ in range(2):
+        counts.append(np.bincount(rng.integers(0, rows, rows),
+                                  minlength=rows))
+        rng.random(rows)
+    return int((counts[0] * counts[1]).sum())
+
+
+def phase_examples(report: dict, tpch: dict) -> None:
+    """Phase 3aa: each BASELINE example driver of
+    ``cylon_tpu_torch/examples`` through its ``run`` on the card, with
+    its golden check on; the launch counters zeroed just before each and
+    read just after; every kernel must launch in the phase.  ``tpch``
+    holds 3w's SF-1 host tables and Q5 oracle, which the out-of-core Q5
+    chain reuses (the same draw: seed 0, Q5's order)."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cylon_tpu_torch.examples import (etl_to_torch, join_csv, scaling,
+                                          shuffle_bench, tpch_q1, tpch_q3,
+                                          tpch_q5, tpch_q6)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cylon_examples_")
+    raw, golden = tpch["raw"], tpch["q5_oracle"]
+    runs = (
+        ("join_csv", lambda: join_csv.run(EXAMPLE_JOIN_ROWS)),
+        ("tpch_q1", lambda: tpch_q1.run(EXAMPLE_Q1_SF)),
+        ("tpch_q3", lambda: tpch_q3.run(EXAMPLE_Q3_SF)),
+        ("tpch_q6", lambda: tpch_q6.run(EXAMPLE_Q1_SF)),
+        ("tpch_q5", lambda: tpch_q5.run(EXAMPLE_Q1_SF)),
+        ("tpch_q5_ooc", lambda: tpch_q5.run_ooc(
+            TPCH_SF, passes=EXAMPLE_Q5_OOC_PASSES, check=True, raw=raw,
+            golden=golden)),
+        # SHARDS shards: on one shard Table.shuffle returns its input
+        ("shuffle", lambda: shuffle_bench.run(
+            EXAMPLE_SHUFFLE_ROWS, world=SHARDS,
+            out_dir=os.path.join(tmp, "shuffle"))),
+        ("shuffle_ooc", lambda: shuffle_bench.run_ooc(
+            **EXAMPLE_SHUFFLE_OOC, out_dir=os.path.join(tmp, "ooc"))),
+        ("scaling", lambda: scaling.run(EXAMPLE_SCALING_ROWS, "weak",
+                                        max_world=SHARDS)),
+        ("etl_to_torch", lambda: etl_to_torch.run(**EXAMPLE_ETL)),
+    )
+    out: dict = {"drivers": {}}
+    try:
+        for name, fn in runs:
+            torch.cuda.synchronize()
+            _reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rec = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d = {"record": rec, "wall_s": wall, "launches": _launch_counts(),
+                 "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            out["drivers"][name] = d
+            log(f"[3aa] {name}: wall {wall:.2f} s, launches "
+                f"{d['launches']}, peak "
+                f"{d['peak_device_bytes'] / 2**30:.2f} GiB; record "
+                f"{json.dumps(rec)}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    drivers = out["drivers"]
+    want = _join_csv_oracle(EXAMPLE_JOIN_ROWS)
+    if drivers["join_csv"]["record"]["out_rows"] != want:
+        raise AssertionError(f"3aa join_csv: {drivers['join_csv']['record']}"
+                             f" against the oracle's {want} rows")
+    worlds = [r["world"] for r in drivers["scaling"]["record"]]
+    if worlds != [1, 2, SHARDS] or not all(
+            r[k] > 0 for r in drivers["scaling"]["record"]
+            for k in ("shuffle_rows_per_sec", "join_rows_per_sec",
+                      "groupby_rows_per_sec")):
+        raise AssertionError(f"3aa scaling: {drivers['scaling']['record']}")
+    if not math.isfinite(drivers["etl_to_torch"]["record"]["final_loss"]):
+        raise AssertionError("3aa etl_to_torch: the loss is not finite")
+    totals = {k: sum(d["launches"].get(k, 0) for d in drivers.values())
+              for k in KERNELS}
+    if min(totals.values()) < 1:
+        raise AssertionError(f"3aa did not launch every kernel: {totals}")
+    out["launches"] = totals
+    out["seconds"] = time.perf_counter() - t_phase
+    out["smi"] = smi_line()
+    report["examples"] = out
+    log(f"[3aa] launches over the phase {totals}; phase "
+        f"{out['seconds']:.1f} s, card {out['smi']}")
+
+
 def _segmented_inputs(tables, out_cap):
     """The segmented scan's inputs on the main path: the join output's
     masked SUM column and its group boundaries, built as
@@ -5307,7 +5434,7 @@ def main(argv=None) -> int:
         _clocked(phase_ooc_repartition, report, data, profile=args.profile)
         del data
         _clocked(phase_ooc_distributed, report, profile=args.profile)
-        _clocked(phase_oom_refinement, report)
+        _clocked(phase_oom_refinement, report, OOM_ROWS)
         _clocked(phase_oneshot_fallback, report)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5316,11 +5443,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         _clocked(phase_ooc_group, report, profile=args.profile)
         q10, tpch = _clocked(phase_planner, report, profile=args.profile)
+        examples_in = {k: tpch.pop(k) for k in ("raw", "q5_oracle")}
         engine = _clocked(phase_durable, report, q10)
         _clocked(phase_serve, report, q10, tpch, engine)
         del q10, tpch
         _clocked(phase_fleet, report, engine)
         del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        _clocked(phase_examples, report, examples_in)
+        del examples_in
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
@@ -5350,6 +5482,9 @@ def main(argv=None) -> int:
             r["launches_fleet"] = {
                 part: v.get(r["name"], 0) for part, v in
                 report["fleet"]["launches_fleet"].items()}
+            r["launches_examples"] = {
+                name: v["launches"].get(r["name"], 0) for name, v in
+                report["examples"]["drivers"].items()}
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:

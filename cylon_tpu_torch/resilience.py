@@ -500,8 +500,7 @@ class FaultSchedule:
         """Add one event: fire ``kind`` on a hit of ``site`` drawn from
         ``[nth, nth+jitter]`` by the schedule's seed.  Returns self for
         chaining.  The kind is checked now, by `FaultPlan.parse`: an
-        unknown kind is `Code.Invalid`, one of a module not ported yet
-        `Code.NotImplemented`."""
+        unknown kind is `Code.Invalid`."""
         FaultPlan.parse(f"{site}@1={kind}")
         self._events.append((site, kind, int(nth), int(jitter),
                              bool(persistent)))

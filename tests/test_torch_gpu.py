@@ -914,7 +914,7 @@ def test_cuda_shards_refuse_a_gloo_group(gen):
 def _tpch_q10_tables(ctx, sf: float):
     """Q10's four tables drawn by ``examples/tpch_data.py`` on ``ctx``."""
     from cylon_tpu_torch import Table
-    from examples import tpch_data
+    from cylon_tpu_torch.examples import tpch_data
 
     rng = np.random.default_rng(0)
     raw = [tpch_data.customer(sf, rng), tpch_data.orders(sf, rng)]
@@ -1189,3 +1189,45 @@ def test_elastic_gang_on_the_card_survives_a_kill(gen, tmp_path):
     assert list(got) == list(base)
     for k in base:
         assert np.array_equal(got[k].view(np.uint8), base[k].view(np.uint8)), k
+
+
+#: driver -> (module of cylon_tpu_torch.examples, function, arguments)
+EXAMPLE_RUNS = {
+    "join_csv": ("join_csv", "run", dict(rows=5_000, world=4)),
+    "tpch_q1": ("tpch_q1", "run", dict(sf=0.003, world=4)),
+    "tpch_q3": ("tpch_q3", "run", dict(sf=0.004, world=4)),
+    "tpch_q6": ("tpch_q6", "run", dict(sf=0.02, world=4)),
+    "tpch_q10": ("tpch_q10", "run", dict(sf=0.004, world=4,
+                                         compare_eager=True)),
+    "tpch_q5": ("tpch_q5", "run", dict(sf=0.004, world=4)),
+    "tpch_q5_plan": ("tpch_q5", "run_plan", dict(sf=0.004, world=4)),
+    "tpch_q5_ooc": ("tpch_q5", "run_ooc", dict(sf=0.01, passes=3,
+                                               check=True)),
+    "shuffle": ("shuffle_bench", "run", dict(rows=20_000, reps=1, world=4)),
+    "shuffle_ooc": ("shuffle_bench", "run_ooc", dict(rows=1 << 16, world=4,
+                                                     passes=2)),
+    "scaling": ("scaling", "run", dict(rows_per_shard=4_000, mode="weak",
+                                       max_world=4)),
+    "etl_to_torch": ("etl_to_torch", "run", dict(events=10_000, users=500,
+                                                 steps=5, world=4)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("driver", sorted(EXAMPLE_RUNS))
+def test_example_driver_on_the_card(gen, driver):
+    """Each BASELINE example driver of the port, tiny, on the card (4
+    shards where the driver takes a world), its own pandas check on:
+    it must launch the hand kernels.  Q6 is a filter and a scalar sum,
+    which reach none of them: it must only run."""
+    import importlib
+
+    module, fn, kwargs = EXAMPLE_RUNS[driver]
+    run = getattr(importlib.import_module(
+        f"cylon_tpu_torch.examples.{module}"), fn)
+    scan.reset_launches()
+    hash_kernels.reset_launches()
+    assert run(**kwargs)
+    launches = {**scan.LAUNCHES, **hash_kernels.LAUNCHES}
+    if driver != "tpch_q6":
+        assert sum(launches.values()) > 0, launches
