@@ -278,6 +278,18 @@ Phases, each of which fails the run on error:
    ``etl_to_torch`` (2M events, 5,000 users, 50 Adam steps, a finite
    loss); it prints each driver's record, wall seconds, launches and peak
    device memory, and the phase must launch every kernel;
+3ab. the port's cylint (``cylon_tpu_torch/analysis``) on the card, the
+   launch counters zeroed just before: (a) the seven collective-budget
+   entries at the canonical grid (world 4, shard capacity 64, six
+   columns) on SHARDS shards of the card, whose mesh collective counts
+   must equal the committed goldens (written on the CPU) exactly, each
+   entry's hand-kernel launches printed (the goldens' process-group
+   counts need two processes, which one card cannot group over NCCL:
+   the CPU tests and the CLI hold those); (b) the serve/elastic/router smoke with
+   its ``QueryService`` on the card under the lock recorder: every
+   observed lock-order edge must be in the committed golden and in the
+   static lock graph; (c) the AST and concurrency scan of the package: no
+   finding;
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -5146,6 +5158,86 @@ def phase_examples(report: dict, tpch: dict) -> None:
         f"{out['seconds']:.1f} s, card {out['smi']}")
 
 
+def phase_cylint(report: dict, device: str = "cuda") -> None:
+    """Phase 3ab: the port's cylint on the card (see the module doc).
+    ``device="cpu"`` rehearses it off the card.  Any finding fails the
+    run; nothing falls back to the CPU."""
+    import torch
+
+    from cylon_tpu_torch.analysis import astlint, budgets, locks
+    from cylon_tpu_torch.context import CylonContext
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def fail(part: str, found) -> None:
+        raise AssertionError(f"3ab ({part}): " + "\n".join(
+            f.render() for f in found))
+
+    t_phase = time.perf_counter()
+    out: dict = {"budgets": {}}
+    # (a) each entry on its own, the package's launch counters around it
+    t0 = time.perf_counter()
+    traced = {}
+    for name in budgets.ENTRIES:
+        sync()
+        _reset_launches()
+        # the mesh's counts; the group's (CPU processes over gloo: one
+        # card holds no two-rank NCCL group) are the CPU tests' and CLI's
+        traced.update(budgets.trace_budgets([name], device=device,
+                                            group=False))
+        sync()
+        launches = _launch_counts()
+        out["budgets"][name] = {"realizations": traced[name],
+                                "launches": launches}
+        for real, counts in traced[name].items():
+            log(f"[3ab] budget {name}/{real}: collectives "
+                f"{ {k: v for k, v in counts['collectives'].items() if v} }"
+                f", hand-kernel calls "
+                f"{ {k: v for k, v in counts['informational'].items() if v} }")
+        log(f"[3ab] budget {name}: kernel launches {launches}")
+    found = budgets.check_budgets(traced=traced, group=False)
+    if found:
+        fail("a", found)
+    out["budgets_seconds"] = time.perf_counter() - t0
+    # (b) the lock-graph smoke, the service on the card
+    t0 = time.perf_counter()
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "cylon_tpu_torch")
+    modules = astlint.parse_paths([pkg])  # parsed once for (b) and (c)
+    static = locks.static_edges(locks.build_inventory(modules))
+    observed = locks.smoke_observed(CylonContext.Init(device))
+    found = locks.check_lockgraph(observed, static)
+    if found:
+        fail("b", found)
+    if not observed:
+        raise AssertionError("3ab (b): the smoke observed no lock-order edge")
+    out["lockgraph"] = {"observed": sorted(map(list, observed)),
+                        "static_edges": len(static),
+                        "seconds": time.perf_counter() - t0}
+    log(f"[3ab] lock graph: {len(observed)} observed edges, all in the "
+        f"golden and the {len(static)}-edge static graph "
+        f"({out['lockgraph']['seconds']:.1f} s)")
+    # (c) the scan of the package
+    t0 = time.perf_counter()
+    found = astlint.scan_modules(modules)
+    if found:
+        fail("c", found)
+    out["scan"] = {"modules": len(modules),
+                   "seconds": time.perf_counter() - t0}
+    out["launches"] = {k: sum(e["launches"].get(k, 0)
+                              for e in out["budgets"].values())
+                       for k in KERNELS}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["smi"] = smi_line() if device != "cpu" else "cpu"
+    report["cylint"] = out
+    log(f"[3ab] budgets {out['budgets_seconds']:.1f} s, scan of "
+        f"{len(modules)} modules clean ({out['scan']['seconds']:.1f} s); "
+        f"launches {out['launches']}; phase {out['seconds']:.1f} s, card "
+        f"{out['smi']}")
+
+
 def _segmented_inputs(tables, out_cap):
     """The segmented scan's inputs on the main path: the join output's
     masked SUM column and its group boundaries, built as
@@ -5453,6 +5545,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         _clocked(phase_examples, report, examples_in)
         del examples_in
+        gc.collect()
+        torch.cuda.empty_cache()
+        _clocked(phase_cylint, report)
         ooc = report["out_of_core"]["sweeps"]
         for r in kernels:
             r["launches_out_of_core"] = [s["launches"].get(r["name"], 0)
@@ -5485,6 +5580,9 @@ def main(argv=None) -> int:
             r["launches_examples"] = {
                 name: v["launches"].get(r["name"], 0) for name, v in
                 report["examples"]["drivers"].items()}
+            r["launches_cylint"] = {
+                name: v["launches"].get(r["name"], 0) for name, v in
+                report["cylint"]["budgets"].items()}
         report["kernels"] = kernels
         report["wall_s"] = time.perf_counter() - t_start
     except Exception:

@@ -31,8 +31,8 @@ BUILD_INFO: Dict[str, Tuple[float, str]] = {}
 
 
 def nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
+    home = (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")  # cylint: disable=CY102 -- the CUDA toolkit's own location variables (CUDA_HOME, CUDA_PATH), not CYLON_TPU_* knobs
+            or "/usr/local/cuda")
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)

@@ -1017,7 +1017,7 @@ def _corrupt_last_spill() -> None:
                 path, size // 2)
 
 
-def _bitrot_last_run(hit: int = 0) -> None:
+def _bitrot_last_run(hit: int = 0) -> None:  # cylint: disable=CY117 -- deliberate fault injector: flips a spill byte to MANUFACTURE the bitrot CY117 guards against; verifying a checksum here would defeat the test hook
     """Test hook behind the ``bitrot`` fault kind: XOR-flip ONE
     mid-file byte of a committed spill in the most recently opened run —
     the silent-decay failure the scrubber and read-repair exist to catch

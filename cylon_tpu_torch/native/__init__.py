@@ -292,7 +292,7 @@ class MemoryPool:
     def __del__(self):
         try:
             self.close()
-        except Exception:  # __del__ runs at interpreter teardown: never raise
+        except Exception:  # cylint: disable=CY105 -- __del__ runs during interpreter teardown; raising here aborts GC and no Status consumer exists
             pass
 
 

@@ -39,7 +39,8 @@ kernel's own contract says (``pallas_scan.py:26-31``).
 
 A wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts the
-wrappers' kernel launches, one per call.
+wrappers' kernel launches, one per call; ``CALLS`` counts their calls,
+kernel or plain version (the cylint budgets read it).
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ _DTYPE_CODE = {torch.int32: 0, torch.float32: 1, torch.uint32: 2}
 SCAN_1D_TILE = 4096  # kLbTile in cuda/scan.cu
 
 LAUNCHES = {"scan_1d": 0, "segmented_scan": 0}
+CALLS = {"scan_1d": 0, "segmented_scan": 0}
 
 
 def reset_launches() -> None:
@@ -198,6 +200,7 @@ def scan_1d(x: torch.Tensor, op: str, reverse: bool = False) -> torch.Tensor:
     """Inclusive scan (cumsum / cummin / cummax) of 1-D 32-bit ``x``;
     ``reverse=True`` scans right to left."""
     _validate(x, op)
+    CALLS["scan_1d"] += 1
     if x.shape[0] == 0:
         return x.clone()
     if x.device.type == "cpu":
@@ -219,6 +222,7 @@ def segmented_scan(x: torch.Tensor, reset: torch.Tensor,
             or reset.device != x.device:
         raise ValueError("segmented_scan: reset must be a bool tensor of "
                          "x's shape on x's device")
+    CALLS["segmented_scan"] += 1
     if x.shape[0] == 0:
         return x.clone()
     if x.device.type == "cpu":

@@ -21,6 +21,11 @@ torch's unsigned 32/64-bit types).  Results are those of the
 one-process mesh of the same world, bit for bit: a float sum gathers the
 per-shard partials and folds them in global shard order, as one process
 would.
+
+``LAUNCHES`` counts each family's launches, one per call that moves data:
+over a group its one torch collective, in one process its copies or fold
+between the shards (``process_allgather`` without a group moves nothing
+and counts nothing).  The cylint budgets read it.
 """
 from __future__ import annotations
 
@@ -29,6 +34,14 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+
+LAUNCHES = {"allgather": 0, "process_allgather": 0, "allreduce_sum": 0,
+            "allreduce_min": 0, "allreduce_max": 0, "all_to_all": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -55,6 +68,7 @@ def allgather(xs: Sequence[torch.Tensor], devices: Sequence[torch.device],
     """Every shard receives the concatenation, in global shard order, of
     every shard's tensor along dim 0.  Across processes every shard's
     tensor must have one shape."""
+    LAUNCHES["allgather"] += 1
     if group is None:
         return [torch.cat([x.to(dev) for x in xs]) for dev in devices]
     local = torch.cat([x.to(group.device) for x in xs])
@@ -70,10 +84,12 @@ def process_allgather(x: np.ndarray, group) -> np.ndarray:
     x = np.ascontiguousarray(x)
     if group is None:
         return x
+    LAUNCHES["process_allgather"] += 1
     return _gather_across(torch.from_numpy(x), group).cpu().numpy()
 
 
 def _allreduce(xs, devices, fn, op, group) -> List[torch.Tensor]:
+    LAUNCHES[f"allreduce_{op}"] += 1
     acc = xs[0]
     for x in xs[1:]:
         acc = fn(acc, x.to(acc.device))
@@ -134,6 +150,7 @@ def all_to_all(send: Sequence[torch.Tensor], send_sizes: np.ndarray,
             raise ValueError(f"all_to_all: shard {first + j} receives "
                              f"{int(recv_total[first + j])} rows into "
                              f"{out[j].shape[0]}")
+    LAUNCHES["all_to_all"] += 1
     if group is not None:
         return _all_to_all_across(send, sizes, in_off, out, group)
     for d in range(world):

@@ -297,7 +297,10 @@ class ReplicaServer:
                     "classified": wire.classified(e)}
         return {"ok": True, "state": "done", "result": result,
                 "stats": wire.jsonable(ticket.stats or {}),
-                "cache_hit": bool(ticket.cache_hit)}
+                "cache_hit": bool(ticket.cache_hit),
+                # how long it sat admitted before it ran: load, which the
+                # router's health breaker must not read as sickness
+                "queue_wait_s": ticket.queue_wait_s}
 
     def _handle_cancel(self, req: Dict) -> Dict:
         """Cancel by ``req_id`` OR by idempotency ``token`` — the token

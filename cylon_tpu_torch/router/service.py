@@ -879,8 +879,14 @@ class QueryRouter(Coordinator):
         """First terminal ticket wins: cancel every loser (the serve
         layer stops it at a pass boundary), strike its replica's breaker
         (losing to a hedge is the latency-inflation signal), and feed
-        the winner's latency into the fingerprint's hedge clock."""
+        the winner's latency into the fingerprint's hedge clock.  The
+        breaker judges the winner's SERVICE time: the time it sat in the
+        replica's admission queue is load (placement and admission
+        answer it), and striking on it would open the breaker of the
+        busiest replica — the sole survivor of a fleet — exactly when
+        the fleet needs it most."""
         dur = time.monotonic() - winner.t_submit
+        waited = float(done.pop("queue_wait_s", None) or 0.0)
         self._note_latency(key, dur)
         for o in attempts:
             if o is winner:
@@ -896,7 +902,7 @@ class QueryRouter(Coordinator):
             obs_spans.instant("router.hedge_lost", tenant=tenant,
                               replica=o.rank, winner=winner.rank)
         self._breaker_outcome(winner.rank, ok=True,
-                              slow=self._is_slow(dur),
+                              slow=self._is_slow(max(0.0, dur - waited)),
                               probe=winner.probe)
         if winner.is_hedge:
             with self._router_lock:
@@ -962,7 +968,8 @@ class QueryRouter(Coordinator):
             self._try_ack(a.addr, a.req_id)
             return "done", {"result": resp.get("result"),
                             "stats": resp.get("stats"),
-                            "cache_hit": bool(resp.get("cache_hit"))}
+                            "cache_hit": bool(resp.get("cache_hit")),
+                            "queue_wait_s": resp.get("queue_wait_s")}
         if state in ("failed", "cancelled", "shed"):
             self._try_ack(a.addr, a.req_id)
             return "error", wire.classified_error(resp.get("classified"))

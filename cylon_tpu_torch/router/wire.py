@@ -95,7 +95,7 @@ def encode_value(v):
         f"replica's QueryService directly)")
 
 
-def _ipc_from_b64(data) -> Dict:
+def _ipc_from_b64(data) -> Dict:  # cylint: disable=CY117 -- decodes live wire frames (request/result tables in flight), not persisted .arrow spills; TCP delivers the sender's bytes, there is no at-rest decay for a digest to catch here
     """base64 Arrow IPC -> frame, with decode-side refusals (corrupt
     base64, malformed IPC, a non-string where the marker promised one)
     re-raised CLASSIFIED — the decode side honours the same

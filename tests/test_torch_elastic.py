@@ -28,6 +28,8 @@ from cylon_tpu_torch import config, elastic, resilience
 from cylon_tpu_torch.obs import metrics as obs_metrics
 from cylon_tpu_torch.status import Code, CylonError
 
+from .torch_lock_record import port_lock_record  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # tight-but-safe control-plane cadence for in-process tests: detection

@@ -64,6 +64,26 @@ def test_fleet_modules_load_no_jax():
     assert out.returncode == 0, out.stderr[-2000:]
 
 
+def test_analysis_loads_no_jax():
+    """``cylon_tpu_torch.analysis`` (cylint on the port: the AST and lock
+    rules, the budgets, the CLI) loads neither jax nor the JAX package,
+    whose ``analysis/`` it copies, even while it runs."""
+    code = (
+        "import sys\n"
+        "import cylon_tpu_torch.analysis\n"
+        "from cylon_tpu_torch.analysis import astlint, budgets, locks\n"
+        "from cylon_tpu_torch.analysis.__main__ import main\n"
+        "assert main(['--list-rules']) == 0\n"
+        "assert astlint.scan_paths(['cylon_tpu_torch/analysis']) == []\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 def test_import_loads_neither_pandas_nor_pyarrow():
     """``import cylon_tpu_torch`` (its I/O layer, native library bindings
     and frames included) loads neither pandas nor pyarrow: each is imported

@@ -5,6 +5,8 @@ against the JAX package's on the same buffers."""
 import numpy as np
 import pytest
 
+from .torch_lock_record import port_lock_record  # noqa: F401
+
 
 @pytest.fixture()
 def pctx4():

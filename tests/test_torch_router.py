@@ -37,6 +37,8 @@ from cylon_tpu_torch.router import (QueryRouter, ReplicaServer,
 from cylon_tpu_torch.serve import QueryService
 from cylon_tpu_torch.status import Code, CylonError
 
+from .torch_lock_record import port_lock_record  # noqa: F401
+
 #: hard per-request wait — any miss is a hang, the exact failure mode
 #: the router tier exists to eliminate
 WAIT_S = 120.0
@@ -646,12 +648,17 @@ def test_flood_across_two_replicas_with_midflood_kill(tmp_path):
                                   ctx=CPU)[0]
                   for t, (l, r) in per_tenant.items()}
         with config.knob_env(CYLON_TPU_ROUTER_TIMEOUT_S="90"):
-            f = Fleet(queue_cap=3)
+            # heartbeats must hold on a loaded box (the 0.6 s default
+            # fenced both replicas before the gate was placed when the
+            # suite's parallel workers shared the cores); the kill is
+            # seen by the proxy path's refused polls, not by the
+            # heartbeat timeout
+            f = Fleet(queue_cap=3, hb_timeout=5.0)
             release, started = threading.Event(), threading.Event()
             # a gate on replica 0 guarantees queued work EXISTS there at
             # kill time (mid-flood, deterministically)
             f.svcs[0].register_op("gate", _gate_runner(release, started))
-            served, shed, hung = [], [], []
+            served, shed, hung, gate_refused = [], [], [], []
             lock = threading.Lock()
 
             def one(tenant, i):
@@ -674,12 +681,17 @@ def test_flood_across_two_replicas_with_midflood_kill(tmp_path):
                 def gated():
                     try:
                         f.client.route("t0", "gate", timeout_s=WAIT_S)
-                    except CylonError:
-                        pass
+                    except CylonError as e:
+                        # abandoned at the kill, as designed; a refusal
+                        # before it started is the fixture failing
+                        gate_refused.append(e)
+                        if not started.is_set():
+                            started.set()
                 gate_thread = threading.Thread(target=gated, daemon=True)
                 gate_thread.start()
                 threads.append(gate_thread)
                 assert started.wait(WAIT_S)
+                assert not gate_refused, gate_refused
                 for wave in range(4):
                     for i, t in enumerate(tenants):
                         th = threading.Thread(target=one, args=(t, wave),
@@ -1224,6 +1236,68 @@ def test_breaker_opens_after_failures_and_probe_recloses(fleet):
         assert st["replicas"]["0"]["breaker"] == "closed"
         assert st["replicas"]["0"]["breaker_probes"] >= 1
         assert st["replicas"]["0"]["breaker_opens"] == 1
+
+
+def test_queue_wait_is_not_a_breaker_strike(tmp_path):
+    """The breaker judges a replica's SERVICE time, not the time a
+    request sat in its admission queue.  Journal hits queued behind a
+    long local request on the fleet's only replica run in no time once
+    dispatched: they must not strike its breaker.  (Counting the queue
+    wait opened the breaker of the flood's sole survivor under load —
+    hits never move the route EWMA, so the cold 1 s floor judged them —
+    and the router then shed every request.)"""
+    left, right = _inputs(70)
+    with config.knob_env(CYLON_TPU_DURABLE_DIR=str(tmp_path),
+                         CYLON_TPU_ROUTER_TIMEOUT_S="90"):
+        base, _ = chunked_join(left, right, on="k", passes=1, mode="hash",
+                               ctx=CPU)
+        f = Fleet(n=1, hb_timeout=5.0)
+        release, started = threading.Event(), threading.Event()
+        f.svcs[0].register_op("gate", _gate_runner(release, started))
+        outs, errs = [], []
+        lock = threading.Lock()
+
+        def route():
+            try:
+                out = f.client.route("q", "join", left, right, on="k",
+                                     passes=1, mode="hash",
+                                     timeout_s=WAIT_S)
+                with lock:
+                    outs.append(out)
+            except CylonError as e:
+                with lock:
+                    errs.append(e)
+
+        threads = []
+        try:
+            # a local request parks the replica's scheduler; the router
+            # never sees it
+            gate = f.svcs[0].submit("local", "gate")
+            assert started.wait(WAIT_S)
+            for _ in range(4):
+                th = threading.Thread(target=route, daemon=True)
+                th.start()
+                threads.append(th)
+            deadline = time.monotonic() + WAIT_S
+            while f.svcs[0].queue_depth() < 4 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert f.svcs[0].queue_depth() == 4
+            time.sleep(1.5)  # past the cold fleet's 1 s slow threshold
+            release.set()
+            gate.result(WAIT_S)
+            for th in threads:
+                th.join(WAIT_S)
+            assert not errs and len(outs) == 4
+            for res, stats in outs:
+                assert stats["router"]["cache_hit"] is True
+                _assert_bit_identical(res, base)
+            st = f.client.status()["router"]
+            assert st["breakers"]["0"] == "closed"
+            assert st["replicas"]["0"]["breaker_opens"] == 0
+        finally:
+            release.set()
+            f.close()
 
 
 def test_fenced_replica_breaker_forced_open(fleet):

@@ -40,6 +40,7 @@ from cylon_tpu_torch.obs import spans as obs_spans
 from cylon_tpu_torch.serve import QueryService, TenantBudget
 from cylon_tpu_torch.serve import service as service_mod
 
+from .torch_lock_record import port_lock_record  # noqa: F401
 from .torch_parity import assert_frames_equal, murmur3_reference
 
 WAIT_S = 180.0
