@@ -13,8 +13,9 @@ A copy of ``cylon_tpu/obs/fleet.py``:
   ``otherData`` (:func:`set_clock`, :func:`clock_dict`); and
   :func:`merge_hist`, which adds two histogram dicts (the per-tenant
   latency histograms included, ``le`` buckets too);
-- **flight recorder**: :func:`flight_record` dumps the always-on event
-  ring (``obs.spans.ring_events``) and a metrics snapshot to
+- **flight recorder**: :func:`flight_record` dumps the event ring
+  (``obs.spans.ring_events``; ``CYLON_TPU_FLIGHT_RING_CAP`` events, 0
+  turns the ring and the recorder off) and a metrics snapshot to
   ``CYLON_TPU_TRACE_DIR/flight/<run_id>.r<rank>.json`` when a classified
   terminal event fires (a quarantined part, a fatal pass, a serve shed or
   failed request).  The dump is atomic (tmp + rename), and a failed dump
@@ -235,6 +236,11 @@ def _event_json(ev: spans_mod.Event, pid: int) -> Dict[str, object]:
 FLIGHT_KIND = "cylon_tpu.flight"
 
 
+def flight_enabled() -> bool:
+    """The recorder rides the ring: ``CYLON_TPU_FLIGHT_RING_CAP`` > 0."""
+    return spans_mod.ring_cap() > 0
+
+
 def flight_dir() -> str:
     return os.path.join(
         str(config.knob("CYLON_TPU_TRACE_DIR")) or "traces", "flight")
@@ -260,7 +266,7 @@ _last_write: Dict[str, Tuple[float, str]] = {}  # path -> (mono, event fp)
 def flight_record(reason: str, *, rank=None, run_id: Optional[str] = None,
                   **attrs) -> Optional[str]:
     """Dump the flight ring + metrics snapshot for a classified terminal
-    event.  Returns the dump path, or None when throttled, or
+    event.  Returns the dump path, or None when disabled, throttled, or
     the write failed (a recorder failure must never mask the event it
     records).
 
@@ -274,6 +280,8 @@ def flight_record(reason: str, *, rank=None, run_id: Optional[str] = None,
     hold hot locks; a synchronous disk flush there would stall the very
     control paths being recorded.
     """
+    if not flight_enabled():
+        return None
     try:
         entry = {"reason": reason, "ts_unix": time.time(),
                  "attrs": {k: v for k, v in attrs.items()}}
@@ -316,7 +324,7 @@ def flight_record(reason: str, *, rank=None, run_id: Optional[str] = None,
             "incarnation": current_incarnation(),
             "traceEvents": [_event_json(e, pid)
                             for e in spans_mod.ring_events()],
-            "ring_cap": spans_mod.RING_CAP,
+            "ring_cap": spans_mod.ring_cap(),
             "dropped_events": spans_mod.dropped(),
             "metrics": metrics_mod.snapshot(),
             "aggregates": {k: [t, c] for k, (t, c)

@@ -8,7 +8,8 @@ the ``CYLON_TPU_TRACE`` knob (read on every ``span()`` call):
 - ``auto`` (default): the aggregate stopwatch (two ``perf_counter_ns``
   reads and two dict updates per span) and the flight ring;
 - ``1`` / ``on``: aggregates plus the bounded event buffer
-  (``BUFFER_CAP`` events; past it events are dropped and counted),
+  (``CYLON_TPU_TRACE_BUFFER_CAP`` events, :func:`buffer_cap`; past it
+  events are dropped and counted),
   which ``obs.export`` writes out;
 - ``0`` / ``off``: a no-op singleton.
 
@@ -18,8 +19,9 @@ its fetch); ``CYLON_TPU_TRACE_SYNC=1`` fences at span boundaries
 (``torch.cuda.synchronize`` where the reference blocks on a trivial
 dispatch; nothing to fence in a process that never touched a card) so
 device time lands in the span that launched it.  The flight ring
-(``RING_CAP`` events) keeps the most recent events in every enabled mode
-for ``obs.fleet.flight_record``.  ``CYLON_TPU_DEBUG`` (or
+(``CYLON_TPU_FLIGHT_RING_CAP`` events, :func:`ring_cap`; 0 turns it and
+the recorder off) keeps the most recent events in every enabled mode for
+``obs.fleet.flight_record``.  ``CYLON_TPU_DEBUG`` (or
 ``enable_log``) logs one INFO line per finished span.  Tail-based
 retention (``obs.tracectx.finish_request``) removes a closed request's
 events through :func:`discard_trace`.
@@ -42,12 +44,6 @@ EVENTS = "events"
 
 _MODE_OF = {"0": OFF, "off": OFF, "auto": AGGREGATE,
             "1": EVENTS, "on": EVENTS}
-
-#: maximum buffered events per process under ``CYLON_TPU_TRACE=1``
-BUFFER_CAP = 65536
-#: flight-recorder ring size: the most recent events a dump carries
-RING_CAP = 512
-
 
 class Event(NamedTuple):
     """One buffered trace event.  ``ts``/``dur`` are monotonic
@@ -82,7 +78,9 @@ _tls = threading.local()
 # context even when the user never armed CYLON_TPU_TRACE=1.  Unlike the
 # export buffer it overwrites oldest-first — a post-mortem wants the
 # events LEADING UP to the failure, not the run's first N.
-_ring: "deque[Event]" = deque(maxlen=RING_CAP)
+# Resized to ``ring_cap()`` at the next record when the knob moves.
+_ring: "deque[Event]" = deque(
+    maxlen=config.KNOBS["CYLON_TPU_FLIGHT_RING_CAP"].default)
 
 # per-span INFO log: initialized from CYLON_TPU_DEBUG, flipped by
 # enable_log()
@@ -118,6 +116,27 @@ def sync_enabled() -> bool:
     return bool(config.knob("CYLON_TPU_TRACE_SYNC"))
 
 
+def buffer_cap() -> int:
+    """``CYLON_TPU_TRACE_BUFFER_CAP``: the event buffer's size (at least
+    1)."""
+    return max(1, int(config.knob("CYLON_TPU_TRACE_BUFFER_CAP")))
+
+
+def ring_cap() -> int:
+    """``CYLON_TPU_FLIGHT_RING_CAP``: the flight ring's size (0: off)."""
+    return max(0, int(config.knob("CYLON_TPU_FLIGHT_RING_CAP")))
+
+
+def _ring_record(ev: Event) -> None:
+    global _ring
+    cap = ring_cap()
+    if cap <= 0:
+        return
+    if _ring.maxlen != cap:
+        _ring = deque(_ring, maxlen=cap)
+    _ring.append(ev)
+
+
 def _fence() -> None:
     """Drain the device's launched work (``torch.cuda.synchronize`` on the
     current card).  A no-op in a process that never initialized CUDA:
@@ -143,7 +162,7 @@ def _depth() -> int:
 def _record(ev: Event) -> None:
     global _dropped
     with _buf_lock:
-        if len(_events) >= BUFFER_CAP:
+        if len(_events) >= buffer_cap():
             _dropped += 1
             return
         _events.append(ev)
@@ -170,14 +189,16 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "_t0", "_d", "_buffer", "_sync", "_trace")
+    __slots__ = ("name", "attrs", "_t0", "_d", "_buffer", "_sync", "_ring",
+                 "_trace")
 
     def __init__(self, name: str, attrs: Optional[Dict[str, object]],
-                 buffer: bool, sync: bool):
+                 buffer: bool, sync: bool, ring: bool):
         self.name = name
         self.attrs = attrs
         self._buffer = buffer
         self._sync = sync
+        self._ring = ring
         self._trace = None
 
     def set(self, **attrs) -> "_Span":
@@ -191,9 +212,10 @@ class _Span:
     def __enter__(self) -> "_Span":
         if self._sync:
             _fence()
-        # causal identity: become a child span of the active request
-        # context (None — the common case — costs one contextvar read)
-        self._trace = tracectx.push_span()
+        if self._buffer or self._ring:
+            # causal identity: become a child span of the active request
+            # context (None — the common case — costs one contextvar read)
+            self._trace = tracectx.push_span()
         self._d = _depth()
         _tls.depth = self._d + 1
         self._t0 = time.perf_counter_ns()
@@ -209,16 +231,18 @@ class _Span:
         _counts[self.name] = _counts.get(self.name, 0) + 1
         if _log_on:
             _log.info("%s %.3f ms", self.name, dur / 1e6)
-        tr = None
-        if self._trace is not None:
-            ctx, tok = self._trace
-            tracectx.pop_span(tok)
-            tr = ctx.triple()
-        ev = Event(self.name, self._t0, dur,
-                   threading.get_ident(), self._d, "X", self.attrs, tr)
-        if self._buffer:
-            _record(ev)
-        _ring.append(ev)
+        if self._buffer or self._ring:
+            tr = None
+            if self._trace is not None:
+                ctx, tok = self._trace
+                tracectx.pop_span(tok)
+                tr = ctx.triple()
+            ev = Event(self.name, self._t0, dur,
+                       threading.get_ident(), self._d, "X", self.attrs, tr)
+            if self._buffer:
+                _record(ev)
+            if self._ring:
+                _ring_record(ev)
         return False
 
 
@@ -232,7 +256,9 @@ def span(name: str, **attrs):
     m = mode()
     if m == OFF:
         return _NULL
-    return _Span(name, attrs or None, m == EVENTS, sync_enabled())
+    # the sync and ring knobs resolve once per span, not per boundary
+    return _Span(name, attrs or None, m == EVENTS, sync_enabled(),
+                 ring_cap() > 0)
 
 
 def instant(name: str, **attrs) -> None:
@@ -244,13 +270,14 @@ def instant(name: str, **attrs) -> None:
         return
     _counts[name] = _counts.get(name, 0) + 1
     _totals.setdefault(name, 0.0)
-    c = tracectx.current()
-    ev = Event(name, time.perf_counter_ns(), 0,
-               threading.get_ident(), _depth(), "i", attrs or None,
-               None if c is None else c.triple())
-    if m == EVENTS:
-        _record(ev)
-    _ring.append(ev)
+    if m == EVENTS or ring_cap() > 0:
+        c = tracectx.current()
+        ev = Event(name, time.perf_counter_ns(), 0,
+                   threading.get_ident(), _depth(), "i", attrs or None,
+                   None if c is None else c.triple())
+        if m == EVENTS:
+            _record(ev)
+        _ring_record(ev)
 
 
 def events() -> Tuple[Event, ...]:

@@ -27,7 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..column import Column
-from . import compact
+from . import compact, radix
 
 _INT64_MIN = -(1 << 63)
 _MASK32 = 0xFFFFFFFF
@@ -212,7 +212,9 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
     Fast path: when the key fields plus a row index fit 64 bits, they are
     assembled into ONE int64 with the index in the low bits and sorted
     once; unique keys make the sort stable for free.  A 64-bit key has its
-    sign bit flipped so the signed sort gives unsigned order.  Otherwise
+    sign bit flipped so the signed sort gives unsigned order.  Under
+    ``CYLON_TPU_SORT=radix`` the key's significant bits are radix-sorted
+    instead (``ops/radix.py``), with the same result.  Otherwise
     the packed words are sorted least significant first with stable
     sorts."""
     enc = [_ordered_unsigned(o) for o in operands]
@@ -226,8 +228,11 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
         key = (key << idx_bits) | torch.arange(capacity, dtype=torch.int64,
                                                device=device)
         width = total_bits + idx_bits
-        s = torch.sort(_sort_key(key, width), stable=False).values
-        s = _sort_key(s, width)
+        if radix.sort_mode() == "radix":
+            s = radix.radix_sort_packed(key, idx_bits, width)
+        else:
+            s = torch.sort(_sort_key(key, width), stable=False).values
+            s = _sort_key(s, width)
         perm = (s & ((1 << idx_bits) - 1)).to(torch.int32)
         if width <= 32:
             return perm, [s >> idx_bits]

@@ -47,6 +47,11 @@ from . import collectives
 from . import plane as plane_mod
 
 
+#: widest target alphabet (world + 1) counted by one compare-and-reduce
+#: under CYLON_TPU_PERMUTE=sort (``cylon_tpu/parallel/shuffle.py``)
+_WIDE_MESH_CUTOFF = 32
+
+
 def buffer_count(cols: Sequence[Column]) -> int:
     """Buffers a per-buffer exchange moves: data and validity per column,
     and a string's lengths; the per-buffer collective launch count."""
@@ -63,14 +68,31 @@ def _remap_oob_targets(targets: torch.Tensor, world: int) -> torch.Tensor:
 
 def target_counts(targets: torch.Tensor, world: int) -> torch.Tensor:
     """int32[world]: rows this shard sends to each target (padding rows
-    carry target == world and fall off the end)."""
+    carry target == world and fall off the end).
+
+    Under ``CYLON_TPU_PERMUTE=sort`` no histogram: a compare-and-reduce
+    over the target alphabet while ``world + 1 <= 32``, and past that
+    (where the [rows, world] compare would dwarf the rows) differences
+    of ``count_leq_dense``, as ``cylon_tpu/parallel/shuffle.py:64``."""
+    if compact.permute_mode() == "sort":
+        if world + 1 <= _WIDE_MESH_CUTOFF:
+            alphabet = torch.arange(world, dtype=targets.dtype,
+                                    device=targets.device)
+            return (targets[:, None] == alphabet[None, :]).sum(
+                0, dtype=torch.int32)
+        # count_leq_dense clips negatives to 0: remap them to padding
+        # first, or they would count toward target 0
+        leq = compact.count_leq_dense(_remap_oob_targets(targets, world),
+                                      world)
+        return torch.diff(leq, prepend=leq.new_zeros(1)).to(torch.int32)
     t = _remap_oob_targets(targets, world)
     return torch.bincount(t, minlength=world + 1)[:world].to(torch.int32)
 
 
 def _perm_by_target(targets: torch.Tensor, world: int) -> torch.Tensor:
     """Stable permutation grouping rows by target, padding (== world)
-    last."""
+    last: one stable sort in either realization (the reference's counting
+    scan and its sort give this same permutation)."""
     return torch.sort(_remap_oob_targets(targets, world), stable=True).indices
 
 

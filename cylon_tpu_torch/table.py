@@ -679,16 +679,18 @@ class Table:
         by_idx = self._resolve_many(by)
         asc = (tuple([ascending] * len(by_idx))
                if isinstance(ascending, bool) else tuple(ascending))
-        return _shard_wise(lambda cols, n: sort_mod.sort_rows(
-            cols, n, by_idx, asc, nulls_first), self)
+        with obs_spans.span("table.sort", keys=len(by_idx)):
+            return _shard_wise(lambda cols, n: sort_mod.sort_rows(
+                cols, n, by_idx, asc, nulls_first), self)
 
     def unique(self, columns=None, keep: str = "first") -> "Table":
         """Drop rows whose key repeats, keeping the first or last
         occurrence, in row order (reference: table.cpp:966-1029)."""
         key_idx = (tuple(range(len(self.names))) if columns is None
                    else self._resolve_many(columns))
-        return _shard_wise(lambda cols, n: unique_mod.unique(
-            cols, n, key_idx, keep), self)
+        with obs_spans.span("table.unique", keys=len(key_idx)):
+            return _shard_wise(lambda cols, n: unique_mod.unique(
+                cols, n, key_idx, keep), self)
 
     def join(self, other: "Table", config: Optional[JoinConfig] = None, *,
              on=None, left_on=None, right_on=None, how="inner",
@@ -704,24 +706,29 @@ class Table:
         ``cylon_tpu/table.py:555-574``."""
         cfg = _join_config(self, other, config, on, left_on, right_on, how,
                            algorithm)
-        try:
-            resilience.fault_point("oneshot_join")
-            return _local_join(self, other, cfg)
-        except Exception as e:
-            if not _oneshot_oom_fallback(self, other, e):
-                raise
-        # outside the handler: the failed attempt's frames (and the device
-        # memory they hold) are gone before the chunked engine starts
-        from . import exec as exec_mod
+        # capacity, not row_count: reading the live count would sync
+        with obs_spans.span("table.join", how=cfg.join_type.name,
+                            algorithm=cfg.algorithm.name,
+                            capacity=self.capacity):
+            try:
+                resilience.fault_point("oneshot_join")
+                return _local_join(self, other, cfg)
+            except Exception as e:
+                if not _oneshot_oom_fallback(self, other, e):
+                    raise
+            # outside the handler: the failed attempt's frames (and the
+            # device memory they hold) are gone before the chunked engine
+            # starts
+            from . import exec as exec_mod
 
-        res, _stats = exec_mod.chunked_join(
-            self, other, left_on=[self.names[i] for i in cfg.left_on],
-            right_on=[other.names[i] for i in cfg.right_on],
-            how=_HOW_NAMES[cfg.join_type], algo=cfg.algorithm,
-            passes=_fallback_passes(), ctx=self.ctx,
-            left_prefix=cfg.left_prefix, right_prefix=cfg.right_prefix)
-        return _table_from_fallback(
-            res, _join_output_names(self, other, cfg), self.ctx)
+            res, _stats = exec_mod.chunked_join(
+                self, other, left_on=[self.names[i] for i in cfg.left_on],
+                right_on=[other.names[i] for i in cfg.right_on],
+                how=_HOW_NAMES[cfg.join_type], algo=cfg.algorithm,
+                passes=_fallback_passes(), ctx=self.ctx,
+                left_prefix=cfg.left_prefix, right_prefix=cfg.right_prefix)
+            return _table_from_fallback(
+                res, _join_output_names(self, other, cfg), self.ctx)
 
     # -- set operators ------------------------------------------------------
     def union(self, other: "Table") -> "Table":
@@ -751,12 +758,16 @@ class Table:
         shard by shard (reference: DistributedJoin, table.cpp:459-489)."""
         cfg = _join_config(self, other, config, on, left_on, right_on, how,
                            algorithm)
-        if self.num_shards == 1:
-            return _local_join(self, other, cfg)
-        out = _local_join(par_ops.shuffle(self, cfg.left_on),
-                          par_ops.shuffle(other, cfg.right_on), cfg)
-        _stamp_join_partitioning(out, self, other, cfg)
-        return out
+        with obs_spans.span("table.distributed_join",
+                            how=cfg.join_type.name,
+                            algorithm=cfg.algorithm.name,
+                            world=self.num_shards):
+            if self.num_shards == 1:
+                return _local_join(self, other, cfg)
+            out = _local_join(par_ops.shuffle(self, cfg.left_on),
+                              par_ops.shuffle(other, cfg.right_on), cfg)
+            _stamp_join_partitioning(out, self, other, cfg)
+            return out
 
     def distributed_unique(self, columns=None, keep: str = "first"
                            ) -> "Table":
@@ -788,9 +799,12 @@ class Table:
             opts = SortOptions(ascending=asc[0], num_bins=opts.num_bins,
                                num_samples=opts.num_samples,
                                nulls_first=opts.nulls_first)
-        if self.num_shards == 1:
-            return self.sort(by, ascending=asc, nulls_first=opts.nulls_first)
-        return par_ops.distributed_sort(self, by_idx, opts, asc)
+        with obs_spans.span("table.distributed_sort", keys=len(by_idx),
+                            world=self.num_shards):
+            if self.num_shards == 1:
+                return self.sort(by, ascending=asc,
+                                 nulls_first=opts.nulls_first)
+            return par_ops.distributed_sort(self, by_idx, opts, asc)
 
     def groupby(self, by, agg: Dict, ddof: int = 0,
                 groupby_type: str = "hash") -> "Table":
@@ -814,35 +828,41 @@ class Table:
             for op in ([ops] if isinstance(ops, (str, AggOp)) else ops):
                 aggs.append((ci, AggOp.of(op)))
         pipeline = groupby_type == "pipeline"
-        if self.num_shards != 1:
-            return par_ops.distributed_groupby(self, by_idx, tuple(aggs),
-                                               ddof, pipeline)
-        try:
-            resilience.fault_point("oneshot_groupby")
-            return _local_groupby(self, by_idx, tuple(aggs), ddof, pipeline)
-        except Exception as e:
-            # the chunked engine is hash-based: substituting it for a
-            # pipeline (run-length) group-by would silently merge
-            # non-adjacent key runs, so pipeline never falls back
-            if pipeline or not _oneshot_oom_fallback(self, None, e):
-                raise
-        from . import exec as exec_mod
+        with obs_spans.span("table.groupby", kind=groupby_type,
+                            keys=len(by_idx), aggs=len(aggs),
+                            world=self.num_shards):
+            if self.num_shards != 1:
+                return par_ops.distributed_groupby(self, by_idx, tuple(aggs),
+                                                   ddof, pipeline)
+            try:
+                resilience.fault_point("oneshot_groupby")
+                return _local_groupby(self, by_idx, tuple(aggs), ddof,
+                                      pipeline)
+            except Exception as e:
+                # the chunked engine is hash-based: substituting it for a
+                # pipeline (run-length) group-by would silently merge
+                # non-adjacent key runs, so pipeline never falls back
+                if pipeline or not _oneshot_oom_fallback(self, None, e):
+                    raise
+            from . import exec as exec_mod
 
-        agg_by_name: Dict[str, list] = {}
-        for ci, op in aggs:
-            agg_by_name.setdefault(self.names[ci], []).append(op)
-        res, _stats = exec_mod.chunked_groupby(
-            self, [self.names[i] for i in by_idx], agg_by_name, ddof=ddof,
-            passes=_fallback_passes(), ctx=self.ctx)
-        return _table_from_fallback(
-            res, _groupby_output_names(self, by_idx, tuple(aggs)), self.ctx)
+            agg_by_name: Dict[str, list] = {}
+            for ci, op in aggs:
+                agg_by_name.setdefault(self.names[ci], []).append(op)
+            res, _stats = exec_mod.chunked_groupby(
+                self, [self.names[i] for i in by_idx], agg_by_name, ddof=ddof,
+                passes=_fallback_passes(), ctx=self.ctx)
+            return _table_from_fallback(
+                res, _groupby_output_names(self, by_idx, tuple(aggs)),
+                self.ctx)
 
     def shuffle(self, refs) -> "Table":
         """Hash-repartition rows over the mesh (reference: Shuffle,
         table.cpp:951-964)."""
         if self.num_shards == 1:
             return self
-        return par_ops.shuffle(self, self._resolve_many(refs))
+        with obs_spans.span("table.shuffle", world=self.num_shards):
+            return par_ops.shuffle(self, self._resolve_many(refs))
 
     def hash_partition(self, refs, num_partitions: int) -> Dict[int, "Table"]:
         """Split into ``num_partitions`` tables by key hash, shard-locally

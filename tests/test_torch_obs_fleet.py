@@ -200,9 +200,8 @@ def test_flight_ring_and_dump_without_trace_armed(clean_fleet, tmp_path):
                                                        "work.tick"}
     assert doc["metrics"]["counters"]["work.counter"] == 3
     assert doc["aggregates"]["work.phase"][1] == 1
-    # the port's ring has a fixed size (no CYLON_TPU_FLIGHT_RING_CAP
-    # knob, so no knob turns the recorder off)
-    assert obs_spans._ring.maxlen == obs_spans.RING_CAP
+    # the ring's size is CYLON_TPU_FLIGHT_RING_CAP (512 by default)
+    assert obs_spans._ring.maxlen == obs_spans.ring_cap() == 512
     # corrupt dumps do not load silently
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps({"kind": "other"}))

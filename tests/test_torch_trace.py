@@ -267,8 +267,8 @@ def test_sampled_slow_buffer_survives_fast_flood(clean_trace, monkeypatch):
     """A flood of fast requests discards its own events at close, so the
     32-event buffer never starves the sampled request, and the overflow
     drop counter stays monotone."""
-    monkeypatch.setattr(obs_spans, "BUFFER_CAP", 32)
     with config.knob_env(CYLON_TPU_TRACE="1",
+                         CYLON_TPU_TRACE_BUFFER_CAP="32",
                          CYLON_TPU_TRACE_TAIL_MS="1000"):
         keeper = tracectx.new_trace(sampled=True)
         with tracectx.activate(keeper):
