@@ -142,10 +142,12 @@ SERVE_CONTROL_PREFIXES = ("_dispatch", "_admit", "_shed", "_cancel")
 
 #: call names (final identifier) that block the calling thread on device
 #: work, for CY107/CY110 reachability: torch's device fences and host
-#: reads, and the port's ``to_numpy`` (``column.to_numpy``, the table
-#: exports)
+#: reads, the port's ``to_numpy`` (``column.to_numpy``, the table
+#: exports) and its named host syncs (``obs.spans.host_read`` and
+#: ``host_select``)
 BLOCKING_DEVICE_NAMES = frozenset({
-    "synchronize", "item", "tolist", "cpu", "numpy", "to_numpy"})
+    "synchronize", "item", "tolist", "cpu", "numpy", "to_numpy",
+    "host_read", "host_select"})
 
 #: modules the CY107/CY110 walk treats as host-only leaves: pyarrow's
 #: ``Array.to_numpy`` (the IPC decode in io/arrow_io.py) and numpy's

@@ -27,6 +27,7 @@ import torch
 
 from . import config, dtypes
 from .dtypes import DataType, Type
+from .obs import spans as obs_spans
 from .status import Code, CylonError
 
 DEFAULT_STRING_WIDTH = 32
@@ -439,17 +440,21 @@ def _decode_rows(rows: np.ndarray, valid: np.ndarray,
     return out
 
 
+def _read(t: torch.Tensor) -> np.ndarray:
+    """One buffer of an export on the host: one sync, ``sync.to_numpy``."""
+    return obs_spans.host_read(t, "to_numpy").numpy()
+
+
 def to_numpy(col: Column, row_count) -> np.ndarray:
     """Export the live rows to the host, as ``cylon_tpu/column.py:395
     to_numpy``: nulls become None in an object array, and strings an
     object array of str (bytes where utf-8 decoding fails)."""
     n = int(row_count)
-    valid = col.validity[:n].cpu().numpy()
+    valid = _read(col.validity[:n])
     if col.is_string:
-        rows = _bytes_rows(col.data[:n].cpu().numpy(),
-                           col.lengths[:n].cpu().numpy())
+        rows = _bytes_rows(_read(col.data[:n]), _read(col.lengths[:n]))
         return _decode_rows(rows, valid)
-    vals = col.data[:n].cpu().numpy()
+    vals = _read(col.data[:n])
     ndt = col.dtype.numpy_dtype()
     if vals.dtype != ndt and vals.dtype.kind in "iu" \
             and np.dtype(ndt).kind in "iu":

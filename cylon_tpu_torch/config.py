@@ -462,12 +462,6 @@ KNOBS = {k.name: k for k in [
        "(plan_profile.r<rank>.json).",
        accessors=("cylon_tpu_torch.obs.export.trace_dir",
                   "cylon_tpu_torch.obs.fleet.flight_dir")),
-    _K("CYLON_TPU_TRACE_SYNC", "bool", False,
-       "Fence device work (torch.cuda.synchronize) at span boundaries so "
-       "device time lands in the span that launched it instead of the "
-       "span doing the blocking fetch.  Off by default: the fence "
-       "serializes the pipeline.",
-       accessors=("cylon_tpu_torch.obs.spans.sync_enabled",)),
     _K("CYLON_TPU_TRACE_BUFFER_CAP", "int", 65536,
        "Maximum buffered span events per process under CYLON_TPU_TRACE=1; "
        "past it new events are dropped and counted (obs.spans.dropped), "

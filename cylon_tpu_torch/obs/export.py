@@ -68,8 +68,12 @@ def _artifact_path(path: Optional[str], prefix: str,
 def export_trace(path: Optional[str] = None, *, rank: Optional[int] = None,
                  prefix: str = "trace") -> str:
     """Write the buffered span events as Chrome-trace JSON; returns the
-    file path (``{dir}/{prefix}.r{rank}.json`` unless ``path`` given)."""
+    file path (``{dir}/{prefix}.r{rank}.json`` unless ``path`` given).  A
+    span whose device time has resolved (``obs.spans.device_report``)
+    carries it as ``device_ms`` in its ``args``; the export waits for
+    none."""
     out_path = _artifact_path(path, prefix, rank)
+    spans_mod.poll_device()
     pid = default_rank() if rank is None else int(rank)
     doc = {
         "traceEvents": [_event_json(e, pid) for e in spans_mod.events()],

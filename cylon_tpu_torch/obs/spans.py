@@ -13,12 +13,15 @@ the ``CYLON_TPU_TRACE`` knob (read on every ``span()`` call):
   which ``obs.export`` writes out;
 - ``0`` / ``off``: a no-op singleton.
 
-Spans measure host wall-clock.  Device work is asynchronous, so its time
-lands in whichever span blocks on it (the engine's pass span blocks on
-its fetch); ``CYLON_TPU_TRACE_SYNC=1`` fences at span boundaries
-(``torch.cuda.synchronize`` where the reference blocks on a trivial
-dispatch; nothing to fence in a process that never touched a card) so
-device time lands in the span that launched it.  The flight ring
+Spans measure host wall-clock.  Device work is asynchronous, so its host
+time lands in whichever span blocks on it.  Under ``CYLON_TPU_TRACE=1``
+in a process where CUDA is initialized, each span also records one
+CUDA timing event on the current stream at entry and one at exit (no
+sync); :func:`device_report` gives each span name's stream time between
+the two: the device time of the span's work plus any stream idle inside
+the span, so in a device-paced run the span's device time.  Every host
+sync of the hot paths is a span of its own, ``sync.<site>``, made by
+:func:`host_read` or :func:`host_select`.  The flight ring
 (``CYLON_TPU_FLIGHT_RING_CAP`` events, :func:`ring_cap`; 0 turns it and
 the recorder off) keeps the most recent events in every enabled mode for
 ``obs.fleet.flight_record``.  ``CYLON_TPU_DEBUG`` (or
@@ -112,10 +115,6 @@ def events_enabled() -> bool:
     return mode() == EVENTS
 
 
-def sync_enabled() -> bool:
-    return bool(config.knob("CYLON_TPU_TRACE_SYNC"))
-
-
 def buffer_cap() -> int:
     """``CYLON_TPU_TRACE_BUFFER_CAP``: the event buffer's size (at least
     1)."""
@@ -137,19 +136,6 @@ def _ring_record(ev: Event) -> None:
     _ring.append(ev)
 
 
-def _fence() -> None:
-    """Drain the device's launched work (``torch.cuda.synchronize`` on the
-    current card).  A no-op in a process that never initialized CUDA:
-    CPU tensors run synchronously, so there is nothing to drain."""
-    torch = sys.modules.get("torch")
-    if torch is None or not torch.cuda.is_initialized():
-        return
-    try:
-        torch.cuda.synchronize()
-    except Exception as e:  # a failed fence must never kill the op it wraps
-        _log.debug("trace sync fence failed: %s: %s", type(e).__name__, e)
-
-
 def ring_events() -> Tuple[Event, ...]:
     """Snapshot of the flight-recorder ring, oldest first."""
     return tuple(_ring)
@@ -166,6 +152,146 @@ def _record(ev: Event) -> None:
             _dropped += 1
             return
         _events.append(ev)
+
+
+# -- device time of spans (events mode, CUDA initialized) ------------------
+# A span's (name, stream, start event, end event, attrs) waits here until
+# its end event has completed; the list is bounded apart from the event
+# buffer, and a pair that finds it full is dropped and counted.  The
+# totals are monotone: only reset_device() clears them.  Resolved events
+# go back to a free list per card, since making one costs more than
+# recording it.
+DEVICE_PENDING_CAP = 4096
+_dev_lock = threading.Lock()
+_dev_pending: "deque[tuple]" = deque()
+_dev_free: Dict[int, list] = {}
+_dev_totals: Dict[str, float] = {}
+_dev_counts: Dict[str, int] = {}
+_dev_dropped = 0
+
+
+def _recorded(stream):
+    """A timing event recorded on ``stream``: a free one of its card's, or
+    a new one."""
+    try:
+        ev = _dev_free[stream.device_index].pop()
+    except (KeyError, IndexError):
+        ev = sys.modules["torch"].cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+def _device_start():
+    """(stream, start event) recorded on the current stream, or None in a
+    process where CUDA is not initialized."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    stream = torch.cuda.current_stream()
+    return stream, _recorded(stream)
+
+
+def _device_end(name: str, dev, attrs) -> None:
+    global _dev_dropped
+    stream, start = dev
+    end = _recorded(stream)
+    with _dev_lock:
+        _poll_device()
+        if len(_dev_pending) >= DEVICE_PENDING_CAP:
+            _dev_dropped += 1
+            return
+        _dev_pending.append((name, stream, start, end, attrs))
+
+
+def _resolve(pair) -> None:
+    name, stream, start, end, attrs = pair
+    ms = start.elapsed_time(end)
+    _dev_free.setdefault(stream.device_index, []).extend((start, end))
+    _dev_totals[name] = _dev_totals.get(name, 0.0) + ms * 1e-3
+    _dev_counts[name] = _dev_counts.get(name, 0) + 1
+    if attrs is not None:
+        attrs["device_ms"] = ms
+
+
+def _poll_device() -> None:
+    """Resolve the pending pairs whose end event has completed, oldest
+    first, without waiting (``Event.query``).  Caller holds _dev_lock."""
+    while _dev_pending and _dev_pending[0][3].query():
+        _resolve(_dev_pending.popleft())
+
+
+def poll_device() -> None:
+    """Resolve what has completed on the device, without waiting."""
+    with _dev_lock:
+        _poll_device()
+
+
+def device_report() -> Dict[str, Tuple[float, int]]:
+    """{span name: (device seconds, count)} of the spans timed on the
+    device, every pending pair resolved first (waiting on each end
+    event).  Monotone: ``reset`` and ``reset_aggregates`` leave it."""
+    with _dev_lock:
+        while _dev_pending:
+            pair = _dev_pending.popleft()
+            pair[3].synchronize()
+            _resolve(pair)
+        return {k: (_dev_totals[k], _dev_counts[k]) for k in _dev_totals}
+
+
+def device_dropped() -> int:
+    """Span pairs not timed because the pending list was full."""
+    return _dev_dropped
+
+
+def reset_device() -> None:
+    """Clear the device totals, the pending pairs and their drop count."""
+    global _dev_dropped
+    with _dev_lock:
+        _dev_pending.clear()
+        _dev_free.clear()
+        _dev_totals.clear()
+        _dev_counts.clear()
+        _dev_dropped = 0
+
+
+# -- host syncs as spans ----------------------------------------------------
+
+def _unguarded(read):
+    """``read()`` with ``torch.cuda.set_sync_debug_mode`` lifted for its
+    length, so a process run under the debug mode flags every sync but
+    the named ones."""
+    torch = sys.modules["torch"]
+    debug = torch.cuda.get_sync_debug_mode()
+    if not debug:
+        return read()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return read()
+    finally:
+        torch.cuda.set_sync_debug_mode(debug)
+
+
+def host_read(t, site: str):
+    """``t.cpu()``: the one device→host read of ``t``, which waits for the
+    work that makes ``t``, inside a span ``sync.<site>``.  ``site`` names
+    what the host waits for (``join_count``, ``to_numpy``, ...)."""
+    with span("sync." + site):
+        if not t.is_cuda:
+            return t.cpu()
+        return _unguarded(t.cpu)
+
+
+def host_select(mask, site: str, x=None):
+    """``x[mask]``, or with no ``x`` the indices where the 1-D ``mask``
+    holds (``torch.nonzero(mask).squeeze(1)``): the result's length is
+    read on the host, one sync, inside a span ``sync.<site>``."""
+    def select():
+        if x is None:
+            return sys.modules["torch"].nonzero(mask).squeeze(1)
+        return x[mask]
+
+    with span("sync." + site):
+        return _unguarded(select) if mask.is_cuda else select()
 
 
 class _NullSpan:
@@ -189,17 +315,17 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "_t0", "_d", "_buffer", "_sync", "_ring",
-                 "_trace")
+    __slots__ = ("name", "attrs", "_t0", "_d", "_buffer", "_ring", "_trace",
+                 "_dev")
 
     def __init__(self, name: str, attrs: Optional[Dict[str, object]],
-                 buffer: bool, sync: bool, ring: bool):
+                 buffer: bool, ring: bool):
         self.name = name
         self.attrs = attrs
         self._buffer = buffer
-        self._sync = sync
         self._ring = ring
         self._trace = None
+        self._dev = None
 
     def set(self, **attrs) -> "_Span":
         """Attach/refresh attributes after entry (e.g. a row count known
@@ -210,20 +336,18 @@ class _Span:
         return self
 
     def __enter__(self) -> "_Span":
-        if self._sync:
-            _fence()
         if self._buffer or self._ring:
             # causal identity: become a child span of the active request
             # context (None — the common case — costs one contextvar read)
             self._trace = tracectx.push_span()
+        if self._buffer:
+            self._dev = _device_start()
         self._d = _depth()
         _tls.depth = self._d + 1
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
-        if self._sync:
-            _fence()
         t1 = time.perf_counter_ns()
         _tls.depth = self._d
         dur = t1 - self._t0
@@ -237,12 +361,16 @@ class _Span:
                 ctx, tok = self._trace
                 tracectx.pop_span(tok)
                 tr = ctx.triple()
+            if self._dev is not None and self.attrs is None:
+                self.attrs = {}  # where the resolved device_ms lands
             ev = Event(self.name, self._t0, dur,
                        threading.get_ident(), self._d, "X", self.attrs, tr)
             if self._buffer:
                 _record(ev)
             if self._ring:
                 _ring_record(ev)
+        if self._dev is not None:
+            _device_end(self.name, self._dev, self.attrs)
         return False
 
 
@@ -256,9 +384,8 @@ def span(name: str, **attrs):
     m = mode()
     if m == OFF:
         return _NULL
-    # the sync and ring knobs resolve once per span, not per boundary
-    return _Span(name, attrs or None, m == EVENTS, sync_enabled(),
-                 ring_cap() > 0)
+    # the ring knob resolves once per span, not per boundary
+    return _Span(name, attrs or None, m == EVENTS, ring_cap() > 0)
 
 
 def instant(name: str, **attrs) -> None:
@@ -320,7 +447,7 @@ def reset_aggregates() -> None:
 
 def reset() -> None:
     """Clear the event buffer, the flight ring, the drop counter and the
-    aggregates."""
+    aggregates (the device totals stay: :func:`reset_device`)."""
     global _dropped
     _events.clear()
     _ring.clear()

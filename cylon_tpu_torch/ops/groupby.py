@@ -35,6 +35,7 @@ import torch
 from .. import dtypes, precision
 from .. import column
 from ..column import Column
+from ..obs import spans as obs_spans
 from . import compact, keys, segments
 
 
@@ -273,8 +274,8 @@ def _group_frame(new_group: torch.Tensor, count: torch.Tensor, cap: int):
     start, end = segments.segment_spans(new_group)
     iota = torch.arange(cap, dtype=torch.int32, device=new_group.device)
     live = iota < count
-    num_groups = torch.where(count > 0,
-                             gid[(count - 1).clamp(0, cap - 1)] + 1,
+    last = obs_spans.host_read((count - 1).clamp(0, cap - 1), "groupby_count")
+    num_groups = torch.where(count > 0, gid[last] + 1,
                              _zero(torch.int32, new_group.device))
     leader = start.clamp(0, cap - 1)
     group_live = iota < num_groups
@@ -285,21 +286,24 @@ def hash_groupby(cols: Sequence[Column], count, key_idx: Tuple[int, ...],
                  aggs: Tuple[Tuple[int, AggOp], ...], ddof: int = 0):
     """Group rows by the ``key_idx`` columns and aggregate.  Output: the
     key columns (one row per distinct live key, in key order), then one
-    column per (value column, op).  Returns (columns, group_count)."""
-    cap = cols[0].capacity
-    dev = cols[0].device
-    count = torch.as_tensor(count, dtype=torch.int32, device=dev)
-    key_cols = [cols[i] for i in key_idx]
-    operands = keys.build_operands(key_cols, count, cap)
-    perm, sorted_ops = keys.lexsort_indices(operands, cap)
-    new_group = ~keys.rows_equal_adjacent(sorted_ops)
-    gid, start, end, live, num_groups, leader, group_live = _group_frame(
-        new_group, count, cap)
-    leader_src = perm[leader]  # one gather instead of two
-    out_cols = [kc.take(leader_src, valid_mask=group_live) for kc in key_cols]
-    out_cols += _aggregate_groups(cols, live, gid, start, end, new_group,
-                                  group_live, aggs, ddof, cap, gather=perm)
-    return tuple(out_cols), num_groups
+    column per (value column, op).  Returns (columns, group_count).  In
+    a span ``groupby``."""
+    with obs_spans.span("groupby"):
+        cap = cols[0].capacity
+        dev = cols[0].device
+        count = torch.as_tensor(count, dtype=torch.int32, device=dev)
+        key_cols = [cols[i] for i in key_idx]
+        operands = keys.build_operands(key_cols, count, cap)
+        perm, sorted_ops = keys.lexsort_indices(operands, cap)
+        new_group = ~keys.rows_equal_adjacent(sorted_ops)
+        gid, start, end, live, num_groups, leader, group_live = _group_frame(
+            new_group, count, cap)
+        leader_src = perm[leader]  # one gather instead of two
+        out_cols = [kc.take(leader_src, valid_mask=group_live)
+                    for kc in key_cols]
+        out_cols += _aggregate_groups(cols, live, gid, start, end, new_group,
+                                      group_live, aggs, ddof, cap, gather=perm)
+        return tuple(out_cols), num_groups
 
 
 def pipeline_groupby(cols: Sequence[Column], count,
@@ -307,18 +311,19 @@ def pipeline_groupby(cols: Sequence[Column], count,
                      aggs: Tuple[Tuple[int, AggOp], ...], ddof: int = 0):
     """Group-by for key-grouped input (reference: pipeline_groupby.cpp):
     group boundaries come from adjacent comparison in row order, with no
-    sort."""
-    cap = cols[0].capacity
-    dev = cols[0].device
-    count = torch.as_tensor(count, dtype=torch.int32, device=dev)
-    key_cols = [cols[i] for i in key_idx]
-    operands = [keys.padding_operand(cap, count, dev)]
-    for kc in key_cols:
-        operands.extend(keys.column_operands(kc))
-    new_group = ~keys.rows_equal_adjacent(keys.pack_operands(operands))
-    gid, start, end, live, num_groups, leader, group_live = _group_frame(
-        new_group, count, cap)
-    out_cols = [kc.take(leader, valid_mask=group_live) for kc in key_cols]
-    out_cols += _aggregate_groups(cols, live, gid, start, end, new_group,
-                                  group_live, aggs, ddof, cap)
-    return tuple(out_cols), num_groups
+    sort.  In a span ``groupby``."""
+    with obs_spans.span("groupby"):
+        cap = cols[0].capacity
+        dev = cols[0].device
+        count = torch.as_tensor(count, dtype=torch.int32, device=dev)
+        key_cols = [cols[i] for i in key_idx]
+        operands = [keys.padding_operand(cap, count, dev)]
+        for kc in key_cols:
+            operands.extend(keys.column_operands(kc))
+        new_group = ~keys.rows_equal_adjacent(keys.pack_operands(operands))
+        gid, start, end, live, num_groups, leader, group_live = _group_frame(
+            new_group, count, cap)
+        out_cols = [kc.take(leader, valid_mask=group_live) for kc in key_cols]
+        out_cols += _aggregate_groups(cols, live, gid, start, end, new_group,
+                                      group_live, aggs, ddof, cap)
+        return tuple(out_cols), num_groups

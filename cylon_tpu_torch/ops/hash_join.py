@@ -25,11 +25,14 @@ before hashing, so keys that compare equal always meet; the JAX package
 hashes raw float bits and misses the match of ``0.0`` with ``-0.0``.
 
 Every round reads the loop state on the host (the reference's
-``~all(done) & it < slots + 2``), so each round costs one device sync.
-A round works only on the rows still unsettled, which the reference masks
-instead of dropping; settled rows never change, so the table, the owners
-and the matches are the reference's.  ``ROUNDS`` counts the build and
-probe rounds.
+``~all(done) & it < slots + 2``): a round works only on the rows still
+unsettled, which the reference masks instead of dropping, and dropping
+the settled rows from the row list and from its probe counts is two
+device syncs (``sync.hash_build_round`` / ``sync.hash_probe_round``);
+listing the live rows before the first round is one more each
+(``sync.hash_build_rows`` / ``sync.hash_probe_rows``).  Settled rows
+never change, so the table, the owners and the matches are the
+reference's.  ``ROUNDS`` counts the build and probe rounds.
 
 No Pallas kernel stands behind the reference's loops (they are
 ``lax.while_loop``s of XLA ops), so this is plain PyTorch on either
@@ -45,6 +48,7 @@ import torch
 from .. import precision
 from ..column import Column
 from ..config import JoinType
+from ..obs import spans as obs_spans
 from ..utils import pow2ceil
 from . import common, hashing, keys, scan
 
@@ -106,7 +110,8 @@ def _build(h_r: torch.Tensor, live_r: torch.Tensor, ops, cap_l: int,
     dev = h_r.device
     tab = torch.full((slots,), _EMPTY, dtype=torch.int32, device=dev)
     owner = torch.full((cap_r,), _EMPTY, dtype=torch.int32, device=dev)
-    act = torch.nonzero(live_r).squeeze(1)  # unplaced rows, ascending
+    # unplaced rows, ascending
+    act = obs_spans.host_select(live_r, "hash_build_rows")
     p = torch.zeros(act.shape, dtype=torch.int64, device=dev)
     it = 0
     while act.numel() and it < slots + 2:
@@ -125,7 +130,9 @@ def _build(h_r: torch.Tensor, live_r: torch.Tensor, ops, cap_l: int,
         owner[act] = torch.where(won, rid, torch.where(dup, occ, owner[act]))
         step = ~empty & ~dup
         left = ~(won | dup)
-        act, p = act[left], (p + step.to(torch.int64))[left]
+        act, p = (obs_spans.host_select(left, "hash_build_round", act),
+                  obs_spans.host_select(left, "hash_build_round",
+                                        p + step.to(torch.int64)))
         it += 1
         ROUNDS["build"] += 1
     return tab, owner
@@ -138,7 +145,7 @@ def _probe(h_l: torch.Tensor, live_l: torch.Tensor, tab: torch.Tensor, ops,
     cap_l = h_l.shape[0]
     dev = h_l.device
     rep = torch.full((cap_l,), -1, dtype=torch.int32, device=dev)
-    act = torch.nonzero(live_l).squeeze(1)
+    act = obs_spans.host_select(live_l, "hash_probe_rows")
     p = torch.zeros(act.shape, dtype=torch.int64, device=dev)
     it = 0
     while act.numel() and it < slots + 2:
@@ -148,7 +155,8 @@ def _probe(h_l: torch.Tensor, live_l: torch.Tensor, tab: torch.Tensor, ops,
         hit = ~empty & _row_eq(ops, act, cap_l + occ_l)
         rep[act] = torch.where(hit, occ, rep[act])
         left = ~empty & ~hit
-        act, p = act[left], p[left] + 1
+        act, p = (obs_spans.host_select(left, "hash_probe_round", act),
+                  obs_spans.host_select(left, "hash_probe_round", p) + 1)
         it += 1
         ROUNDS["probe"] += 1
     return rep

@@ -24,6 +24,7 @@ import torch
 from .. import precision
 from ..column import Column
 from ..config import JoinAlgorithm, JoinType, join_algorithm
+from ..obs import spans as obs_spans
 from ..status import Code, CylonError
 from . import common, compact, hash_join, scan, segments
 
@@ -107,14 +108,16 @@ def join_row_count(cols_l: Sequence[Column], count_l,
                    cols_r: Sequence[Column], count_r,
                    left_on: Tuple[int, ...], right_on: Tuple[int, ...],
                    join_type: JoinType, algorithm="sort"):
-    """Exact output row count of the join (0-d int32 tensor)."""
-    _, matches, _, live_l, unmatched_r, _ = _ranges(
-        cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
-        algorithm)
-    _, _, total = _emission(matches, live_l, join_type)
-    if join_type in (JoinType.RIGHT, JoinType.FULL_OUTER):
-        total = total + unmatched_r.sum(dtype=torch.int32)
-    return total
+    """Exact output row count of the join (0-d int32 tensor), in a span
+    ``join.count``."""
+    with obs_spans.span("join.count"):
+        _, matches, _, live_l, unmatched_r, _ = _ranges(
+            cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
+            algorithm)
+        _, _, total = _emission(matches, live_l, join_type)
+        if join_type in (JoinType.RIGHT, JoinType.FULL_OUTER):
+            total = total + unmatched_r.sum(dtype=torch.int32)
+        return total
 
 
 def _running_max(x: torch.Tensor) -> torch.Tensor:
@@ -138,87 +141,89 @@ def join_gather(cols_l: Sequence[Column], count_l,
     without another sort: in key order on the sort path, where the
     combined lexsort gives the left rows' key order; on the hash path,
     which has none, by a stable sort of the left rows on ``lo``, which
-    names a matched row's key group."""
-    lo, matches, perm_r, live_l, unmatched_r, left_key_order = _ranges(
-        cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
-        algorithm)
-    dev = lo.device
-    perm_l = None
-    if key_grouped:
-        if join_type != JoinType.INNER:
-            raise ValueError("key_grouped join output requires INNER")
-        matched = live_l & (matches > 0)
-        if left_key_order is None:
-            order_key = torch.where(matched, lo, torch.full(
-                (), _I32_MAX, dtype=torch.int32, device=dev))
-            perm_l = torch.sort(order_key, stable=True).indices.to(
-                torch.int32)
+    names a matched row's key group.  In a span ``join.gather``."""
+    with obs_spans.span("join.gather"):
+        lo, matches, perm_r, live_l, unmatched_r, left_key_order = _ranges(
+            cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
+            algorithm)
+        dev = lo.device
+        perm_l = None
+        if key_grouped:
+            if join_type != JoinType.INNER:
+                raise ValueError("key_grouped join output requires INNER")
+            matched = live_l & (matches > 0)
+            if left_key_order is None:
+                order_key = torch.where(matched, lo, torch.full(
+                    (), _I32_MAX, dtype=torch.int32, device=dev))
+                perm_l = torch.sort(order_key, stable=True).indices.to(
+                    torch.int32)
+            else:
+                part, _ = compact.partition_indices(matched[left_key_order])
+                perm_l = left_key_order[part]
+            lo = lo[perm_l]
+            matches = matches[perm_l]
+            live_l = live_l[perm_l]
+        emit, csum, total = _emission(matches, live_l, join_type)
+
+        k = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+        cap_l = emit.shape[0]
+        cap_r = perm_r.shape[0]
+        base_l = csum - emit
+        if compact.permute_mode() == "sort":
+            # slot k's left row is searchsorted(csum, k, 'right'): csum is
+            # monotone, so it is the count of rows with csum <= k
+            li = compact.count_leq_dense(csum, out_capacity).clamp(
+                0, cap_l - 1)
         else:
-            part, _ = compact.partition_indices(matched[left_key_order])
-            perm_l = left_key_order[part]
-        lo = lo[perm_l]
-        matches = matches[perm_l]
-        live_l = live_l[perm_l]
-    emit, csum, total = _emission(matches, live_l, join_type)
+            # each emitting row drops its index at its first output slot
+            # (bases are distinct); rows that emit nothing or fall past the
+            # capacity write an extra slot that is cut off; a running max
+            # fills the runs
+            iota_l = torch.arange(cap_l, dtype=torch.int32, device=dev)
+            dest = torch.where((emit > 0) & (base_l < out_capacity), base_l,
+                               torch.full((), out_capacity, dtype=torch.int32,
+                                          device=dev))
+            marker = torch.full((out_capacity + 1,), -1, dtype=torch.int32,
+                                device=dev)
+            marker.index_put_((dest,), iota_l)
+            li = _running_max(marker[:out_capacity]).clamp(0, cap_l - 1)
+        base = base_l[li]
+        within = k - base
+        matched = matches[li] > 0
+        r_sorted_pos = lo[li] + within
+        ridx_inner = perm_r[r_sorted_pos.clamp(0, cap_r - 1)]
 
-    k = torch.arange(out_capacity, dtype=torch.int32, device=dev)
-    cap_l = emit.shape[0]
-    cap_r = perm_r.shape[0]
-    base_l = csum - emit
-    if compact.permute_mode() == "sort":
-        # slot k's left row is searchsorted(csum, k, 'right'): csum is
-        # monotone, so it is the count of rows with csum <= k
-        li = compact.count_leq_dense(csum, out_capacity).clamp(0, cap_l - 1)
-    else:
-        # each emitting row drops its index at its first output slot
-        # (bases are distinct); rows that emit nothing or fall past the
-        # capacity write an extra slot that is cut off; a running max
-        # fills the runs
-        iota_l = torch.arange(cap_l, dtype=torch.int32, device=dev)
-        dest = torch.where((emit > 0) & (base_l < out_capacity), base_l,
-                           torch.full((), out_capacity, dtype=torch.int32,
-                                      device=dev))
-        marker = torch.full((out_capacity + 1,), -1, dtype=torch.int32,
-                            device=dev)
-        marker.index_put_((dest,), iota_l)
-        li = _running_max(marker[:out_capacity]).clamp(0, cap_l - 1)
-    base = base_l[li]
-    within = k - base
-    matched = matches[li] > 0
-    r_sorted_pos = lo[li] + within
-    ridx_inner = perm_r[r_sorted_pos.clamp(0, cap_r - 1)]
+        in_main = k < total
+        lvalid = in_main
+        rvalid = in_main & matched
+        lidx = li if perm_l is None else perm_l[li]
+        ridx = torch.where(rvalid, ridx_inner,
+                           torch.zeros((), dtype=torch.int32, device=dev))
 
-    in_main = k < total
-    lvalid = in_main
-    rvalid = in_main & matched
-    lidx = li if perm_l is None else perm_l[li]
-    ridx = torch.where(rvalid, ridx_inner,
-                       torch.zeros((), dtype=torch.int32, device=dev))
+        out_count = total
+        if join_type in (JoinType.RIGHT, JoinType.FULL_OUTER):
+            perm_u, m = compact.compact_indices(unmatched_r)
+            tail = k - total
+            in_tail = (k >= total) & (tail < m)
+            ridx_tail = perm_u[tail.clamp(0, cap_r - 1)]
+            ridx = torch.where(in_tail, ridx_tail, ridx)
+            rvalid = rvalid | in_tail
+            lvalid = lvalid & ~in_tail
+            out_count = total + m
 
-    out_count = total
-    if join_type in (JoinType.RIGHT, JoinType.FULL_OUTER):
-        perm_u, m = compact.compact_indices(unmatched_r)
-        tail = k - total
-        in_tail = (k >= total) & (tail < m)
-        ridx_tail = perm_u[tail.clamp(0, cap_r - 1)]
-        ridx = torch.where(in_tail, ridx_tail, ridx)
-        rvalid = rvalid | in_tail
-        lvalid = lvalid & ~in_tail
-        out_count = total + m
-
-    n_l = len(cols_l)
-    n_out = n_l + len(cols_r)
-    if project is None:
-        project = tuple(range(n_out))
-    bad = [j for j in project if not 0 <= j < n_out]
-    if bad:
-        raise ValueError(f"project indices {bad} out of range for "
-                         f"{n_out} output columns (left {n_l} ++ right "
-                         f"{n_out - n_l}; negatives not supported)")
-    out = []
-    for j in project:
-        if j < n_l:
-            out.append(cols_l[j].take(lidx, valid_mask=lvalid))
-        else:
-            out.append(cols_r[j - n_l].take(ridx, valid_mask=rvalid))
-    return tuple(out), out_count
+        n_l = len(cols_l)
+        n_out = n_l + len(cols_r)
+        if project is None:
+            project = tuple(range(n_out))
+        bad = [j for j in project if not 0 <= j < n_out]
+        if bad:
+            raise ValueError(f"project indices {bad} out of range for "
+                             f"{n_out} output columns (left {n_l} ++ right "
+                             f"{n_out - n_l}; negatives not supported)")
+        out = []
+        for j in project:
+            if j < n_l:
+                out.append(cols_l[j].take(lidx, valid_mask=lvalid))
+            else:
+                out.append(cols_r[j - n_l].take(ridx, valid_mask=rvalid))
+        return tuple(out), out_count

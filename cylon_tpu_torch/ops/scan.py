@@ -40,7 +40,13 @@ kernel's own contract says (``pallas_scan.py:26-31``).
 A wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts the
 wrappers' kernel launches, one per call; ``CALLS`` counts their calls,
-kernel or plain version (the cylint budgets read it).
+kernel or plain version (the cylint budgets read it).  Beside
+``LAUNCHES``, ``ELEMENTS`` counts the launches' elements and ``BYTES``
+the least bytes each launch must move: its input read once and its
+output written once at the dtype's size, and ``segmented_scan``'s reset
+flags read once (1 B an element); the recursion over tile totals, the
+look-back's status words and the memset are not counted, so bytes over
+the kernels' time cannot pass the memory bound.
 """
 from __future__ import annotations
 
@@ -55,11 +61,20 @@ SCAN_1D_TILE = 4096  # kLbTile in cuda/scan.cu
 
 LAUNCHES = {"scan_1d": 0, "segmented_scan": 0}
 CALLS = {"scan_1d": 0, "segmented_scan": 0}
+ELEMENTS = {"scan_1d": 0, "segmented_scan": 0}
+BYTES = {"scan_1d": 0, "segmented_scan": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = ELEMENTS[k] = BYTES[k] = 0
+
+
+def _count(kind: str, x: torch.Tensor, flag_bytes: int) -> None:
+    n = x.shape[0]
+    LAUNCHES[kind] += 1
+    ELEMENTS[kind] += n
+    BYTES[kind] += n * (2 * x.element_size() + flag_bytes)
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -209,7 +224,7 @@ def scan_1d(x: torch.Tensor, op: str, reverse: bool = False) -> torch.Tensor:
         raise ValueError("scan_1d: contiguous input required")
     out = torch.empty_like(x)
     _launch_1d(x, out, op, reverse)
-    LAUNCHES["scan_1d"] += 1
+    _count("scan_1d", x, 0)
     return out
 
 
@@ -231,5 +246,5 @@ def segmented_scan(x: torch.Tensor, reset: torch.Tensor,
         raise ValueError("segmented_scan: contiguous inputs required")
     out = torch.empty_like(x)
     _launch_segmented(x, reset.view(torch.uint8), out, op)
-    LAUNCHES["segmented_scan"] += 1
+    _count("segmented_scan", x, 1)
     return out

@@ -50,6 +50,7 @@ from . import exec as exec_mod
 from .column import DEFAULT_STRING_WIDTH, Column
 from .config import JoinType
 from .context import CylonContext
+from .obs import spans as obs_spans
 from .ops import groupby, join
 from .table import Table, _shard_plan, cap_round  # noqa: F401
 
@@ -86,8 +87,9 @@ def tables(lk, lv, rk, rv, device=None):
 
 def join_count(cols_l, cnt_l, cols_r, cnt_r, algo: str = "sort") -> int:
     """Exact inner-join row count (synchronises with the device)."""
-    return int(join.join_row_count(cols_l, cnt_l, cols_r, cnt_r, (0,), (0,),
-                                   JoinType.INNER, algo))
+    return int(obs_spans.host_read(join.join_row_count(
+        cols_l, cnt_l, cols_r, cnt_r, (0,), (0,), JoinType.INNER, algo),
+        "join_count"))
 
 
 def join_groupby(cols_l, cnt_l, cols_r, cnt_r, out_cap: int,

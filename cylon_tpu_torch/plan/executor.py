@@ -204,8 +204,9 @@ def _join_counts(ctx, counts) -> np.ndarray:
     from ..parallel import collectives
 
     dev = counts[0].device
-    local = torch.stack([torch.as_tensor(c).to(dev).reshape(())
-                         .to(torch.int64) for c in counts]).cpu().numpy()
+    local = obs_spans.host_read(torch.stack(
+        [torch.as_tensor(c).to(dev).reshape(()).to(torch.int64)
+         for c in counts]), "join_count").numpy()
     return collectives.process_allgather(local, ctx.group)
 
 
@@ -231,14 +232,19 @@ class _Executor:
         prof = self.profile
         if prof is None:
             return self._exec_node(p)
-        # profiled: two clock reads + a handful of counter reads around
-        # the node, plus one row-count fetch of the ALREADY-materialized
-        # result — the node's subtree deltas; finalize() subtracts
-        # recorded descendants for self values.
+        # profiled: two clock reads (and on a card two timing events) +
+        # a handful of counter reads around the node, plus one row-count
+        # fetch of the ALREADY-materialized result — the node's subtree
+        # deltas; finalize() subtracts recorded descendants for self
+        # values.
         before = profile_mod.counters_now()
+        ev0 = profile_mod.device_event(self.ctx)
         t0 = time.perf_counter_ns()
         t = self._exec_node(p)
-        prof.record_node(p, t, time.perf_counter_ns() - t0, before)
+        wall = time.perf_counter_ns() - t0
+        ev1 = profile_mod.device_event(self.ctx)
+        prof.record_node(p, t, wall, before,
+                         None if ev0 is None else (ev0, ev1))
         return t
 
     def _exec_node(self, p: optimizer.Phys):
@@ -309,10 +315,14 @@ class _Executor:
         if prof is None:
             return self._exec_chain_node(p, keep)
         before = profile_mod.counters_now()
+        ev0 = profile_mod.device_event(self.ctx)
         t0 = time.perf_counter_ns()
         t = self._exec_chain_node(p, keep)
+        wall = time.perf_counter_ns() - t0
+        ev1 = profile_mod.device_event(self.ctx)
         if p.nid not in prof.nodes:
-            prof.record_node(p, t, time.perf_counter_ns() - t0, before)
+            prof.record_node(p, t, wall, before,
+                             None if ev0 is None else (ev0, ev1))
         return t
 
     def _exec_chain_node(self, p: optimizer.Phys, keep: Tuple[str, ...]):

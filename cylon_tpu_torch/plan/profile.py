@@ -11,7 +11,11 @@ program, no side-channel):
   ``perf_counter_ns`` reads and a handful of ``obs.metrics`` counter
   reads (``shuffle.bytes_sent``/``bytes_saved``, launches), so a node's
   ACTUALS are the deltas its subtree
-  produced — exchange bytes land on the node that shuffled;
+  produced — exchange bytes land on the node that shuffled; on a CUDA
+  card also two CUDA timing events on the card's current stream, whose
+  stream time (``device_ns``: the subtree's device work plus any stream
+  idle inside it) resolves at :meth:`PlanProfile.finalize` (None on the
+  CPU);
 - row counts come from the node's materialized Table (per-shard counts,
   gathered over a process group, so per-node partition SKEW — max/mean
   shard rows and the slowest shard — falls out of data the engine
@@ -29,8 +33,9 @@ column cardinality, join-key selectivity, filter selectivity, per-node
 skew — that the adaptive cost model (``plan/cost.py``) consumes.
 
 Profiling is host-side by construction (counter reads, host timestamps,
-row-count fetches of already-materialized tables): the kernels and
-their launches are untouched, and with the profiler off
+row-count fetches of already-materialized tables, timing events that
+never sync): the kernels and their launches are untouched, and with the
+profiler off
 (``CYLON_TPU_PROFILE`` unset, no ``analyze=True``) the executor does no
 profiling work.  A copy of ``cylon_tpu/plan/profile.py``.
 """
@@ -42,6 +47,7 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import config
 from ..obs import metrics as obs_metrics
@@ -69,6 +75,17 @@ def profiler_enabled() -> bool:
 
 def counters_now() -> Tuple[float, ...]:
     return tuple(obs_metrics.counter_value(n) for n in PROFILED_COUNTERS)
+
+
+def device_event(ctx) -> "Optional[torch.cuda.Event]":
+    """A CUDA timing event recorded now on the current stream of ``ctx``'s
+    first card, or None where the context runs on the CPU."""
+    dev = torch.device(ctx.devices[0])
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
 
 
 def describe(node: ir.Node) -> str:
@@ -113,16 +130,20 @@ class PlanProfile:
     # -- recording (executor hot path) -----------------------------------
 
     def record_node(self, p, table, wall_ns: int,
-                    before: Tuple[float, ...]) -> None:
+                    before: Tuple[float, ...], events=None) -> None:
         """Store one node's subtree actuals (called as ``_exec(p)``
-        returns, so children recorded first)."""
+        returns, so children recorded first); ``events`` is the (start,
+        end) pair of :func:`device_event` around the node, or None."""
         deltas = {n: obs_metrics.counter_value(n) - b
                   for n, b in zip(PROFILED_COUNTERS, before)}
         rec: Dict[str, object] = {
             "rows": 0,
             "wall_ns": int(wall_ns),
+            "device_ns": None,
             "metrics": {k: v for k, v in deltas.items() if v},
         }
+        if events is not None:
+            rec["events"] = events
         rc = table.row_counts  # global, in shard order (collective)
         rec["rows"] = int(rc.sum())
         if table.num_shards > 1:
@@ -137,7 +158,8 @@ class PlanProfile:
         rows are the join's own."""
         sc = [int(x) for x in np.asarray(shard_counts).reshape(-1)]
         rec: Dict[str, object] = {"rows": int(sum(sc)), "wall_ns": 0,
-                                  "metrics": {}, "fused": True}
+                                  "device_ns": None, "metrics": {},
+                                  "fused": True}
         if len(sc) > 1:
             rec["shard_rows"] = sc
         self.nodes[int(p.nid)] = rec
@@ -168,6 +190,14 @@ class PlanProfile:
             return int(rec["wall_ns"])
         return sum(self._eff_wall(c) for c in p.children)
 
+    def _eff_device(self, p) -> Optional[int]:
+        """``_eff_wall`` on the device clock (None: not timed there)."""
+        rec = self.nodes.get(p.nid)
+        if rec is not None and not rec.get("fused"):
+            return rec["device_ns"]
+        kids = [self._eff_device(c) for c in p.children]
+        return None if None in kids else sum(kids)
+
     def _eff_metric(self, p, name: str) -> float:
         rec = self.nodes.get(p.nid)
         if rec is not None and not rec.get("fused"):
@@ -182,6 +212,12 @@ class PlanProfile:
         if self._finalized:
             return
         self._finalized = True
+        for rec in self.nodes.values():
+            events = rec.pop("events", None)
+            if events is not None:
+                events[1].synchronize()
+                rec["device_ns"] = int(events[0].elapsed_time(events[1])
+                                       * 1e6)
 
         def walk(p, depth: int) -> None:
             rec = self.nodes.get(p.nid)
@@ -189,6 +225,7 @@ class PlanProfile:
                 rec["depth"] = depth
                 rec["kind"] = p.node.kind
                 rec["desc"] = describe(p.node)
+                rec["device_self_ns"] = None
                 if rec.get("fused"):
                     # rows-only record: cost lives with the fusing parent
                     rec["self_ns"] = 0
@@ -196,6 +233,10 @@ class PlanProfile:
                 else:
                     kid_wall = sum(self._eff_wall(c) for c in p.children)
                     rec["self_ns"] = max(0, rec["wall_ns"] - kid_wall)
+                    kid_dev = [self._eff_device(c) for c in p.children]
+                    if rec["device_ns"] is not None and None not in kid_dev:
+                        rec["device_self_ns"] = max(
+                            0, rec["device_ns"] - sum(kid_dev))
                     self_m: Dict[str, float] = {}
                     for name in PROFILED_COUNTERS:
                         v = rec["metrics"].get(name, 0) - sum(
@@ -337,6 +378,9 @@ class PlanProfile:
             parts.append("fused(count pass)")
         else:
             parts.append(f"self={rec.get('self_ns', 0) / 1e6:.1f}ms")
+            if rec.get("device_self_ns") is not None:
+                parts.append(
+                    f"device_self={rec['device_self_ns'] / 1e6:.1f}ms")
         sm = rec.get("self_metrics", {})
         if sm.get("shuffle.bytes_sent"):
             parts.append(f"bytes_sent={int(sm['shuffle.bytes_sent'])}")
@@ -359,6 +403,8 @@ class PlanProfile:
                 "rows": n["rows"], "est_rows": self.est_rows(nid),
                 "wall_ms": round(n["wall_ns"] / 1e6, 3),
                 "self_ms": round(n.get("self_ns", 0) / 1e6, 3),
+                "device_ms": _ms(n.get("device_ns")),
+                "device_self_ms": _ms(n.get("device_self_ns")),
                 "metrics": n.get("self_metrics", {}),
                 "shard_rows": n.get("shard_rows"),
                 "skew": n.get("skew"),
@@ -390,6 +436,10 @@ class PlanProfile:
             log.warning("profile: artifact export failed (%s: %s)",
                         type(e).__name__, e)
             return None
+
+
+def _ms(ns: Optional[int]) -> Optional[float]:
+    return None if ns is None else round(ns / 1e6, 3)
 
 
 def load_profile(path: str) -> dict:

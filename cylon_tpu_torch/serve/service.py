@@ -647,8 +647,8 @@ class QueryService:
         bind_error: Optional[Exception] = None
         if self._card is not None:
             # a fresh thread's current card is cuda:0: bind the
-            # context's, so every launch (and a TRACE_SYNC fence) lands
-            # on the device the context names.  Should the bind fail,
+            # context's, so every launch (and a span's timing event)
+            # lands on the device the context names.  Should the bind fail,
             # every request fails with its classified error; none hangs
             try:
                 torch.cuda.set_device(self._card)

@@ -134,7 +134,9 @@ class Table:
     def _local_row_counts(self) -> np.ndarray:
         """This process's shards' live-row counts on the host."""
         dev = self.counts[0].device
-        return torch.stack([c.to(dev) for c in self.counts]).cpu().numpy()
+        return obs_spans.host_read(
+            torch.stack([c.to(dev) for c in self.counts]),
+            "row_counts").numpy()
 
     @property
     def row_count(self) -> int:
@@ -1463,24 +1465,22 @@ def _local_join(left: Table, right: Table, cfg: JoinConfig) -> Table:
     output count, ``cap_round`` of the largest (over every process), one
     gather per shard at that common capacity."""
     pairs = list(zip(left.shards, left.counts, right.shards, right.counts))
-    with obs_spans.span("join.count"):
-        counts = [join_mod.join_row_count(a, ca, b, cb, cfg.left_on,
-                                          cfg.right_on, cfg.join_type,
-                                          cfg.algorithm)
-                  for a, ca, b, cb in pairs]
-        most = max(int(c) for c in counts)
-        if left.ctx.group is not None:  # one capacity on every process
-            most = int(collectives.process_allgather(
-                np.array([most], np.int64), left.ctx.group).max())
+    counts = [join_mod.join_row_count(a, ca, b, cb, cfg.left_on,
+                                      cfg.right_on, cfg.join_type,
+                                      cfg.algorithm)
+              for a, ca, b, cb in pairs]
+    most = max(int(obs_spans.host_read(c, "join_count")) for c in counts)
+    if left.ctx.group is not None:  # one capacity on every process
+        most = int(collectives.process_allgather(
+            np.array([most], np.int64), left.ctx.group).max())
     out_cap = cap_round(max(1, most))
     shards, out_counts = [], []
-    with obs_spans.span("join.gather"):
-        for a, ca, b, cb in pairs:
-            cols, m = join_mod.join_gather(a, ca, b, cb, cfg.left_on,
-                                           cfg.right_on, cfg.join_type,
-                                           out_cap, cfg.algorithm)
-            shards.append(cols)
-            out_counts.append(m)
+    for a, ca, b, cb in pairs:
+        cols, m = join_mod.join_gather(a, ca, b, cb, cfg.left_on,
+                                       cfg.right_on, cfg.join_type,
+                                       out_cap, cfg.algorithm)
+        shards.append(cols)
+        out_counts.append(m)
     return left._like(shards, out_counts,
                       _join_output_names(left, right, cfg))
 

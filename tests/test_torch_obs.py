@@ -5,7 +5,7 @@ JAX package's on the same calls.
 Twins of every test of ``tests/test_obs.py``: span nesting and
 attributes, the buffer cap through ``CYLON_TPU_TRACE_BUFFER_CAP`` (drops
 counted, never grown), the disabled mode's no-op singleton, the default
-mode's aggregates, the ``utils`` timing shim, the sync fence, the
+mode's aggregates, the ``utils`` timing shim, the
 Perfetto round trip, per-rank export names, a deterministic metrics
 snapshot, the device-memory watermark gauge, the shuffle's collective
 launches, a distributed join's nested spans and the task shuffle's
@@ -160,13 +160,6 @@ def test_timing_shim_is_the_same_substrate(clean_obs):
         pass
     assert timing_report()["shimmed"][1] == 1
     assert obs_spans.aggregate_report()["shimmed"][1] == 1
-
-
-def test_trace_sync_knob_fences_without_error(clean_obs):
-    with config.knob_env(CYLON_TPU_TRACE="1", CYLON_TPU_TRACE_SYNC="1"):
-        with span("synced"):
-            torch.ones(4).sum()
-    assert obs_spans.events()[0].name == "synced"
 
 
 def test_perfetto_schema_roundtrip(clean_obs, tmp_path):

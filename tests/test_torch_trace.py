@@ -646,28 +646,6 @@ def test_critical_path_selects_requested_trace(tmp_path):
     assert _walk(tmp_path, events)["trace_id"] == T2
 
 
-def test_trace_sync_fences_only_where_cuda_ran(clean_trace, monkeypatch):
-    """``CYLON_TPU_TRACE_SYNC`` fences at every span boundary; a process
-    that never initialized CUDA has nothing to drain, so the fence is a
-    no-op there."""
-    import torch
-
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda *a: calls.append(a))
-    with config.knob_env(CYLON_TPU_TRACE_SYNC="1"):
-        with obs_spans.span("fenced"):
-            pass
-        assert calls == [] or torch.cuda.is_initialized()
-        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
-        with obs_spans.span("fenced"):
-            pass
-    assert len(calls) == 2  # entry and exit
-    with obs_spans.span("unfenced"):
-        pass
-    assert len(calls) == 2
-
-
 # -- propagation across an elastic barrier (the coordinator wire) ------
 
 def test_barrier_propagates_trace_across_ranks(clean_trace):
