@@ -9,7 +9,9 @@ columns.
 
 A string column's operands are its byte matrix packed into big-endian
 64-bit words (``pack_string_words``): zero padding keeps bytewise order,
-so the word tuple orders as the strings do.
+so the word tuple orders as the strings do.  A sort key of at most 4
+bytes a row is one narrow field instead (``short_string_operand``), so a
+key of short strings still fits the one-sort fast path.
 
 Torch on the CPU has no ``<<``, ``>>`` or ``%`` for ``uint32``, and no
 uint64 arithmetic, so every packed word is carried in ``int64``: a field
@@ -32,6 +34,11 @@ from . import compact, radix
 _INT64_MIN = -(1 << 63)
 _MASK32 = 0xFFFFFFFF
 _WIDE = 64  # field width of a standalone 64-bit word
+_SHORT_STRING = 4  # widest byte matrix a sort key carries as one field
+
+#: sorts ``lexsort_indices`` launched, by path: ``packed`` one a call of
+#: the one-key fast path, ``words`` one a packed word of the other
+SORTS = {"packed": 0, "words": 0}
 
 
 _BYTE_LANES = (0x00FF00FF00FF00FF, 0x0000FFFF0000FFFF)
@@ -76,6 +83,23 @@ def column_operands(col: Column, *, nulls_first: bool = True,
     return ops
 
 
+def short_string_operand(data: torch.Tensor) -> torch.Tensor:
+    """One integer operand for a uint8[n, W] byte matrix, 1 <= W <= 4,
+    whose order is the bytewise order: the W bytes as one big-endian
+    value, ``uint8`` for W = 1, else biased by -2^(8W-1) into ``int16``
+    (W = 2) or ``int32`` (W = 3, 4), whose sign bias in
+    ``_ordered_unsigned`` undoes it.  Biasing the first byte keeps every
+    partial value in the dtype's range."""
+    width = data.shape[1]
+    if width == 1:
+        return data[:, 0]
+    dt = torch.int16 if width == 2 else torch.int32
+    v = data[:, 0].to(dt) - 128
+    for j in range(1, width):
+        v = v * 256 + data[:, j].to(dt)
+    return v
+
+
 def padding_operand(capacity: int, row_count, device) -> torch.Tensor:
     """First sort operand: False for live rows, True for padding, so
     padding always sorts last."""
@@ -88,10 +112,15 @@ def build_operands(cols: Sequence[Column], row_count, capacity: int, *,
                    nulls_first: bool = True) -> List[torch.Tensor]:
     """All sort operands of a multi-column key, padding flag first.  A
     descending column flips its data operand only, so null placement
-    follows ``nulls_first`` alone."""
+    follows ``nulls_first`` alone.  A string of at most 4 bytes is one
+    narrow operand (``short_string_operand``), not a 64-bit word."""
     ops = [padding_operand(capacity, row_count, cols[0].device)]
     for i, col in enumerate(cols):
-        col_ops = column_operands(col, nulls_first=nulls_first)
+        if col.is_string and 1 <= col.string_width <= _SHORT_STRING:
+            col_ops = [col.validity if nulls_first else ~col.validity,
+                       short_string_operand(col.data)]
+        else:
+            col_ops = column_operands(col, nulls_first=nulls_first)
         if ascending is not None and not ascending[i]:
             col_ops = [col_ops[0]] + [_invert_operand(o) for o in col_ops[1:]]
         ops.extend(col_ops)
@@ -207,7 +236,10 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
                     capacity: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Stable lexicographic argsort over bit-packed operands.  Returns
     (int32 permutation, sorted packed words), the words split as the JAX
-    package splits them, so both can be compared word for word.
+    package splits them, so both can be compared word for word.  A key
+    holding a short string (``build_operands``) packs narrower fields
+    than the JAX package's 64-bit words: its words are the port's own,
+    and its permutation is still the JAX package's.
 
     Fast path: when the key fields plus a row index fit 64 bits, they are
     assembled into ONE int64 with the index in the low bits and sorted
@@ -216,7 +248,8 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
     ``CYLON_TPU_SORT=radix`` the key's significant bits are radix-sorted
     instead (``ops/radix.py``), with the same result.  Otherwise
     the packed words are sorted least significant first with stable
-    sorts."""
+    sorts.  ``SORTS`` counts the sorts: one a call on the fast path, one
+    a word on the other."""
     enc = [_ordered_unsigned(o) for o in operands]
     total_bits = sum(w for _, w in enc)
     idx_bits = compact.index_bits(capacity)
@@ -228,6 +261,7 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
         key = (key << idx_bits) | torch.arange(capacity, dtype=torch.int64,
                                                device=device)
         width = total_bits + idx_bits
+        SORTS["packed"] += 1
         if radix.sort_mode() == "radix":
             s = radix.radix_sort_packed(key, idx_bits, width)
         else:
@@ -241,6 +275,7 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
         return perm, [hi, lo]
     packed = _pack_encoded(enc)
     perm = torch.arange(capacity, dtype=torch.int64, device=device)
+    SORTS["words"] += len(packed)
     for word, width in reversed(packed):
         order = torch.sort(_sort_key(word[perm], width), stable=True).indices
         perm = perm[order]
