@@ -23,7 +23,11 @@ LOWER = {"float64": "float32", "float32": "bfloat16"}
 
 
 def control_numbers(cell, seed: int, device) -> dict:
+    """The control's numbers on the cell's inputs, made on ``device`` (a
+    one-card cell) or on the cell's list of cards."""
     import torch
+
+    from . import harness
 
     inputs = cell.generator.generate(cell.config, seed, device)
     want = cell.reference.compute(inputs, cell.config)
@@ -32,8 +36,7 @@ def control_numbers(cell, seed: int, device) -> dict:
     out = cell.reference.compare(got, want)
     del inputs, want, got
     gc.collect()
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
+    harness.free_cached(device)
     return out
 
 
@@ -42,9 +45,12 @@ def calibrate(name: str, seeds, control_seeds: int, seconds: float, device,
     from . import harness
 
     program, control = [], []
+    chips = harness.find(harness.spec()["workloads"], name,
+                         "workload")["chips"]
+    place = device if chips == 1 else harness.cards(device, chips)
     for i, seed in enumerate(seeds):
         out = harness.run_cell(name, seed, seconds, False, device,
-                               time.perf_counter(), overrides)
+                               time.perf_counter(), overrides, chips)
         program.append({"seed": seed, "correct": out["correct"],
                         "queries": out["attempted"],
                         "numbers": {k: c["value"]
@@ -53,7 +59,7 @@ def calibrate(name: str, seeds, control_seeds: int, seconds: float, device,
         if i < control_seeds:
             cell = harness.Cell(name, overrides)
             control.append({"seed": seed,
-                            "numbers": control_numbers(cell, seed, device)})
+                            "numbers": control_numbers(cell, seed, place)})
             harness.log(f"[calibrate] {name} control seed {seed}: "
                         f"{control[-1]}")
     names = program[0]["numbers"]
@@ -74,8 +80,12 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=5.0)
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
+    from . import harness
+
+    chips = harness.find(harness.spec()["workloads"], args.workload,
+                         "workload")["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"needs {chips} CUDA card(s)", file=sys.stderr)
         return 2
     rec = calibrate(args.workload, args.seeds, args.control_seeds,
                     args.seconds, torch.device("cuda", 0))

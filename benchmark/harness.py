@@ -75,7 +75,11 @@ def metrics_of(entries: list, cell: str) -> list:
 
 
 def rows(inputs: dict, tables) -> int:
+    """Rows of the first column of each table: a column is a tensor, a
+    ``(bytes, lengths)`` tuple, or a ``list`` of either, one a card."""
     def length(col):
+        if isinstance(col, list):
+            return sum(length(c) for c in col)
         return int((col[0] if isinstance(col, tuple) else col).shape[0])
 
     return sum(length(next(iter(inputs[t].values()))) for t in tables)
@@ -113,47 +117,96 @@ class Cell:
         self.per_layer = metrics_of(self.spec["per_layer"], name)
 
 
-def sync(device) -> None:
+def cards(device, chips: int) -> list:
+    """The cell's devices: ``device`` for a one-card cell; for more, cards
+    0 to ``chips`` - 1, or on the CPU ``device`` once a card, so that a
+    multi-card cell's files run on the CPU at a tiny size."""
     import torch
 
+    if chips == 1:
+        return [device]
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [device] * chips
+
+
+def _cuda(devices) -> list:
+    """The distinct CUDA cards among ``devices`` (a device or a list)."""
+    import torch
+
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    out = []
+    for d in map(torch.device, devices):
+        if d.type == "cuda" and d not in out:
+            out.append(d)
+    return out
+
+
+def sync(devices) -> None:
+    """Waits for every card of ``devices`` (a device or a list)."""
+    import torch
+
+    for d in _cuda(devices):
+        torch.cuda.synchronize(d)
+
+
+def peaks(devices) -> list:
+    """Each card's peak allocated bytes since its last reset."""
+    import torch
+
+    return [torch.cuda.max_memory_allocated(d) for d in _cuda(devices)]
+
+
+def free_cached(devices) -> None:
+    """Returns every card's cached, unused blocks to the driver."""
+    import torch
+
+    for d in _cuda(devices):
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
              t_start: float, overrides: dict | None = None,
              chips: int = 1) -> dict:
     """One run; returns the result line's object.  ``t_start`` is the
-    ``time.perf_counter()`` reading of the process's start."""
+    ``time.perf_counter()`` reading of the process's start.  A cell of
+    more than one chip runs on ``cards(device, chips)``: its data and
+    query files get that list where a one-card cell's get ``device``,
+    every card is synced and its memory read, and the trace's busy time
+    is each card's own, averaged."""
     import torch
 
     phases = {"start_to_cell": time.perf_counter() - t_start}
     t = time.perf_counter()
     cell = Cell(name, overrides)
+    devices = cards(device, chips)
+    place = device if chips == 1 else devices
     cuda = torch.device(device).type == "cuda"
     traffic = cell.traffic
     phases["cell_files"] = time.perf_counter() - t
 
     # -- set-up: inputs from the seed, the program's tables, warm-up -------
     t = time.perf_counter()
-    inputs = cell.generator.generate(cell.config, seed, device)
-    sync(device)
+    inputs = cell.generator.generate(cell.config, seed, place)
+    sync(devices)
     phases["generate"] = time.perf_counter() - t
     t = time.perf_counter()
-    state = cell.query.prepare(inputs, traffic.get("params", {}), device)
+    state = cell.query.prepare(inputs, traffic.get("params", {}), place)
     query_rows = rows(inputs, cell.query.TABLES)
-    sync(device)
+    sync(devices)
     phases["prepare"] = time.perf_counter() - t
     for i in range(traffic["warmup_queries"]):
         t = time.perf_counter()
         cell.query.run(state)
-        sync(device)
+        sync(devices)
         phases[f"warmup_{i}"] = time.perf_counter() - t
     from cylon_tpu_torch.obs import spans as obs_spans
 
-    setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+    setup_peaks = peaks(devices)
+    for d in _cuda(devices):
+        torch.cuda.reset_peak_memory_stats(d)
     obs_spans.reset_aggregates()
     setup_s = time.perf_counter() - t_start
     log("[setup] " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
@@ -166,7 +219,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
 
     def call():
         result = cell.query.run(state)
-        sync(device)
+        sync(devices)
         return result
 
     def done(index, result):
@@ -177,10 +230,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     if window.last is not None and window.last[0] not in kept:
         kept[window.last[0]] = cell.query.keep(window.last[1])  # judged
     window.last = None
-    window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    window_peaks = peaks(devices)
+    window_peak = max(window_peaks, default=0)
     span_totals = obs_spans.aggregate_report()
     failed = window.failed
-    run = SimpleNamespace(cell=cell, device=device, config=cell.config,
+    run = SimpleNamespace(cell=cell, device=device, devices=devices,
+                          config=cell.config,
                           queries=len(window.latencies),
                           latencies=window.latencies, failed=failed,
                           window_s=window.window_s, setup_s=setup_s,
@@ -188,7 +243,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
                           span_totals=span_totals, trace=None)
     log(f"[window] {run.queries} queries, {failed} failed, "
         f"{run.window_s:.3f} s; set-up {setup_s:.3f} s; window peak "
-        f"{window_peak} B")
+        f"{window_peak} B"
+        + (f" (per card {window_peaks})" if chips > 1 else ""))
 
     # -- the traced queries and the per-layer readers ----------------------
     readers = {m["name"]: reader(m["name"])
@@ -199,7 +255,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     if trace:
         from . import trace as trace_mod
 
-        run.trace = trace_mod.profile(lambda: cell.query.run(state), device,
+        run.trace = trace_mod.profile(lambda: cell.query.run(state), devices,
                                       traffic["trace_seconds"],
                                       traffic["trace_queries"])
         t = run.trace
@@ -222,8 +278,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     answers = [cell.query.answer(r) for r in kept.values()]
     del kept, state, window
     gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    free_cached(devices)
     want = cell.reference.compute(inputs, cell.config)
     numbers: dict = {}
     for got in answers:
@@ -231,8 +286,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
             numbers[k] = max(numbers.get(k, v), v)
     del answers, want, inputs
     gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    free_cached(devices)
     # a number that could not be worked out (no answer, or groups that
     # differ) is null, and fails
     checks = {k: {"value": numbers[k] if math.isfinite(numbers.get(
@@ -245,9 +299,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     metrics = {n: {"value": values[n], "unit": m["unit"]}
                for m in (cell.per_layer if trace else cell.end_to_end)
                if (n := m["name"]) in values}
+    card_peaks = [max(p) for p in zip(setup_peaks, window_peaks)]
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-           "count": chips, "memory_peak_bytes": max(setup_peak, window_peak)}
+           "count": chips, "memory_peak_bytes": max(card_peaks, default=0)}
+    if chips > 1:
+        dev["memory_peak_bytes_per_card"] = card_peaks
     if trace:
         dev.update(busy_s=run.trace.busy_s, window_s=run.trace.window_s)
     out = {"correct": correct, "attempted": run.queries, "failed": failed,

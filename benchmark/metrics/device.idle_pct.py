@@ -1,5 +1,6 @@
 """Per cent of the traced queries' wall time in which no kernel, copy or
-memset ran on the card: 100 x (1 - union of device intervals / wall)."""
+memset ran on the card: 100 x (1 - union of device intervals / wall); in
+a cell of several cards, the mean over the cards of each card's own."""
 
 
 def read(run, token=None):

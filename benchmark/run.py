@@ -92,12 +92,18 @@ def main(argv=None) -> int:
                     f"{torch.cuda.device_count()}: no result")
         return 2
     device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    torch.cuda.init()
-    torch.empty(1, device=device)  # the CUDA context
+    contexts = []
+    for card in harness.cards(device, cell["chips"]):
+        t = time.perf_counter()
+        if card == device:
+            torch.cuda.set_device(device)
+            torch.cuda.init()
+        torch.empty(1, device=card)  # the card's CUDA context
+        contexts.append(f"{card} {time.perf_counter() - t:.3f} s")
     t2 = time.perf_counter()
     harness.log(f"[start] interpreter {t0 - T_START:.3f} s, torch import "
-                f"{t1 - t0:.3f} s, CUDA context {t2 - t1:.3f} s")
+                f"{t1 - t0:.3f} s, CUDA context {t2 - t1:.3f} s "
+                f"({', '.join(contexts)})")
     out = harness.run_cell(args.workload, args.seed, args.seconds,
                            bool(args.trace), device, T_START,
                            chips=cell["chips"])

@@ -34,7 +34,9 @@ def test_names_units_and_keys():
     for w in s["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    assert sum(w["chips"] == 4 for w in s["workloads"]) <= \
+        max(1, len(s["workloads"]) // 4)
     for m in s["end_to_end"] + s["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")

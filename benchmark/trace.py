@@ -1,14 +1,17 @@
 """Device time from a ``torch.profiler`` trace of a few whole queries.
 
-The profiler's Chrome trace is read back as intervals.  The device is
-busy where a kernel, a copy or a memset runs: the union of their
-intervals, so that work on two streams at once counts once.  An idle gap
-is a stretch of the traced window that no device interval covers; it is
-named by what the host was doing at its middle: the innermost span of the
-program's own tracing (``cylon_tpu_torch.obs.spans``, buffered under
-``CYLON_TPU_TRACE=1``), the innermost operator and the innermost CUDA
-runtime call.  ``FAMILIES`` sorts kernels by the names PyTorch, CUB and
-the program's hand kernels give them."""
+The profiler's Chrome trace is read back as intervals.  A card is busy
+where a kernel, a copy or a memset runs on it (the event's
+``args.device``): the union of their intervals, so that work on two
+streams at once counts once.  An idle gap is a stretch of the traced
+window in which a card runs nothing; it is named by what the host was
+doing at its middle: the innermost span of the program's own tracing
+(``cylon_tpu_torch.obs.spans``, buffered under ``CYLON_TPU_TRACE=1``),
+the innermost operator and the innermost CUDA runtime call.  Busy time
+and idle gaps are each card's own, averaged over the cell's cards;
+kernel and family times are summed over every card.  ``FAMILIES`` sorts
+kernels by the names PyTorch, CUB and the program's hand kernels give
+them."""
 from __future__ import annotations
 
 import json
@@ -99,17 +102,19 @@ class _Cover:
 
 
 def reduce(events: List[dict], spans: List[Tuple[float, float, str]],
-           queries: int) -> Summary:
+           queries: int, cards: int = 1) -> Summary:
     """A Summary of the Chrome-trace ``events`` over the queries'
     annotations; ``spans`` are the program's spans as (start us, end us,
-    name) on the trace's clock."""
+    name) on the trace's clock.  ``cards`` is the number of cards the
+    cell uses: a card with no device event counts as idle throughout."""
     marks = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
              if e.get("name") == QUERY_MARK
              and e.get("cat", "").lower() == "user_annotation"]
     if not marks:
         return Summary(0.0, 0.0, queries)
     lo, hi = min(a for a, _ in marks), max(b for _, b in marks)
-    device, kernels, families = [], {}, {}
+    device: Dict[int, List[Tuple[float, float]]] = {}
+    kernels, families = {}, {}
     ops, runtime = [], []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
@@ -120,7 +125,8 @@ def reduce(events: List[dict], spans: List[Tuple[float, float, str]],
             a, b = max(a, lo), min(b, hi)
             if b <= a:
                 continue
-            device.append((a, b))
+            card = int((e.get("args") or {}).get("device", 0))
+            device.setdefault(card, []).append((a, b))
             name = str(e.get("name", "?"))
             kernels[name] = kernels.get(name, 0.0) + (b - a) * 1e-6
             fam = family(name)
@@ -130,33 +136,42 @@ def reduce(events: List[dict], spans: List[Tuple[float, float, str]],
             ops.append((a, b, str(e.get("name"))))
         elif cat in _RUNTIME_CATS:
             runtime.append((a, b, str(e.get("name"))))
-    busy = union(device)
+    per_card = [union(device[c]) for c in sorted(device)]
+    per_card += [[]] * max(0, cards - len(per_card))
     idle: Dict[str, float] = {}
-    covers = [_Cover(spans), _Cover(ops), _Cover(runtime)]
-    prev = lo
-    for a, b in busy + [(hi, hi)]:
-        if a > prev:
-            mid = (prev + a) / 2
-            label = " / ".join(n for n in (c.innermost(mid) for c in covers)
-                               if n) or "host"
-            idle[label] = idle.get(label, 0.0) + (a - prev) * 1e-6
-        prev = max(prev, b)
-    return Summary((hi - lo) * 1e-6, sum(b - a for a, b in busy) * 1e-6,
-                   queries, kernels, families, idle)
+    for busy in per_card:
+        covers = [_Cover(spans), _Cover(ops), _Cover(runtime)]
+        prev = lo
+        for a, b in busy + [(hi, hi)]:
+            if a > prev:
+                mid = (prev + a) / 2
+                label = " / ".join(n for n in (c.innermost(mid)
+                                               for c in covers) if n) \
+                    or "host"
+                idle[label] = idle.get(label, 0.0) + (a - prev) * 1e-6
+            prev = max(prev, b)
+    n = len(per_card)
+    busy_s = sum(sum(b - a for a, b in busy) * 1e-6 for busy in per_card)
+    return Summary((hi - lo) * 1e-6, busy_s / n, queries, kernels, families,
+                   {k: v / n for k, v in idle.items()})
 
 
-def profile(run_query: Callable[[], object], device, min_seconds: float,
-            min_queries: int) -> Summary:
+def profile(run_query: Callable[[], object], devices: list,
+            min_seconds: float, min_queries: int) -> Summary:
     """Run whole queries under ``torch.profiler`` until both minimums are
-    met, with the program's span events buffered, and reduce the trace."""
+    met, with the program's span events buffered, and reduce the trace.
+    ``devices`` are the cell's; each query's annotation ends once every
+    card has finished its work."""
     import torch
     from torch.profiler import ProfilerActivity, record_function
 
     from cylon_tpu_torch import config
     from cylon_tpu_torch.obs import spans as obs_spans
 
+    cards = sorted({d for d in map(torch.device, devices)
+                    if d.type == "cuda"}, key=str)
     activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if cards:
         activities.append(ProfilerActivity.CUDA)
     obs_spans.reset()
     n = 0
@@ -168,6 +183,8 @@ def profile(run_query: Callable[[], object], device, min_seconds: float,
         while n < min_queries or time.perf_counter() - t0 < min_seconds:
             with record_function(QUERY_MARK):
                 run_query()
+                for d in cards:
+                    torch.cuda.synchronize(d)
             n += 1
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -187,4 +204,4 @@ def profile(run_query: Callable[[], object], device, min_seconds: float,
                   ev.name) for ev in obs_spans.events()
                  if ev.ph == "X" and ev.tid == main]
     obs_spans.reset()
-    return reduce(events, spans, n)
+    return reduce(events, spans, n, max(1, len(cards)))
