@@ -16,14 +16,17 @@ the ``CYLON_TPU_TRACE`` knob (read on every ``span()`` call):
 Spans measure host wall-clock.  Device work is asynchronous, so its host
 time lands in whichever span blocks on it.  Under ``CYLON_TPU_TRACE=1``
 in a process where CUDA is initialized, each span also records one
-CUDA timing event on the current stream at entry and one at exit (no
-sync); :func:`device_report` gives each span name's stream time between
-the two: the device time of the span's work plus any stream idle inside
-the span, so in a device-paced run the span's device time.  Every host
-sync of the hot paths is a span of its own, ``sync.<site>``, made by
-:func:`host_read` or :func:`host_select`.  The flight ring
-(``CYLON_TPU_FLIGHT_RING_CAP`` events, :func:`ring_cap`; 0 turns it and
-the recorder off) keeps the most recent events in every enabled mode for
+CUDA timing event at entry and one at exit (no sync) on the stream of
+each card its work runs on: the cards of the span's ``devices`` (a
+device or a list; a shard's op passes its shard's card, an operator over
+a table its mesh's cards), else the current stream.
+:func:`device_report` gives each span name's stream time between the
+two, summed over the cards: the device time of the span's work plus any
+stream idle inside the span, so in a device-paced run the span's device
+time.  Every host sync of the hot paths is a span of its own,
+``sync.<site>``, made by :func:`host_read` or :func:`host_select`.  The
+flight ring (``CYLON_TPU_FLIGHT_RING_CAP`` events, :func:`ring_cap`; 0
+turns it and the recorder off) keeps the most recent events in every enabled mode for
 ``obs.fleet.flight_record``.  ``CYLON_TPU_DEBUG`` (or
 ``enable_log``) logs one INFO line per finished span.  Tail-based
 retention (``obs.tracectx.finish_request``) removes a closed request's
@@ -155,12 +158,12 @@ def _record(ev: Event) -> None:
 
 
 # -- device time of spans (events mode, CUDA initialized) ------------------
-# A span's (name, stream, start event, end event, attrs) waits here until
-# its end event has completed; the list is bounded apart from the event
-# buffer, and a pair that finds it full is dropped and counted.  The
-# totals are monotone: only reset_device() clears them.  Resolved events
-# go back to a free list per card, since making one costs more than
-# recording it.
+# A span's (name, [(stream, start event, end event), ...], attrs), one
+# event pair a card, waits here until its end events have completed; the
+# list is bounded apart from the event buffer, and a span that finds it
+# full is dropped and counted.  The totals are monotone: only
+# reset_device() clears them.  Resolved events go back to a free list per
+# card, since making one costs more than recording it.
 DEVICE_PENDING_CAP = 4096
 _dev_lock = threading.Lock()
 _dev_pending: "deque[tuple]" = deque()
@@ -181,32 +184,50 @@ def _recorded(stream):
     return ev
 
 
-def _device_start():
-    """(stream, start event) recorded on the current stream, or None in a
-    process where CUDA is not initialized."""
+def _streams(torch, devices) -> list:
+    """The current stream of each distinct CUDA card among ``devices`` (a
+    device or a list), or with none given the current stream."""
+    if devices is None:
+        return [torch.cuda.current_stream()]
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    cards = []
+    for d in map(torch.device, devices):
+        if d.type == "cuda":
+            d = torch.device("cuda", torch.cuda.current_device()
+                             if d.index is None else d.index)
+            if d not in cards:
+                cards.append(d)
+    return [torch.cuda.current_stream(d) for d in cards]
+
+
+def _device_start(devices=None):
+    """[(stream, start event)] recorded on each card's stream
+    (``_streams``), or None in a process where CUDA is not initialized or
+    where ``devices`` holds no CUDA card."""
     torch = sys.modules.get("torch")
     if torch is None or not torch.cuda.is_initialized():
         return None
-    stream = torch.cuda.current_stream()
-    return stream, _recorded(stream)
+    return [(s, _recorded(s)) for s in _streams(torch, devices)] or None
 
 
 def _device_end(name: str, dev, attrs) -> None:
     global _dev_dropped
-    stream, start = dev
-    end = _recorded(stream)
+    pairs = [(stream, start, _recorded(stream)) for stream, start in dev]
     with _dev_lock:
         _poll_device()
         if len(_dev_pending) >= DEVICE_PENDING_CAP:
             _dev_dropped += 1
             return
-        _dev_pending.append((name, stream, start, end, attrs))
+        _dev_pending.append((name, pairs, attrs))
 
 
-def _resolve(pair) -> None:
-    name, stream, start, end, attrs = pair
-    ms = start.elapsed_time(end)
-    _dev_free.setdefault(stream.device_index, []).extend((start, end))
+def _resolve(entry) -> None:
+    name, pairs, attrs = entry
+    ms = 0.0
+    for stream, start, end in pairs:
+        ms += start.elapsed_time(end)
+        _dev_free.setdefault(stream.device_index, []).extend((start, end))
     _dev_totals[name] = _dev_totals.get(name, 0.0) + ms * 1e-3
     _dev_counts[name] = _dev_counts.get(name, 0) + 1
     if attrs is not None:
@@ -214,9 +235,10 @@ def _resolve(pair) -> None:
 
 
 def _poll_device() -> None:
-    """Resolve the pending pairs whose end event has completed, oldest
+    """Resolve the pending spans whose end events have completed, oldest
     first, without waiting (``Event.query``).  Caller holds _dev_lock."""
-    while _dev_pending and _dev_pending[0][3].query():
+    while _dev_pending and all(end.query()
+                               for _, _, end in _dev_pending[0][1]):
         _resolve(_dev_pending.popleft())
 
 
@@ -232,9 +254,10 @@ def device_report() -> Dict[str, Tuple[float, int]]:
     event).  Monotone: ``reset`` and ``reset_aggregates`` leave it."""
     with _dev_lock:
         while _dev_pending:
-            pair = _dev_pending.popleft()
-            pair[3].synchronize()
-            _resolve(pair)
+            entry = _dev_pending.popleft()
+            for _, _, end in entry[1]:
+                end.synchronize()
+            _resolve(entry)
         return {k: (_dev_totals[k], _dev_counts[k]) for k in _dev_totals}
 
 
@@ -316,15 +339,16 @@ _NULL = _NullSpan()
 
 class _Span:
     __slots__ = ("name", "attrs", "_t0", "_d", "_buffer", "_ring", "_trace",
-                 "_dev")
+                 "_devices", "_dev")
 
     def __init__(self, name: str, attrs: Optional[Dict[str, object]],
-                 buffer: bool, ring: bool):
+                 buffer: bool, ring: bool, devices=None):
         self.name = name
         self.attrs = attrs
         self._buffer = buffer
         self._ring = ring
         self._trace = None
+        self._devices = devices
         self._dev = None
 
     def set(self, **attrs) -> "_Span":
@@ -341,7 +365,7 @@ class _Span:
             # context (None — the common case — costs one contextvar read)
             self._trace = tracectx.push_span()
         if self._buffer:
-            self._dev = _device_start()
+            self._dev = _device_start(self._devices)
         self._d = _depth()
         _tls.depth = self._d + 1
         self._t0 = time.perf_counter_ns()
@@ -374,18 +398,19 @@ class _Span:
         return False
 
 
-def span(name: str, **attrs):
+def span(name: str, devices=None, **attrs):
     """Context manager timing one named phase.
 
     Aggregate totals always accumulate (unless tracing is fully off);
     under ``CYLON_TPU_TRACE=1`` the span also lands in the event buffer
-    with its attributes.  Use ``as s`` + ``s.set(...)`` for attributes
-    known only at exit."""
+    with its attributes, and is timed on the streams of ``devices``' cards
+    (a device or a list; default the current stream).  Use ``as s`` +
+    ``s.set(...)`` for attributes known only at exit."""
     m = mode()
     if m == OFF:
         return _NULL
     # the ring knob resolves once per span, not per boundary
-    return _Span(name, attrs or None, m == EVENTS, ring_cap() > 0)
+    return _Span(name, attrs or None, m == EVENTS, ring_cap() > 0, devices)
 
 
 def instant(name: str, **attrs) -> None:

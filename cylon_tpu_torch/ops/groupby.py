@@ -288,7 +288,7 @@ def hash_groupby(cols: Sequence[Column], count, key_idx: Tuple[int, ...],
     key columns (one row per distinct live key, in key order), then one
     column per (value column, op).  Returns (columns, group_count).  In
     a span ``groupby``."""
-    with obs_spans.span("groupby"):
+    with obs_spans.span("groupby", devices=cols[0].device):
         cap = cols[0].capacity
         dev = cols[0].device
         count = torch.as_tensor(count, dtype=torch.int32, device=dev)
@@ -312,7 +312,7 @@ def pipeline_groupby(cols: Sequence[Column], count,
     """Group-by for key-grouped input (reference: pipeline_groupby.cpp):
     group boundaries come from adjacent comparison in row order, with no
     sort.  In a span ``groupby``."""
-    with obs_spans.span("groupby"):
+    with obs_spans.span("groupby", devices=cols[0].device):
         cap = cols[0].capacity
         dev = cols[0].device
         count = torch.as_tensor(count, dtype=torch.int32, device=dev)

@@ -25,7 +25,9 @@ stays right.
 A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, one
 per call; ``CALLS`` counts the wrapper's calls, kernel or plain version
-(the cylint budgets read it).
+(the cylint budgets read it).  ``BYTES`` counts the least bytes each
+launch must move: every key column's data and validity read once, the
+hash and the target written once (13 B a row for one int32 key).
 """
 from __future__ import annotations
 
@@ -45,11 +47,20 @@ MAX_COLS = 8  # CMH_MAX_COLS in cuda/murmur3.cu
 
 LAUNCHES = {"hash_partition": 0}
 CALLS = {"hash_partition": 0}
+BYTES = {"hash_partition": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = BYTES[k] = 0
+
+
+def least_bytes(cols: Sequence[Column]) -> int:
+    """The bytes one launch over ``cols`` must move: each key's data and
+    validity byte read once, the uint32 hash and int32 target written
+    once, a row each."""
+    per_row = sum(c.data.dtype.itemsize + 1 for c in cols) + 8
+    return cols[0].capacity * per_row
 
 
 def supported(cols: Sequence[Column]) -> bool:
@@ -244,4 +255,5 @@ def hash_partition(cols: Sequence[Column], world: int
         return h, t
     _launch(cols, world, h, t)
     LAUNCHES["hash_partition"] += 1
+    BYTES["hash_partition"] += least_bytes(cols)
     return h, t

@@ -110,7 +110,7 @@ def join_row_count(cols_l: Sequence[Column], count_l,
                    join_type: JoinType, algorithm="sort"):
     """Exact output row count of the join (0-d int32 tensor), in a span
     ``join.count``."""
-    with obs_spans.span("join.count"):
+    with obs_spans.span("join.count", devices=cols_l[0].device):
         _, matches, _, live_l, unmatched_r, _ = _ranges(
             cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
             algorithm)
@@ -142,7 +142,7 @@ def join_gather(cols_l: Sequence[Column], count_l,
     combined lexsort gives the left rows' key order; on the hash path,
     which has none, by a stable sort of the left rows on ``lo``, which
     names a matched row's key group.  In a span ``join.gather``."""
-    with obs_spans.span("join.gather"):
+    with obs_spans.span("join.gather", devices=cols_l[0].device):
         lo, matches, perm_r, live_l, unmatched_r, left_key_order = _ranges(
             cols_l, count_l, cols_r, count_r, left_on, right_on, join_type,
             algorithm)

@@ -194,6 +194,14 @@ def _ordered_unsigned(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return x.to(torch.int64), w
 
 
+def _bit_width(dt: torch.dtype) -> int:
+    """The bit width ``_ordered_unsigned`` gives an operand of ``dt``."""
+    if dt == torch.bool:
+        return 1
+    w = dt.itemsize * 8
+    return _WIDE if w == 64 else w
+
+
 def pack_operands(operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Greedily bit-pack the operands' order-preserving encodings into
     32-bit words (fields MSB-first within a word; 64-bit fields pass
@@ -249,17 +257,19 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
     instead (``ops/radix.py``), with the same result.  Otherwise
     the packed words are sorted least significant first with stable
     sorts.  ``SORTS`` counts the sorts: one a call on the fast path, one
-    a word on the other."""
-    enc = [_ordered_unsigned(o) for o in operands]
-    total_bits = sum(w for _, w in enc)
+    a word on the other.  The fast path's key is built in place, one
+    operand's encoding at a time, so no two encodings live at once."""
+    total_bits = sum(_bit_width(o.dtype) for o in operands)
     idx_bits = compact.index_bits(capacity)
     device = operands[0].device
     if total_bits + idx_bits <= 64:
         key = torch.zeros(capacity, dtype=torch.int64, device=device)
-        for bits, w in enc:
-            key = (key << w) | bits
-        key = (key << idx_bits) | torch.arange(capacity, dtype=torch.int64,
-                                               device=device)
+        for o in operands:
+            bits, w = _ordered_unsigned(o)
+            key.bitwise_left_shift_(w).bitwise_or_(bits)
+            del bits
+        key.bitwise_left_shift_(idx_bits).bitwise_or_(
+            torch.arange(capacity, dtype=torch.int64, device=device))
         width = total_bits + idx_bits
         SORTS["packed"] += 1
         if radix.sort_mode() == "radix":
@@ -273,7 +283,7 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
         hi = (s >> 32) & _MASK32
         lo = (s & _MASK32) >> idx_bits
         return perm, [hi, lo]
-    packed = _pack_encoded(enc)
+    packed = _pack_encoded([_ordered_unsigned(o) for o in operands])
     perm = torch.arange(capacity, dtype=torch.int64, device=device)
     SORTS["words"] += len(packed)
     for word, width in reversed(packed):

@@ -187,18 +187,18 @@ def _launch_segmented(x: torch.Tensor, flags: torch.Tensor,
     agg_v = torch.empty(tiles, dtype=x.dtype, device=x.device)
     agg_f = torch.empty(tiles, dtype=torch.uint8, device=x.device)
     first = torch.empty(tiles, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     dt, oc = _DTYPE_CODE[x.dtype], _OP_CODE[op]
-    _check(lib.cts_tile_scan(dt, oc, x.data_ptr(), flags.data_ptr(),
-                             out.data_ptr(), agg_v.data_ptr(),
-                             agg_f.data_ptr(), first.data_ptr(), n, stream),
-           "tile_scan")
-    if tiles > 1:
-        carry = torch.empty_like(agg_v)
-        _launch_segmented(agg_v, agg_f, carry, op)
-        _check(lib.cts_fixup(dt, oc, out.data_ptr(), carry.data_ptr(),
-                             first.data_ptr(), n, stream),
-               "fixup")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib.cts_tile_scan(dt, oc, x.data_ptr(), flags.data_ptr(),
+                                 out.data_ptr(), agg_v.data_ptr(),
+                                 agg_f.data_ptr(), first.data_ptr(), n,
+                                 stream), "tile_scan")
+        if tiles > 1:
+            carry = torch.empty_like(agg_v)
+            _launch_segmented(agg_v, agg_f, carry, op)
+            _check(lib.cts_fixup(dt, oc, out.data_ptr(), carry.data_ptr(),
+                                 first.data_ptr(), n, stream), "fixup")
 
 
 def _validate(x: torch.Tensor, op: str) -> None:

@@ -85,19 +85,26 @@ def _row_bytes(cols, packed: bool, spec=None) -> int:
     return total
 
 
-def _record_exchange(cols, packed: bool, family: str, rows_exchanged: int,
+def _record_exchange(cols, packed: bool, family: str, cm,
                      spec=None) -> None:
-    """Account one exchange that ran: its data-collective launches (1
-    packed, ``buffer_count`` per buffer), the count-matrix gather and the
-    bytes moved.  Under a spec ``shuffle.bytes_sent`` is what travelled;
-    the uncompressed bytes less it go to ``shuffle.bytes_saved`` and their
-    ratio to the ``shuffle.compress_ratio`` gauge (the last exchange's)."""
+    """Account one exchange that ran, from its count matrix ``cm``: its
+    data-collective launches (1 packed, ``buffer_count`` per buffer), the
+    count-matrix gather, the bytes moved, and of them the bytes that cross
+    between shards (``shuffle.bytes_cross``: the rows off the count
+    matrix's diagonal).  Under a spec ``shuffle.bytes_sent`` is what
+    travelled; the uncompressed bytes less it go to ``shuffle.bytes_saved``
+    and their ratio to the ``shuffle.compress_ratio`` gauge (the last
+    exchange's)."""
     launches = 1 if packed else shuffle_mod.buffer_count(cols)
-    bytes_sent = rows_exchanged * _row_bytes(cols, packed, spec)
+    rows_exchanged = int(cm.sum())
+    row_bytes = _row_bytes(cols, packed, spec)
+    bytes_sent = rows_exchanged * row_bytes
     obs_metrics.counter_add("shuffle.exchanges")
     obs_metrics.counter_add("shuffle.collective_launches", launches)
     obs_metrics.counter_add("shuffle.counts_gathers")
     obs_metrics.counter_add("shuffle.bytes_sent", bytes_sent)
+    obs_metrics.counter_add("shuffle.bytes_cross",
+                            (rows_exchanged - int(cm.trace())) * row_bytes)
     if spec is not None:
         raw_bytes = rows_exchanged * _row_bytes(cols, packed)
         obs_metrics.counter_add("shuffle.bytes_saved",
@@ -126,8 +133,11 @@ def _record_broadcast(cols, packed: bool, world: int, rows_buf: int) -> None:
 
 
 def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
-              opts: Optional[SortOptions] = None):
-    """partition -> exchange; returns the shuffled Table.  A transient
+              opts: Optional[SortOptions] = None, narrow: bool = False):
+    """partition -> exchange; returns the shuffled Table, whose shards
+    are the whole receive buffers, or with ``narrow`` views of their first
+    ``cap_round`` of the most rows a shard received (the rows past a
+    shard's count are zero and invalid either way).  A transient
     failure (classified retryable) retries the whole plan and exchange
     under ``ctx.collective_retry_policy()``: the input table is untouched,
     so the retry is exact.  Compressing, the plan also observes every
@@ -141,8 +151,8 @@ def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
         resilience.fault_point("shuffle")
         pack = plane_mod.pack_enabled()
         compress = pack and plane_mod.compress_enabled()
-        with obs_spans.span("shuffle.plan", mode=mode, world=world,
-                            family="ragged"):
+        with obs_spans.span("shuffle.plan", devices=devices, mode=mode,
+                            world=world, family="ragged"):
             targets = _targets(t, key_idx, mode, opts)
             cm = shuffle_mod.count_matrix(
                 [shuffle_mod.target_counts(tg, world) for tg in targets],
@@ -154,14 +164,21 @@ def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
                 spec = plane_mod.build_spec(t.shards[0], stats, world,
                                             t.shard_capacity)
             out_cap = shuffle_mod.plan_shuffle(cm)
-        with obs_spans.span("shuffle.exchange", packed=pack, family="ragged",
-                            world=world, compressed=spec is not None):
+        with obs_spans.span("shuffle.exchange", devices=devices, packed=pack,
+                            family="ragged", world=world,
+                            compressed=spec is not None):
             shards, totals = shuffle_mod.shuffle_shard_ragged(
                 t.shards, targets, cm, world, out_cap, devices,
                 packed=pack, spec=spec, group=group, shard_ids=t.shard_ids)
+        if narrow:
+            from ..table import cap_round
+
+            cap = cap_round(max(1, int(cm.sum(axis=0).max())))
+            if cap < out_cap:
+                shards = [tuple(c.with_capacity(cap) for c in s)
+                          for s in shards]
         # the exact-traffic exchange moves exactly the rows that exist
-        _record_exchange(t.shards[0], pack, "ragged", int(cm.sum()),
-                         spec=spec)
+        _record_exchange(t.shards[0], pack, "ragged", cm, spec=spec)
         return t._like(shards, totals)
 
     out, _attempts = resilience.retry_call(
@@ -169,13 +186,14 @@ def _shuffled(t, key_idx: Tuple[int, ...], mode: str = "hash",
     return out
 
 
-def shuffle(t, key_idx: Tuple[int, ...]):
-    """Hash-repartition rows so equal keys land on the same shard.  The
-    result carries its placement, ``_partitioning = ("hash", ((key
-    names,),), world)``, so a downstream planned join or group-by on
-    compatible keys can skip its own exchange."""
+def shuffle(t, key_idx: Tuple[int, ...], narrow: bool = False):
+    """Hash-repartition rows so equal keys land on the same shard
+    (``narrow``: as ``_shuffled``).  The result carries its placement,
+    ``_partitioning = ("hash", ((key names,),), world)``, so a downstream
+    planned join or group-by on compatible keys can skip its own
+    exchange."""
     key_idx = tuple(key_idx)
-    out = _shuffled(t, key_idx, "hash")
+    out = _shuffled(t, key_idx, "hash", narrow=narrow)
     out._partitioning = ("hash", (tuple(t.names[i] for i in key_idx),),
                          t.num_shards)
     return out

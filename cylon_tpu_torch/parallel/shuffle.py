@@ -70,16 +70,18 @@ def target_counts(targets: torch.Tensor, world: int) -> torch.Tensor:
     """int32[world]: rows this shard sends to each target (padding rows
     carry target == world and fall off the end).
 
-    Under ``CYLON_TPU_PERMUTE=sort`` no histogram: a compare-and-reduce
-    over the target alphabet while ``world + 1 <= 32``, and past that
-    (where the [rows, world] compare would dwarf the rows) differences
-    of ``count_leq_dense``, as ``cylon_tpu/parallel/shuffle.py:64``."""
+    While ``world + 1 <= 32`` a compare-and-reduce over the target
+    alphabet, which needs no host sync (``torch.bincount`` reads the
+    targets' range on the host).  Past that, where the [rows, world]
+    compare would dwarf the rows: under ``CYLON_TPU_PERMUTE=sort``
+    differences of ``count_leq_dense``, as
+    ``cylon_tpu/parallel/shuffle.py:64``, else the histogram."""
+    if world + 1 <= _WIDE_MESH_CUTOFF:
+        alphabet = torch.arange(world, dtype=targets.dtype,
+                                device=targets.device)
+        return (targets[:, None] == alphabet[None, :]).sum(
+            0, dtype=torch.int32)
     if compact.permute_mode() == "sort":
-        if world + 1 <= _WIDE_MESH_CUTOFF:
-            alphabet = torch.arange(world, dtype=targets.dtype,
-                                    device=targets.device)
-            return (targets[:, None] == alphabet[None, :]).sum(
-                0, dtype=torch.int32)
         # count_leq_dense clips negatives to 0: remap them to padding
         # first, or they would count toward target 0
         leq = compact.count_leq_dense(_remap_oob_targets(targets, world),
@@ -108,13 +110,13 @@ def plan_shuffle(cm: np.ndarray) -> int:
 def count_matrix(counts: Sequence[torch.Tensor], group=None) -> np.ndarray:
     """The global count matrix on the host (a row per shard, a column per
     target), from this process's shards' ``target_counts``: one host copy
-    in one process; over a process group, one all-gather of the local
-    rows, as the reference all-gathers it."""
+    in one process (a span ``sync.shuffle_counts``); over a process group,
+    one all-gather of the local rows, as the reference all-gathers it."""
     dev = counts[0].device if group is None else group.device
     local = torch.stack([c.to(dev) for c in counts])
     if group is not None:
         local = collectives.allgather([local], [dev], group)[0]
-    return local.cpu().numpy()
+    return obs_spans.host_read(local, "shuffle_counts").numpy()
 
 
 def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
@@ -148,8 +150,9 @@ def shuffle_shard_ragged(shards: Sequence[Sequence[Column]],
                for dev in devices]
         return collectives.all_to_all(bufs, cm, out, group)
 
-    with obs_spans.span("shuffle.collective", family="all_to_all",
-                        packed=False, launches=buffer_count(shards[0])):
+    with obs_spans.span("shuffle.collective", devices=devices,
+                        family="all_to_all", packed=False,
+                        launches=buffer_count(shards[0])):
         for j in range(ncols):
             cols = [s[j] for s in shards]
             data = exchange([column.gather(c.data, p)
@@ -178,8 +181,8 @@ def _packed_exchange(shards, perms, cm, totals, out_capacity, devices,
     with obs_spans.span("shuffle.pack", columns=len(shards[0])) as sp:
         planes = [codec.pack(s)[p] for s, p in enumerate(perms)]
         sp.set(words=int(planes[0].shape[1]), compressed=spec is not None)
-    with obs_spans.span("shuffle.collective", family="all_to_all",
-                        packed=True, launches=1):
+    with obs_spans.span("shuffle.collective", devices=devices,
+                        family="all_to_all", packed=True, launches=1):
         out = [torch.zeros((out_capacity, planes[0].shape[1]),
                            dtype=planes[0].dtype, device=dev)
                for dev in devices]

@@ -138,8 +138,7 @@ def _plan_shuffle(t, plan: LogicalTaskPlan):
             shards, totals = shuffle_mod.shuffle_shard_ragged(
                 t.shards, tgts, cm, world, out_cap, devices, packed=pack,
                 group=t.ctx.group, shard_ids=t.shard_ids)
-        par_ops._record_exchange(t.shards[0], pack, "task-ragged",
-                                 int(cm.sum()))
+        par_ops._record_exchange(t.shards[0], pack, "task-ragged", cm)
         return t._like(shards, totals)
 
     out, _attempts = resilience.retry_call(

@@ -179,9 +179,11 @@ class Table:
                 f"shards={self.num_shards} cap={self.shard_capacity}]({cols})")
 
     def _like(self, shards, counts, names=None) -> "Table":
-        """A table of this one's context; ``counts`` may be host ints."""
+        """A table of this one's context; ``counts`` may be host ints,
+        each filled in on its card (a fill, not a copy the host waits
+        for)."""
         counts = tuple(c if isinstance(c, torch.Tensor) else
-                       torch.tensor(int(c), dtype=torch.int32, device=dev)
+                       torch.full((), int(c), dtype=torch.int32, device=dev)
                        for c, dev in zip(counts, self.ctx.devices))
         return Table(tuple(tuple(s) for s in shards), counts,
                      tuple(self.names if names is None else names), self.ctx)
@@ -757,17 +759,22 @@ class Table:
                          left_on=None, right_on=None, how="inner",
                          algorithm="sort") -> "Table":
         """Global join: shuffle both tables on the key columns, then join
-        shard by shard (reference: DistributedJoin, table.cpp:459-489)."""
+        shard by shard (reference: DistributedJoin, table.cpp:459-489).
+        The join sorts each shuffled side over its capacity, so it takes
+        each side as views of its first ``cap_round`` of the most rows a
+        shard received, not the whole power-of-two receive buffer."""
         cfg = _join_config(self, other, config, on, left_on, right_on, how,
                            algorithm)
         with obs_spans.span("table.distributed_join",
+                            devices=self.ctx.devices,
                             how=cfg.join_type.name,
                             algorithm=cfg.algorithm.name,
                             world=self.num_shards):
             if self.num_shards == 1:
                 return _local_join(self, other, cfg)
-            out = _local_join(par_ops.shuffle(self, cfg.left_on),
-                              par_ops.shuffle(other, cfg.right_on), cfg)
+            out = _local_join(
+                par_ops.shuffle(self, cfg.left_on, narrow=True),
+                par_ops.shuffle(other, cfg.right_on, narrow=True), cfg)
             _stamp_join_partitioning(out, self, other, cfg)
             return out
 
@@ -830,7 +837,8 @@ class Table:
             for op in ([ops] if isinstance(ops, (str, AggOp)) else ops):
                 aggs.append((ci, AggOp.of(op)))
         pipeline = groupby_type == "pipeline"
-        with obs_spans.span("table.groupby", kind=groupby_type,
+        with obs_spans.span("table.groupby", devices=self.ctx.devices,
+                            kind=groupby_type,
                             keys=len(by_idx), aggs=len(aggs),
                             world=self.num_shards):
             if self.num_shards != 1:

@@ -42,10 +42,11 @@ KNOWN_64BIT_SITES = {
             "the sign bias of a signed key, in its int64 carrier",
         ("ops.keys:lexsort_indices", "aten.zeros.default", "int64"):
             "the empty sort key, " + _KEY,
-        ("ops.keys:lexsort_indices", "aten.__lshift__.Scalar", "int64"):
-            "shifting each field into " + _KEY,
-        ("ops.keys:lexsort_indices", "aten.bitwise_or.Tensor", "int64"):
-            "or-ing each field into " + _KEY,
+        ("ops.keys:lexsort_indices", "aten.bitwise_left_shift_.Tensor_Scalar",
+         "int64"):
+            "shifting " + _KEY + " in place before each field",
+        ("ops.keys:lexsort_indices", "aten.bitwise_or_.Tensor", "int64"):
+            "or-ing each field into " + _KEY + ", in place",
         ("ops.keys:lexsort_indices", "aten.arange.default", "int64"):
             "the row index packed into the key's low bits",
         ("ops.keys:lexsort_indices", "aten.sort.stable", "int64"):
