@@ -274,8 +274,11 @@ def _group_frame(new_group: torch.Tensor, count: torch.Tensor, cap: int):
     start, end = segments.segment_spans(new_group)
     iota = torch.arange(cap, dtype=torch.int32, device=new_group.device)
     live = iota < count
-    last = obs_spans.host_read((count - 1).clamp(0, cap - 1), "groupby_count")
-    num_groups = torch.where(count > 0, gid[last] + 1,
+    # the last live row's group id, gathered on the card: no host read,
+    # so the host queues the next card's work behind it (at capacity 0,
+    # gid's one row is rows_equal_adjacent's padded row 0)
+    last = (count - 1).clamp(0, max(cap - 1, 0)).reshape(1)
+    num_groups = torch.where(count > 0, gid.index_select(0, last)[0] + 1,
                              _zero(torch.int32, new_group.device))
     leader = start.clamp(0, cap - 1)
     group_live = iota < num_groups

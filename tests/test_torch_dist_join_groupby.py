@@ -13,6 +13,9 @@ accounting.
   of the most rows a shard received, as views of the receive buffers
   whose rows past the count are invalid, and its result is bit for bit
   the join over the whole receive buffers;
+- ``pipeline.distributed_join_groupby`` reads the host only for the
+  three count matrices and the join count of each shard: neither phase
+  of the group-by reads its group count;
 - the count matrix's host read is one ``sync.shuffle_counts``; the rows
   off its diagonal are ``shuffle.bytes_cross``; each murmur3 launch
   counts 13 B a row for an int32 key.
@@ -23,7 +26,7 @@ import torch
 
 from benchmark.queries import distributed_join_groupby as query
 from benchmark.reference import distributed_join_groupby as reference
-from cylon_tpu_torch import CylonContext, MeshConfig, Table, dtypes
+from cylon_tpu_torch import CylonContext, MeshConfig, Table, dtypes, pipeline
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.config import JoinConfig
 from cylon_tpu_torch.obs import metrics as obs_metrics
@@ -107,10 +110,7 @@ def _program(ctx, sides, round_to=None) -> dict:
     return query.answer(query.keep(query.run(state)))
 
 
-@pytest.mark.parametrize("seed", [3, 17, 2 ** 31 + 5])
-def test_program_equals_the_blocked_reference(ctx, seed):
-    sides = _sides(seed)
-    got = _program(ctx, sides)
+def _assert_equals_the_reference(got, sides):
     want = reference.compute(_inputs(sides), {"key_domain": DOMAIN})
     assert want["groups"] > 0 and want["join_rows"] >= 60 * 25
     numbers = reference.compare(got, want)
@@ -120,6 +120,38 @@ def test_program_equals_the_blocked_reference(ctx, seed):
     assert numbers["sum_rel_gap"] < TOL and numbers["mean_rel_gap"] < TOL
     assert HOT in got["keys"].tolist()
     assert DOMAIN - 1 not in got["keys"].tolist()  # one side only
+
+
+@pytest.mark.parametrize("seed", [3, 17, 2 ** 31 + 5])
+def test_program_equals_the_blocked_reference(ctx, seed):
+    sides = _sides(seed)
+    _assert_equals_the_reference(_program(ctx, sides), sides)
+
+
+def _syncs() -> dict:
+    return {k: n for k, (_, n) in obs_spans.aggregate_report().items()
+            if k.startswith("sync.")}
+
+
+def test_join_groupby_reads_only_count_matrices_and_join_counts(ctx):
+    sides = _sides(29)
+    (kl, vl), (kr, vr) = sides
+    left = _table(ctx, kl, vl, LIVE_L, "lv")
+    right = _table(ctx, kr, vr, LIVE_R, "rv")
+    obs_spans.reset()
+    groups, joined = pipeline.distributed_join_groupby(left, right)
+    # both sides' and the partials' count matrices, a join count a shard;
+    # neither group-by phase reads its group count
+    assert _syncs() == {"sync.shuffle_counts": 3, "sync.join_count": CARDS}
+    obs_spans.reset()
+    again = joined.groupby("l_k", {"lv": "sum", "rv": "mean"})
+    assert _syncs() == {"sync.shuffle_counts": 1}
+    for a, b in zip(again.shards, groups.shards):
+        for x, y in zip(a, b):
+            assert torch.equal(x.data, y.data)
+    kept = query.keep((list(groups.shards), [int(c) for c in groups.counts],
+                       list(joined.counts), joined.shard_capacity))
+    _assert_equals_the_reference(query.answer(kept), sides)
 
 
 def test_bfloat16_fails_the_tolerance(ctx):

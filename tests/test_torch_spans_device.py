@@ -9,7 +9,8 @@ CPU.
   lands ``device_ms`` in the Chrome export;
 - ``host_read`` and ``host_select`` lift
   ``torch.cuda.set_sync_debug_mode`` around their own read only;
-- the sort join's count is one ``sync.join_count``; the hash join makes
+- the sort join's count is one ``sync.join_count``, and the group-by
+  after it reads nothing on the host; the hash join makes
   two ``sync.hash_*`` spans a round and one more for each of its build
   and its probe;
 - ``join.count``, ``join.gather`` and ``groupby`` open once per join or
@@ -233,8 +234,7 @@ def test_sort_join_count_is_one_named_sync(clean, data):
     assert _counts("sync.") == {"sync.join_count": 1}
     obs_spans.reset()
     _join_groupby(data, "sort")
-    assert _counts("sync.") == {"sync.join_count": 1,
-                                "sync.groupby_count": 1}
+    assert _counts("sync.") == {"sync.join_count": 1}
 
 
 def test_hash_join_syncs_are_two_a_round_and_two_a_match(clean, data):
