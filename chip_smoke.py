@@ -291,19 +291,14 @@ Phases, each of which fails the run on error:
    static lock graph; (c) the AST and concurrency scan of the package: no
    finding;
 3ac. (run after 3u, before phase 4, on phase 3's and 3b's tables, the
-   launch counters zeroed just before) the realizations of
-   ``ops/compact.py`` and ``ops/radix.py``, each arm's outputs bit for
-   bit the default's and its best-of-3 ms printed: (a) phase 3's path and
-   3b's under ``CYLON_TPU_PERMUTE=sort`` with ``CYLON_TPU_INVPERM`` sort
-   and gather, beside scatter, and ``count_leq_dense`` at 2^26 against
-   ``torch.searchsorted``; (b) phase 3's path under
-   ``CYLON_TPU_SORT=radix``, and ``keys.lexsort_indices`` alone at 2^27
-   rows (the path's combined sort) with ``RADIX_BITS`` 1 and 4 and
-   ``RADIX_SCAN`` matmul and xla against ``torch.sort``; (c) the 64-bit
-   audit (``analysis/dtype_audit.py``) of one narrow run of phase 3: each
-   64-bit site, its bytes and its share; (d) the device-memory watermark
-   (``obs.metrics.record_hbm_watermark``) at least the live tables'
-   bytes;
+   launch counters zeroed just before) the local kernels' one
+   realization, each run's outputs bit for bit a first run's and its
+   best-of-3 ms printed: (a) phase 3's path and 3b's; (b)
+   ``keys.lexsort_indices`` alone at 2^27 rows (the path's combined
+   sort); (c) the 64-bit audit (``analysis/dtype_audit.py``) of one
+   narrow run of phase 3: each 64-bit site, its bytes and its share; (d)
+   the device-memory watermark (``obs.metrics.record_hbm_watermark``) at
+   least the live tables' bytes;
    Each of 3m-3r zeroes the launch counters just before its call, reads
    them just after, and prints its stats, peak device memory, host
    memory and call time; their checks run on the card (``_card``), since
@@ -2247,11 +2242,9 @@ def phase_process_group(report: dict, main: dict, dist: dict,
         f"{report['process_group']['phase_seconds']:.1f} s")
 
 
-# -- phase 3ac: the realizations of compact.py and radix.py ------------------
+# -- phase 3ac: the local kernels' one realization ----------------------------
 
 LEXSORT_ROWS = 1 << 27  # the main path's combined sort: both sides' rows
-PERMUTE_ARMS = (("sort", "sort"), ("sort", "gather"))
-RADIX_ARMS = (("1", "matmul"), ("1", "xla"), ("4", "matmul"), ("4", "xla"))
 
 
 def _same_columns(label: str, got, want) -> None:
@@ -2269,60 +2262,51 @@ def _same_columns(label: str, got, want) -> None:
             raise AssertionError(f"{label}: group column {i} differs")
 
 
-def _realization_arm(env: dict, fn, rows: int, check) -> dict:
-    """Under the knobs ``env``: one run, its launches the counters'
-    growth across it (the phase's counters keep counting), its outputs
-    held by ``check``, then best-of-3 ms."""
+def _realization_arm(fn, rows: int, check) -> dict:
+    """One run, its launches the counters' growth across it (the phase's
+    counters keep counting), its outputs held by ``check``, then
+    best-of-3 ms."""
     import torch
 
-    from cylon_tpu_torch import config
-
-    with config.knob_env(**env):
-        torch.cuda.synchronize()
-        before = _launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = {k: n - before[k] for k, n in _launch_counts().items()}
-        check(out)
-        del out
-        rec = {"env": env, "first_run_ms": first_s * 1e3,
-               "launches": launches, **_time_op(fn, rows, runs=3)}
-    return rec
+    torch.cuda.synchronize()
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: n - before[k] for k, n in _launch_counts().items()}
+    check(out)
+    del out
+    return {"first_run_ms": first_s * 1e3, "launches": launches,
+            **_time_op(fn, rows, runs=3)}
 
 
 def phase_realizations(report: dict, main: dict, dist: dict, rows: int,
                        device: str = "cuda") -> None:
-    """Phase 3ac: the realizations of ``ops/compact.py`` and
-    ``ops/radix.py`` on the main paths' tables, every output bit for bit
-    the default realization's: (a) phase 3's ``join_groupby`` and 3b's
-    ``distributed_join_groupby`` under ``CYLON_TPU_PERMUTE=sort`` with
-    ``INVPERM`` sort and gather, beside the default (scatter), and
-    ``count_leq_dense`` at 2^26 against ``torch.searchsorted``; (b) phase
-    3 under ``CYLON_TPU_SORT=radix``, and ``lexsort_indices`` alone at
-    the combined shape (2^27 rows) with ``RADIX_BITS`` 1 and 4 and
-    ``RADIX_SCAN`` matmul and xla against ``torch.sort``; (c) the 64-bit
-    audit (``analysis/dtype_audit.py``) of one narrow run of phase 3;
-    (d) the device-memory watermark against the live tables' bytes.  The
-    launch counters are zeroed at the start and read at the end: every
-    run of every arm counts.  ``device="cpu"`` with CPU tables rehearses
-    the control flow here."""
+    """Phase 3ac: the local kernels' one realization (scatter-realized
+    permutations and compactions, ``torch.sort`` of the packed key) on
+    the main paths' tables, each run's outputs bit for bit a first run's:
+    (a) phase 3's ``join_groupby`` and 3b's ``distributed_join_groupby``,
+    best-of-3; (b) ``lexsort_indices`` alone at the combined shape (2^27
+    rows), best-of-3; (c) the 64-bit audit (``analysis/dtype_audit.py``)
+    of one narrow run of phase 3; (d) the device-memory watermark against
+    the live tables' bytes.  The launch counters are zeroed at the start
+    and read at the end: every run counts.  ``device="cpu"`` with CPU
+    tables rehearses the control flow here."""
     import torch
 
-    from cylon_tpu_torch import config, dtypes, pipeline
+    from cylon_tpu_torch import dtypes, pipeline
     from cylon_tpu_torch.analysis.dtype_audit import dtype_audit
     from cylon_tpu_torch.column import Column
     from cylon_tpu_torch.obs import metrics
-    from cylon_tpu_torch.ops import compact, keys
+    from cylon_tpu_torch.ops import keys
 
     t_phase = time.perf_counter()
     dev = torch.device(device)
     tables, out_cap = main["tables"], main["out_cap"]
     left, right = dist["left"], dist["right"]
     _reset_launches()
-    rec: dict = {"single_chip": {}, "distributed": {}, "radix": {},
-                 "lexsort": {}}
+    rec: dict = {}
 
     def single():
         return pipeline.join_groupby(*tables, out_cap)
@@ -2330,63 +2314,22 @@ def phase_realizations(report: dict, main: dict, dist: dict, rows: int,
     def distributed():
         return pipeline.distributed_join_groupby(left, right)
 
+    # (a) the main paths
     default = single()
-    rec["single_chip"]["scatter"] = _realization_arm(
-        {"CYLON_TPU_PERMUTE": "scatter"}, single, 2 * rows,
-        lambda out: _same_columns("3ac scatter", out, default))
-    for perm, inv in PERMUTE_ARMS:
-        rec["single_chip"][f"{perm}/{inv}"] = _realization_arm(
-            {"CYLON_TPU_PERMUTE": perm, "CYLON_TPU_INVPERM": inv}, single,
-            2 * rows, lambda out, t=f"3ac {perm}/{inv}": _same_columns(
-                t, out, default))
+    rec["single_chip"] = _realization_arm(
+        single, 2 * rows, lambda out: _same_columns("3ac single", out,
+                                                    default))
     want_groups, want_joined = distributed()
 
-    def same_dist(label):
-        def check(out):
-            _same_bits(f"{label} groups", out[0], want_groups)
-            _same_bits(f"{label} joined", out[1], want_joined)
-        return check
+    def same_dist(out):
+        _same_bits("3ac 3b groups", out[0], want_groups)
+        _same_bits("3ac 3b joined", out[1], want_joined)
 
-    rec["distributed"]["scatter"] = _realization_arm(
-        {"CYLON_TPU_PERMUTE": "scatter"}, distributed, 2 * rows,
-        same_dist("3ac 3b scatter"))
-    for perm, inv in PERMUTE_ARMS:
-        rec["distributed"][f"{perm}/{inv}"] = _realization_arm(
-            {"CYLON_TPU_PERMUTE": perm, "CYLON_TPU_INVPERM": inv},
-            distributed, 2 * rows, same_dist(f"3ac 3b {perm}/{inv}"))
+    rec["distributed"] = _realization_arm(distributed, 2 * rows, same_dist)
     del want_groups, want_joined
-    on_card = dev.type == "cuda"  # a CPU rehearsal launches nothing
-    for arm in ("single_chip", "distributed"):
-        if on_card and rec[arm]["sort/sort"]["launches"]["scan_1d"] < 1:
-            raise AssertionError(f"3ac {arm} under sort launched no scan")
 
-    # count_leq_dense at the join's shape: a monotone csum of 2^26 rows
+    # (b) lexsort alone at 2^27
     gen = torch.Generator(device=dev).manual_seed(5)
-    csum = torch.cumsum(torch.randint(0, 3, (rows,), generator=gen,
-                                      device=dev, dtype=torch.int32), 0,
-                        dtype=torch.int32)
-    nq = int(csum[-1])
-    want = torch.searchsorted(csum, torch.arange(nq, dtype=torch.int32,
-                                                 device=dev), right=True)
-    cld = {"rows": rows, "queries": nq}
-    for perm in ("scatter", "sort"):
-        with config.knob_env(CYLON_TPU_PERMUTE=perm):
-            got = compact.count_leq_dense(csum, nq)
-            if not torch.equal(got.long(), want):
-                raise AssertionError(f"3ac count_leq_dense ({perm}) "
-                                     "differs from torch.searchsorted")
-            cld[f"{perm}_ms"] = cuda_time_ms(
-                lambda: compact.count_leq_dense(csum, nq), 3)
-    q = torch.arange(nq, dtype=torch.int32, device=dev)
-    cld["searchsorted_ms"] = cuda_time_ms(
-        lambda: torch.searchsorted(csum, q, right=True), 3)
-    rec["count_leq_dense"] = cld
-    del csum, want, got, q
-
-    # (b) radix on the main path, then lexsort alone at 2^27
-    rec["radix"]["main_path"] = _realization_arm(
-        {"CYLON_TPU_SORT": "radix"}, single, 2 * rows,
-        lambda out: _same_columns("3ac radix", out, default))
     n = LEXSORT_ROWS
     kcol = torch.randint(0, n, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
@@ -2395,25 +2338,15 @@ def phase_realizations(report: dict, main: dict, dist: dict, rows: int,
                 dtypes.int32)], torch.tensor(n - 7, device=dev), n)
     want_perm, want_words = keys.lexsort_indices(ops, n)
 
-    def same_lexsort(label):
-        def check(out):
-            perm, words = out
-            if not (torch.equal(perm, want_perm) and all(
-                    torch.equal(a, b) for a, b in zip(words, want_words))):
-                raise AssertionError(f"{label}: permutation or words "
-                                     "differ from torch.sort's")
-        return check
+    def same_lexsort(out):
+        perm, words = out
+        if not (torch.equal(perm, want_perm) and all(
+                torch.equal(a, b) for a, b in zip(words, want_words))):
+            raise AssertionError("3ac lexsort: permutation or words differ "
+                                 "between runs")
 
-    rec["lexsort"]["cmp"] = _realization_arm(
-        {"CYLON_TPU_SORT": "cmp"}, lambda: keys.lexsort_indices(ops, n), n,
-        same_lexsort("3ac lexsort cmp"))
-    for bits, scan in RADIX_ARMS:
-        rec["lexsort"][f"radix{bits}/{scan}"] = _realization_arm(
-            {"CYLON_TPU_SORT": "radix", "CYLON_TPU_RADIX_BITS": bits,
-             "CYLON_TPU_RADIX_SCAN": scan}, lambda: keys.lexsort_indices(
-                ops, n), n, same_lexsort(f"3ac lexsort radix{bits}/{scan}"))
-    if on_card and rec["lexsort"]["radix1/xla"]["launches"]["scan_1d"] < 1:
-        raise AssertionError("3ac: the xla radix arm launched no scan_1d")
+    rec["lexsort"] = _realization_arm(lambda: keys.lexsort_indices(ops, n),
+                                      n, same_lexsort)
     del kcol, ops, want_perm, want_words
 
     # (c) the 64-bit audit of one narrow run of the main path
@@ -2440,15 +2373,12 @@ def phase_realizations(report: dict, main: dict, dist: dict, rows: int,
     rec["phase_seconds"] = time.perf_counter() - t_phase
     report["realizations"] = rec
 
-    for part in ("single_chip", "distributed", "radix", "lexsort"):
-        for arm, r in rec[part].items():
-            log(f"[3ac] {part} {arm}: best-of-3 {r['best_ms']:.2f} ms, first"
-                f" run {r['first_run_ms']:.2f} ms, peak "
-                f"{r['peak_device_bytes'] / 2**30:.2f} GiB, launches "
-                f"{r['launches']}; bit for bit the default")
-    log(f"[3ac] count_leq_dense {rows} values, {cld['queries']} queries: "
-        f"scatter {cld['scatter_ms']:.3f} ms, sort {cld['sort_ms']:.3f} ms,"
-        f" torch.searchsorted {cld['searchsorted_ms']:.3f} ms; equal")
+    for part in ("single_chip", "distributed", "lexsort"):
+        r = rec[part]
+        log(f"[3ac] {part}: best-of-3 {r['best_ms']:.2f} ms, first run "
+            f"{r['first_run_ms']:.2f} ms, peak "
+            f"{r['peak_device_bytes'] / 2**30:.2f} GiB, launches "
+            f"{r['launches']}; bit for bit the first run")
     for site, op, dt, count, nbytes in audit.table():
         log(f"[3ac] 64-bit site {site} {op} {dt}: {count} ops, {nbytes} B "
             f"({nbytes / audit.total_bytes:.2%} of all output bytes)")

@@ -136,11 +136,9 @@ RUNTIME = "runtime"
 #: accumulation precision, the exchange realization and the stream's
 #: capacities), folded into every plan fingerprint and every cached
 #: stream callable's key by ``trace_cache_token``: the registry's trace
-#: scope, in the token's order.  The realization knobs (``PERMUTE``,
-#: ``INVPERM``, ``SORT``, ``RADIX_BITS``, ``RADIX_SCAN``) give
-#: bit-identical results, so they stay out; the reference's segsum and
-#: scan modes have no counterpart here: the port always runs its scan
-#: kernels.
+#: scope, in the token's order.  The reference's permute, inverse-permute,
+#: sort, radix, segsum and scan modes have no counterpart here: the port
+#: has one realization of each local kernel.
 RESULT_KNOBS = ("CYLON_TPU_ACCUM", "CYLON_TPU_SHUFFLE_PACK",
                 "CYLON_TPU_SHUFFLE_COMPRESS", "CYLON_TPU_STREAM_BATCH_CAP",
                 "CYLON_TPU_STREAM_STATE_CAP")
@@ -203,33 +201,6 @@ KNOBS = {k.name: k for k in [
        "Widest byte matrix a string column may ingest without an explicit "
        "string_width= (device memory = capacity x width).",
        accessors=("cylon_tpu_torch.column.max_string_width",)),
-    # -- realizations of the local kernels (ops/compact.py, ops/radix.py) --
-    # Each gives bit-identical results, so none is a result knob.
-    _K("CYLON_TPU_PERMUTE", "enum", "auto",
-       "Permutation/compaction realization: cumsum destinations and one "
-       "scatter (scatter) or one single-word sort (sort); auto is scatter "
-       "on CUDA and on the CPU.", ("scatter", "sort", "auto"),
-       accessors=("cylon_tpu_torch.ops.compact.permute_mode",)),
-    _K("CYLON_TPU_INVPERM", "enum", "sort",
-       "Inverse-permutation apply under CYLON_TPU_PERMUTE=sort: the "
-       "reference's multi-operand sort (sort) or sort-once plus one gather "
-       "per field (gather).  Torch has no multi-operand sort, so the port "
-       "realizes both as one sort of the permutation and a gather per "
-       "field.", ("sort", "gather"),
-       accessors=("cylon_tpu_torch.ops.compact.invperm_mode",)),
-    _K("CYLON_TPU_SORT", "enum", "cmp",
-       "Sort of the packed one-word fast path of keys.lexsort_indices: "
-       "torch.sort (cmp) or the LSD radix sort of ops/radix.py (radix).",
-       ("cmp", "radix"),
-       accessors=("cylon_tpu_torch.ops.radix.sort_mode",)),
-    _K("CYLON_TPU_RADIX_BITS", "int", 1,
-       "Radix digit width in bits (clamped to 1..8 at the call site).",
-       accessors=("cylon_tpu_torch.ops.radix.radix_bits",)),
-    _K("CYLON_TPU_RADIX_SCAN", "str", "",
-       "'xla' runs the radix sort's cumsums through ops/scan.py::scan_1d "
-       "(the look-back scan kernel on the card) instead of the block "
-       "matmul scan.",
-       accessors=("cylon_tpu_torch.ops.radix._cumsum_i32",)),
     # -- the host C++ library (native/) and the I/O layer (io/) ------------
     _K("CYLON_TPU_NO_NATIVE_IO", "bool", False,
        "Disable the native (C++) CSV reader and writer; use pyarrow."),

@@ -12,9 +12,7 @@ hash_groupby.cpp and pipeline_groupby.cpp):
    through the segmented scan (``ops/scan.py``) and counts through int32
    prefix sums (``scan_1d``); integer sums and every wide-mode reduction
    are scatters (``index_add_`` / ``scatter_reduce_``), as in the JAX
-   package.  NUNIQUE's per-group counts are a scatter-add, or under
-   ``CYLON_TPU_PERMUTE=sort`` prefix-sum differences at the group bounds
-   (``compact.count_leq_dense``).
+   package.  NUNIQUE's per-group counts are a scatter-add.
 
 String key columns group through their packed words
 (``keys.column_operands``) and come out gathered with their lengths.  A
@@ -36,7 +34,7 @@ from .. import dtypes, precision
 from .. import column
 from ..column import Column
 from ..obs import spans as obs_spans
-from . import compact, keys, segments
+from . import keys, segments
 
 
 class AggOp(enum.IntEnum):
@@ -208,31 +206,14 @@ def _segment_aggregate(op: AggOp, data, valid, gid, num_segments: int,
 
 def _nunique(vcol: Column, vvalid, gid, cap: int):
     """Distinct non-null values per group via a (gid, value) lexsort, then
-    an int32 scatter-add of the adjacency breaks or, under
-    ``CYLON_TPU_PERMUTE=sort``, differences of their prefix sums at the
-    group bounds ``count_leq_dense`` finds (no scatter)."""
+    an int32 scatter-add of the adjacency breaks."""
     ops = [~vvalid, gid] + keys.column_operands(vcol, with_validity=False)
     perm, sorted_ops = keys.lexsort_indices(ops, cap)
     eq = keys.rows_equal_adjacent(sorted_ops)
     svalid = vvalid[perm]
     gsorted = gid[perm]
     new_distinct = (~eq) & svalid
-    if compact.permute_mode() == "sort":
-        # valid rows sort first (primary operand ~vvalid), so the valid
-        # prefix is gid-ascending: a group's distinct count is the prefix
-        # sum at its end less the one at the previous group's end
-        dev = gid.device
-        gclean = torch.where(svalid, gsorted,
-                             torch.full((), cap, dtype=gsorted.dtype,
-                                        device=dev))
-        ub = compact.count_leq_dense(gclean, cap)
-        zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        p0 = torch.cat([zero, torch.cumsum(new_distinct, 0,
-                                           dtype=torch.int32)])
-        e = p0[ub]
-        cnt = e - torch.cat([zero, e[:-1]])
-    else:
-        cnt = _segment_sum(new_distinct.to(torch.int32), gsorted, cap)
+    cnt = _segment_sum(new_distinct.to(torch.int32), gsorted, cap)
     nar = precision.narrow(cnt.device)
     return (cnt if nar else cnt.to(torch.int64)), cnt
 

@@ -50,7 +50,7 @@ from ..column import Column
 from ..config import JoinType
 from ..obs import spans as obs_spans
 from ..utils import pow2ceil
-from . import common, hashing, keys, scan
+from . import common, compact, hashing, keys, scan
 
 # empty-slot sentinel, and the sort key that sends unmatched rows last
 _EMPTY = (1 << 31) - 1
@@ -176,8 +176,8 @@ def match_ranges_hash(cols_l: Sequence[Column], count_l,
 
     ops, h = _combined_key_ops(cols_l, cols_r, left_on, right_on)
     h_l, h_r = h[:cap_l], h[cap_l:]
-    live_l = torch.arange(cap_l, dtype=torch.int32, device=dev) < count_l
-    live_r = torch.arange(cap_r, dtype=torch.int32, device=dev) < count_r
+    live_l = compact.live_mask(cap_l, count_l, dev)
+    live_r = compact.live_mask(cap_r, count_r, dev)
 
     tab, owner = _build(h_r, live_r, ops, cap_l, slots)
     rep = _probe(h_l, live_l, tab, ops, cap_r, slots)

@@ -56,8 +56,8 @@ def _match_ranges(cols_l, count_l, cols_r, count_r, left_on, right_on,
 
     back = compact.inverse_permute(perm, *fields)
 
-    live_l = torch.arange(cap_l, dtype=torch.int32, device=dev) < count_l
-    live_r = torch.arange(cap_r, dtype=torch.int32, device=dev) < count_r
+    live_l = compact.live_mask(cap_l, count_l, dev)
+    live_r = compact.live_mask(cap_r, count_r, dev)
     lo = back[0][:cap_l]
     matches = torch.where(live_l, back[1][:cap_l],
                           torch.zeros((), dtype=torch.int32, device=dev))
@@ -169,24 +169,17 @@ def join_gather(cols_l: Sequence[Column], count_l,
         cap_l = emit.shape[0]
         cap_r = perm_r.shape[0]
         base_l = csum - emit
-        if compact.permute_mode() == "sort":
-            # slot k's left row is searchsorted(csum, k, 'right'): csum is
-            # monotone, so it is the count of rows with csum <= k
-            li = compact.count_leq_dense(csum, out_capacity).clamp(
-                0, cap_l - 1)
-        else:
-            # each emitting row drops its index at its first output slot
-            # (bases are distinct); rows that emit nothing or fall past the
-            # capacity write an extra slot that is cut off; a running max
-            # fills the runs
-            iota_l = torch.arange(cap_l, dtype=torch.int32, device=dev)
-            dest = torch.where((emit > 0) & (base_l < out_capacity), base_l,
-                               torch.full((), out_capacity, dtype=torch.int32,
-                                          device=dev))
-            marker = torch.full((out_capacity + 1,), -1, dtype=torch.int32,
-                                device=dev)
-            marker.index_put_((dest,), iota_l)
-            li = _running_max(marker[:out_capacity]).clamp(0, cap_l - 1)
+        # each emitting row drops its index at its first output slot (bases
+        # are distinct); rows that emit nothing or fall past the capacity
+        # write an extra slot that is cut off; a running max fills the runs
+        iota_l = torch.arange(cap_l, dtype=torch.int32, device=dev)
+        dest = torch.where((emit > 0) & (base_l < out_capacity), base_l,
+                           torch.full((), out_capacity, dtype=torch.int32,
+                                      device=dev))
+        marker = torch.full((out_capacity + 1,), -1, dtype=torch.int32,
+                            device=dev)
+        marker.index_put_((dest,), iota_l)
+        li = _running_max(marker[:out_capacity]).clamp(0, cap_l - 1)
         base = base_l[li]
         within = k - base
         matched = matches[li] > 0

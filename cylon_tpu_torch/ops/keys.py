@@ -29,7 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..column import Column
-from . import compact, radix
+from . import compact
 
 _INT64_MIN = -(1 << 63)
 _MASK32 = 0xFFFFFFFF
@@ -252,9 +252,7 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
     Fast path: when the key fields plus a row index fit 64 bits, they are
     assembled into ONE int64 with the index in the low bits and sorted
     once; unique keys make the sort stable for free.  A 64-bit key has its
-    sign bit flipped so the signed sort gives unsigned order.  Under
-    ``CYLON_TPU_SORT=radix`` the key's significant bits are radix-sorted
-    instead (``ops/radix.py``), with the same result.  Otherwise
+    sign bit flipped so the signed sort gives unsigned order.  Otherwise
     the packed words are sorted least significant first with stable
     sorts.  ``SORTS`` counts the sorts: one a call on the fast path, one
     a word on the other.  The fast path's key is built in place, one
@@ -272,11 +270,8 @@ def lexsort_indices(operands: Sequence[torch.Tensor],
             torch.arange(capacity, dtype=torch.int64, device=device))
         width = total_bits + idx_bits
         SORTS["packed"] += 1
-        if radix.sort_mode() == "radix":
-            s = radix.radix_sort_packed(key, idx_bits, width)
-        else:
-            s = torch.sort(_sort_key(key, width), stable=False).values
-            s = _sort_key(s, width)
+        s = _sort_key(torch.sort(_sort_key(key, width), stable=False).values,
+                      width)
         perm = (s & ((1 << idx_bits) - 1)).to(torch.int32)
         if width <= 32:
             return perm, [s >> idx_bits]

@@ -121,18 +121,8 @@ def range_targets(cols: Sequence[Column], counts, devices, *, num_bins: int,
         sample = fdata[perm[pos]]
         sample_ok = pos < m
         sbin = _clipped_int((sample - gmin) / span * num_bins, num_bins - 1)
-        if compact.permute_mode() == "sort":
-            # prefix-count differences, no scatter: dead samples go past
-            # every query
-            leq = compact.count_leq_dense(torch.where(
-                sample_ok, sbin, torch.full((), num_bins, dtype=sbin.dtype,
-                                            device=dev)), num_bins)
-            hists.append(torch.diff(leq, prepend=leq.new_zeros(1))
-                         .to(torch.int32))
-        else:
-            hists.append(torch.zeros(num_bins, dtype=torch.int32,
-                                     device=dev)
-                         .index_add_(0, sbin, sample_ok.to(torch.int32)))
+        hists.append(torch.zeros(num_bins, dtype=torch.int32, device=dev)
+                     .index_add_(0, sbin, sample_ok.to(torch.int32)))
     hists = collectives.allreduce_sum(hists, devices, group)
 
     out = []

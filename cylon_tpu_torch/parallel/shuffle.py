@@ -48,7 +48,7 @@ from . import plane as plane_mod
 
 
 #: widest target alphabet (world + 1) counted by one compare-and-reduce
-#: under CYLON_TPU_PERMUTE=sort (``cylon_tpu/parallel/shuffle.py``)
+#: (the reference's cutoff, ``cylon_tpu/parallel/shuffle.py``)
 _WIDE_MESH_CUTOFF = 32
 
 
@@ -73,28 +73,20 @@ def target_counts(targets: torch.Tensor, world: int) -> torch.Tensor:
     While ``world + 1 <= 32`` a compare-and-reduce over the target
     alphabet, which needs no host sync (``torch.bincount`` reads the
     targets' range on the host).  Past that, where the [rows, world]
-    compare would dwarf the rows: under ``CYLON_TPU_PERMUTE=sort``
-    differences of ``count_leq_dense``, as
-    ``cylon_tpu/parallel/shuffle.py:64``, else the histogram."""
+    compare would dwarf the rows, the histogram."""
     if world + 1 <= _WIDE_MESH_CUTOFF:
         alphabet = torch.arange(world, dtype=targets.dtype,
                                 device=targets.device)
         return (targets[:, None] == alphabet[None, :]).sum(
             0, dtype=torch.int32)
-    if compact.permute_mode() == "sort":
-        # count_leq_dense clips negatives to 0: remap them to padding
-        # first, or they would count toward target 0
-        leq = compact.count_leq_dense(_remap_oob_targets(targets, world),
-                                      world)
-        return torch.diff(leq, prepend=leq.new_zeros(1)).to(torch.int32)
     t = _remap_oob_targets(targets, world)
     return torch.bincount(t, minlength=world + 1)[:world].to(torch.int32)
 
 
 def _perm_by_target(targets: torch.Tensor, world: int) -> torch.Tensor:
     """Stable permutation grouping rows by target, padding (== world)
-    last: one stable sort in either realization (the reference's counting
-    scan and its sort give this same permutation)."""
+    last: one stable sort (the reference's counting scan and its sort
+    give this same permutation)."""
     return torch.sort(_remap_oob_targets(targets, world), stable=True).indices
 
 

@@ -1,8 +1,6 @@
 """Key encoding, lexsort and compaction: cylon_tpu_torch.ops.keys /
 compact against cylon_tpu.ops.keys / compact on the same numpy inputs.
 Everything here is exact: permutations, packed words, masks and counts."""
-import functools
-
 import numpy as np
 import pytest
 import torch
@@ -11,7 +9,6 @@ import jax.numpy as jnp
 
 from cylon_tpu.ops import compact as rcompact
 from cylon_tpu.ops import keys as rkeys
-from cylon_tpu_torch import config as pconfig
 from cylon_tpu_torch.ops import compact, keys
 
 from .torch_parity import columns, np_of
@@ -131,29 +128,25 @@ def test_descending_operands_match_reference():
 
 @pytest.mark.parametrize("mode", ["scatter", "sort"])
 def test_compaction_matches_both_reference_realizations(mode, monkeypatch):
-    """The port's default (scatter) realization, pinned, against each of
-    the reference's: scatter (bit-identical everywhere) and sort
-    (identical wherever the contract defines the output: the first
-    new_count entries).  ``tests/test_torch_permute_modes.py`` holds the
-    port's sort realization against the reference's, filler included."""
+    """The port's one (scatter) realization against each of the
+    reference's: scatter (bit-identical everywhere) and sort (identical
+    wherever the contract defines the output: the first new_count
+    entries; the port's filler is zeros)."""
     monkeypatch.setenv("CYLON_TPU_PERMUTE", mode)
-    port_scatter = functools.partial(pconfig.knob_env,
-                                     CYLON_TPU_PERMUTE="scatter")
     rng = np.random.default_rng(11)
     for n in (1, 2, 130, 4099):
         mask = rng.random(n) < 0.4
         r_idx, r_cnt = rcompact.compact_indices(jnp.asarray(mask))
-        with port_scatter():
-            p_idx, p_cnt = compact.compact_indices(torch.from_numpy(mask))
+        p_idx, p_cnt = compact.compact_indices(torch.from_numpy(mask))
         k = int(r_cnt)
         assert int(p_cnt) == k and p_cnt.dtype == torch.int32
         np.testing.assert_array_equal(np_of(p_idx)[:k], np.asarray(r_idx)[:k])
+        assert not np_of(p_idx)[k:].any()
         if mode == "scatter":
             np.testing.assert_array_equal(np_of(p_idx), np.asarray(r_idx))
 
         r_perm, r_nt = rcompact.partition_indices(jnp.asarray(mask))
-        with port_scatter():
-            p_perm, p_nt = compact.partition_indices(torch.from_numpy(mask))
+        p_perm, p_nt = compact.partition_indices(torch.from_numpy(mask))
         assert int(p_nt) == int(r_nt)
         np.testing.assert_array_equal(np_of(p_perm), np.asarray(r_perm))
 
@@ -162,10 +155,9 @@ def test_compaction_matches_both_reference_realizations(mode, monkeypatch):
         f2 = rng.random(n).astype(np.float32)
         r_out = rcompact.inverse_permute(jnp.asarray(perm), jnp.asarray(f1),
                                          jnp.asarray(f2))
-        with port_scatter():
-            p_out = compact.inverse_permute(torch.from_numpy(perm),
-                                            torch.from_numpy(f1),
-                                            torch.from_numpy(f2))
+        p_out = compact.inverse_permute(torch.from_numpy(perm),
+                                        torch.from_numpy(f1),
+                                        torch.from_numpy(f2))
         for p, r in zip(p_out, r_out):
             np.testing.assert_array_equal(np_of(p), np.asarray(r))
 

@@ -1,15 +1,20 @@
-"""The port's two realizations of ``ops/compact.py`` (``CYLON_TPU_PERMUTE``
-scatter / sort) against each other and against the JAX package's.
+"""The port's one realization of ``ops/compact.py`` (cumsum destinations
+and one permuting scatter) against the JAX package under each of its
+realizations (``CYLON_TPU_PERMUTE`` scatter / sort).
 
-Twins of every test of ``tests/test_permute_modes.py``.  Both packages
-read the one knob, so each case runs both under the same realization
-(the reference's jit caches are cleared between realizations: it reads
-the knob at trace time).  Under ``sort`` the port's ``compact_indices``
-and ``partition_indices`` equal the reference's entry for entry, the
-filler past ``new_count`` included; every consumer (joins, unique,
-NUNIQUE, the shuffle's target counts, the range partition's histogram)
-gives bit-identical outputs under both realizations.  Every comparison
-is exact."""
+Twins of every test of ``tests/test_permute_modes.py``.  Only the
+reference reads the knob: each case runs the port once per reference
+realization (the reference's jit caches are cleared between them: it
+reads the knob at trace time).  ``compact_indices`` equals the
+reference's on ``[0, new_count)`` and leaves zeros past it;
+``partition_indices`` equals the reference's in full; every consumer
+(joins, unique, NUNIQUE, the shuffle's target counts, the range
+partition's histogram) gives the reference's outputs bit for bit.  The
+knobs that once chose a second realization in the port are gone from its
+registry and move none of its results.  Every comparison is exact."""
+import contextlib
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,20 +29,43 @@ from cylon_tpu.ops import groupby as rgroupby
 from cylon_tpu.ops import join as rjoin
 from cylon_tpu.ops import unique as runique
 from cylon_tpu.parallel import shuffle as rshuffle
-from cylon_tpu_torch import CylonContext, MeshConfig, config
+from cylon_tpu_torch import CylonContext, MeshConfig, config, durable
+from cylon_tpu_torch import pipeline
 from cylon_tpu_torch.config import JoinType
-from cylon_tpu_torch.ops import compact, groupby, join, radix, unique
+from cylon_tpu_torch.ops import compact, groupby, join, keys, unique
 from cylon_tpu_torch.parallel import partition
 from cylon_tpu_torch.parallel import shuffle
 
 from .torch_parity import assert_columns_equal, np_of, port_column
 
 MODES = ("scatter", "sort")
+#: the knobs that chose the port's second realization, each at a value the
+#: reference still reads and the port no longer does
+REMOVED_KNOBS = {"CYLON_TPU_PERMUTE": "sort", "CYLON_TPU_INVPERM": "gather",
+                 "CYLON_TPU_SORT": "radix", "CYLON_TPU_RADIX_BITS": "4",
+                 "CYLON_TPU_RADIX_SCAN": "xla"}
+
+
+@contextlib.contextmanager
+def _ref_env(**values):
+    """Set the reference's environment knobs for the block (the port's
+    ``config.knob_env`` refuses names it does not register), and restore
+    them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        os.environ.update(values)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _under(mode, fn):
-    """``fn()`` with both packages under the realization ``mode``."""
-    with config.knob_env(CYLON_TPU_PERMUTE=mode):
+    """``fn()`` with the reference under the realization ``mode``."""
+    with _ref_env(CYLON_TPU_PERMUTE=mode):
         jax.clear_caches()
         try:
             return fn()
@@ -65,32 +93,13 @@ def test_compact_partition_agree(cap):
         p_idx, p_n = compact.compact_indices(torch.from_numpy(mask))
         p_perm, p_nt = compact.partition_indices(torch.from_numpy(mask))
         assert p_idx.dtype == p_perm.dtype == torch.int32
-        assert int(p_n) == int(r_n) and int(p_nt) == int(r_nt)
-        # entry for entry, the filler past new_count included
-        np.testing.assert_array_equal(np_of(p_idx), np.asarray(r_idx))
+        n = int(r_n)
+        assert int(p_n) == n and int(p_nt) == int(r_nt)
+        np.testing.assert_array_equal(np_of(p_idx)[:n], np.asarray(r_idx)[:n])
+        assert not np_of(p_idx)[n:].any()  # the filler is zeros
         np.testing.assert_array_equal(np_of(p_perm), np.asarray(r_perm))
-        return np_of(p_idx), int(p_n), np_of(p_perm)
 
-    a, b = _per_mode(run)
-    n = a[1]
-    assert a[1] == b[1]
-    np.testing.assert_array_equal(a[0][:n], b[0][:n])
-    np.testing.assert_array_equal(a[2], b[2])
-    # sort-mode filler: the False rows in order; scatter's: zeros
-    np.testing.assert_array_equal(b[0][n:], np.flatnonzero(~mask))
-    assert not a[0][n:].any()
-
-
-def test_mask_sort_word_at_the_int32_sign_bit(monkeypatch):
-    """At ``bits + 1 == 32`` the flag would sit in int32's sign bit and
-    invert the order: the word widens to int64 there, and past 32 bits
-    the stable flag sort takes over."""
-    mask = torch.tensor([False, True, False, True, True])
-    for bits in (3, 30, 31, 32):
-        monkeypatch.setattr(compact, "index_bits", lambda cap, b=bits: b)
-        got = compact._mask_sort_perm(mask)
-        assert got.dtype == (torch.int64 if bits + 1 > 32 else torch.int32)
-        assert got.tolist() == [1, 3, 4, 0, 2], bits
+    _per_mode(run)
 
 
 @pytest.mark.parametrize("invperm", ["sort", "gather"])
@@ -113,13 +122,10 @@ def test_inverse_permute_agree(invperm):
                                     torch.from_numpy(f3))
         for x, y in zip(p, r):
             np.testing.assert_array_equal(np_of(x), np.asarray(y))
-        return [np_of(x) for x in p]
+        np.testing.assert_array_equal(np_of(p[0]), want)
 
-    with config.knob_env(CYLON_TPU_INVPERM=invperm):
-        a, b = _per_mode(run)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
-    np.testing.assert_array_equal(a[0], want)
+    with _ref_env(CYLON_TPU_INVPERM=invperm):
+        _per_mode(run)
 
 
 def _join_inputs(seed, cap, domain, cut):
@@ -148,14 +154,6 @@ def _join_both(rl, pl, rr, pr, count, jt, out_cap, algo="sort",
     return p_cols, int(p_n)
 
 
-def _same_outputs(a, b):
-    (ca, na), (cb, nb) = a, b
-    assert na == nb
-    for x, y in zip(ca, cb):
-        np.testing.assert_array_equal(np_of(x.validity), np_of(y.validity))
-        np.testing.assert_array_equal(np_of(x.data), np_of(y.data))
-
-
 @pytest.mark.parametrize("jt", list(JoinType))
 def test_join_gather_agree(jt):
     rl, pl, rr, pr, count = _join_inputs(int(jt.value) + 1, 1 << 10, 200, 13)
@@ -165,16 +163,15 @@ def test_join_gather_agree(jt):
                                     torch.tensor(count), (0,), (0,), jt))
         out = _join_both(rl, pl, rr, pr, count, jt, m + 9)
         assert out[1] == m
-        return out
 
-    _same_outputs(*_per_mode(run))
+    _per_mode(run)
 
 
 def test_join_key_grouped_agree():
     rl, pl, rr, pr, count = _join_inputs(99, 1 << 10, 64, 0)
-    _same_outputs(*_per_mode(lambda: _join_both(
+    _per_mode(lambda: _join_both(
         rl[:1], pl[:1], rr[:1], pr[:1], count, JoinType.INNER, 1 << 15,
-        key_grouped=True)))
+        key_grouped=True))
 
 
 @pytest.mark.parametrize("keep", ["first", "last"])
@@ -189,32 +186,8 @@ def test_unique_agree(keep):
         p_out, p_m = unique.unique(pc, torch.tensor(count), (0,), keep=keep)
         assert int(p_m) == int(r_m)
         assert_columns_equal(p_out, r_out)
-        return p_out, int(p_m)
 
-    _same_outputs(*_per_mode(run))
-
-
-def test_count_leq_dense_matches_searchsorted():
-    rng = np.random.default_rng(3)
-    for cap_l, out_cap in ((1, 4), (100, 256), (1000, 2048), (777, 1000)):
-        emit = rng.integers(0, 4, cap_l).astype(np.int32)
-        csum = np.cumsum(emit).astype(np.int32)
-        out_cap = max(out_cap, int(csum[-1]))
-        want = np.searchsorted(csum, np.arange(out_cap), side="right")
-        ref = np.asarray(rcompact.count_leq_dense(jnp.asarray(csum), out_cap))
-        for mode in MODES:
-            with config.knob_env(CYLON_TPU_PERMUTE=mode):
-                got = compact.count_leq_dense(torch.from_numpy(csum),
-                                              out_cap)
-            assert got.dtype == torch.int32
-            np.testing.assert_array_equal(np_of(got), want.astype(np.int32))
-            np.testing.assert_array_equal(np_of(got), ref)
-    # any input order, values clipped to [0, num_queries]
-    vals = torch.tensor([5, -3, 2, 9, 2, 0], dtype=torch.int32)
-    got = compact.count_leq_dense(vals, 6)
-    ref = rcompact.count_leq_dense(jnp.asarray(vals.numpy()), 6)
-    np.testing.assert_array_equal(np_of(got), np.asarray(ref))
-    assert got.tolist() == [2, 2, 4, 4, 4, 5]
+    _per_mode(run)
 
 
 def test_nunique_agree_across_modes():
@@ -234,8 +207,7 @@ def test_nunique_agree_across_modes():
         assert_columns_equal(p_out, r_out)
         return p_out, int(p_g)
 
-    a, b = _per_mode(run)
-    _same_outputs(a, b)
+    a, _ = _per_mode(run)
     g = a[1]
     want = (pd.DataFrame({"k": keys_np[:n], "v": vals_np[:n]})
             .groupby("k")["v"].nunique())
@@ -243,32 +215,18 @@ def test_nunique_agree_across_modes():
 
 
 def test_permute_mode_default_and_overrides():
-    """The port's defaults: ``auto`` is scatter on every device the port
-    runs on (CUDA and the CPU; the reference sorts only on a TPU), the
-    sort is ``cmp``; a scatter-realized compaction leaves zero filler on
-    a CPU tensor."""
-    with config.knob_env(CYLON_TPU_PERMUTE=None, CYLON_TPU_SORT=None,
-                         CYLON_TPU_INVPERM=None, CYLON_TPU_RADIX_BITS=None):
-        assert compact.permute_mode() == "scatter"
-        assert radix.sort_mode() == "cmp"
-        assert compact.invperm_mode() == "sort"
-        assert radix.radix_bits() == 1
-        idx, n = compact.compact_indices(torch.tensor([False, True, False]))
-        assert idx.tolist() == [1, 0, 0] and int(n) == 1
-    for mode in ("auto", "bogus"):
-        with config.knob_env(CYLON_TPU_PERMUTE=mode):
-            assert compact.permute_mode() == "scatter"
-    for mode in MODES:
-        with config.knob_env(CYLON_TPU_PERMUTE=mode):
-            assert compact.permute_mode() == mode
-    for raw, want in (("0", 1), ("3", 3), ("20", 8)):
-        with config.knob_env(CYLON_TPU_RADIX_BITS=raw):
-            assert radix.radix_bits() == want
-    # realization knobs never move plan or journal fingerprints
-    for name in ("CYLON_TPU_PERMUTE", "CYLON_TPU_INVPERM", "CYLON_TPU_SORT",
-                 "CYLON_TPU_RADIX_BITS", "CYLON_TPU_RADIX_SCAN"):
-        assert name not in config.RESULT_KNOBS
-        assert config.KNOBS[name].scope == config.RUNTIME
+    """A compaction leaves zero filler past ``new_count`` on a CPU tensor,
+    and the reference's realization knobs move no plan or journal
+    fingerprint of the port."""
+    idx, n = compact.compact_indices(torch.tensor([False, True, False]))
+    assert idx.tolist() == [1, 0, 0] and int(n) == 1
+    cols = {"k": np.arange(5, dtype=np.int32)}
+    frames = ((list(cols), cols),)
+    token = config.trace_cache_token()
+    fp = durable.run_fingerprint("join", (1, "sort"), frames)
+    with _ref_env(**REMOVED_KNOBS):
+        assert config.trace_cache_token() == token
+        assert durable.run_fingerprint("join", (1, "sort"), frames) == fp
 
 
 @pytest.mark.parametrize("kg,algo", [(True, "sort"), (True, "hash"),
@@ -286,9 +244,8 @@ def test_join_projection_key_grouped_and_hash(kg, algo):
         for want_idx, got in zip((0, 1, 3), proj):
             np.testing.assert_array_equal(np_of(full[want_idx].data)[:n],
                                           np_of(got.data)[:n])
-        return proj, n
 
-    _same_outputs(*_per_mode(run))
+    _per_mode(run)
     with pytest.raises(ValueError, match="project"):
         join.join_gather(pl, torch.tensor(count), pr, torch.tensor(count),
                          (0,), (0,), JoinType.INNER, 1 << 12, algo,
@@ -309,16 +266,15 @@ def test_join_projection_pushdown(jt):
                                           np_of(got.data)[:n])
             np.testing.assert_array_equal(
                 np_of(full[want_idx].validity)[:n], np_of(got.validity)[:n])
-        return proj, n
 
-    _same_outputs(*_per_mode(run))
+    _per_mode(run)
 
 
-@pytest.mark.parametrize("world", [1, 3, 8, 31, 40])
+@pytest.mark.parametrize("world", [1, 3, 8, 31, 32, 40])
 def test_target_counts_and_perm_by_target_agree(world):
-    """Both ``target_counts`` forms under sort (compare-and-reduce while
-    ``world + 1 <= 32``, ``count_leq_dense`` past it) and the histogram
-    under scatter; out-of-range targets count toward no target."""
+    """The port's ``target_counts`` (compare-and-reduce while ``world + 1
+    <= 32``, the histogram past it) against the reference's forms under
+    each realization; out-of-range targets count toward no target."""
     rng = np.random.default_rng(world)
     t = rng.integers(-2, world + 3, 3000).astype(np.int32)
     t[:50] = world  # padding
@@ -331,19 +287,17 @@ def test_target_counts_and_perm_by_target_agree(world):
         perm = shuffle._perm_by_target(torch.from_numpy(t), world)
         rperm = rshuffle._perm_by_target(jnp.asarray(t), world)
         np.testing.assert_array_equal(np_of(perm), np.asarray(rperm))
-        return np_of(got), np_of(perm)
+        return np_of(got)
 
-    (ca, pa), (cb, pb) = _per_mode(run)
-    np.testing.assert_array_equal(ca, cb)
-    np.testing.assert_array_equal(pa, pb)
+    ca, _ = _per_mode(run)
     live = t[(t >= 0) & (t < world)]
     np.testing.assert_array_equal(ca, np.bincount(live, minlength=world))
 
 
 def test_range_partition_histogram_agree(ctx4):
-    """The range partition's sample histogram from ``count_leq_dense``
-    (sort) or ``index_add_`` (scatter): the same targets, equal to the
-    reference's, shard by shard."""
+    """The range partition's sample histogram by ``index_add_``: the same
+    targets as the reference's under each of its realizations, shard by
+    shard."""
     from cylon_tpu.parallel import ops as rpar_ops
     from cylon_tpu.config import SortOptions as RSortOptions
     from cylon_tpu.table import Table as RTable, _host_shard_pieces
@@ -368,8 +322,33 @@ def test_range_partition_histogram_agree(ctx4):
         want = _host_shard_pieces(want, rt.shard_capacity)
         for s in range(4):
             np.testing.assert_array_equal(got[s].numpy(), want[s])
-        return [g.numpy() for g in got]
 
-    a, b = _per_mode(run)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
+    _per_mode(run)
+
+
+@pytest.mark.parametrize("name", sorted(REMOVED_KNOBS))
+def test_removed_realization_knob_moves_nothing(name):
+    """A removed knob is not registered, and set to the value that once
+    chose the port's second realization it changes no bit of
+    ``pipeline.join_groupby`` at 2^12 rows or of ``lexsort_indices``."""
+    assert name not in config.KNOBS
+    rows = 1 << 12
+    tables = pipeline.tables(*pipeline.make_data(rows, seed=3), device="cpu")
+    out_cap = pipeline.cap_round(pipeline.join_count(*tables))
+    lk = tables[0][0]
+    ops = keys.build_operands([lk], torch.tensor(rows - 5), rows)
+
+    def run():
+        gcols, g, jm = pipeline.join_groupby(*tables, out_cap)
+        perm, words = keys.lexsort_indices(ops, rows)
+        return [int(g), int(jm)], [*gcols], [perm, *words]
+
+    want = run()
+    with _ref_env(**{name: REMOVED_KNOBS[name]}):
+        got = run()
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a.validity, b.validity)
+        assert torch.equal(a.data.view(torch.uint8), b.data.view(torch.uint8))
+    for a, b in zip(got[2], want[2]):
+        assert torch.equal(a, b)

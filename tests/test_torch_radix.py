@@ -1,14 +1,14 @@
-"""The port's LSD radix sort (``cylon_tpu_torch/ops/radix.py``) against
-its ``torch.sort`` path and against the JAX package's radix path.
+"""The port's one ``keys.lexsort_indices`` (``torch.sort`` of the packed
+key) against the JAX package's LSD radix realization.
 
-Twins of every test of ``tests/test_radix.py``.  Under
-``CYLON_TPU_SORT=radix`` the packed fast path of ``keys.lexsort_indices``
-must return the same permutation and the same words as ``cmp`` (both
-break ties by the packed row index), and the reference's radix path the
-same again: digit widths 1, 2 and 4, the matmul and ``scan_1d``
-(``xla``) cumsums, the one-word and two-word branches, a key that fills
-all 64 bits, ties, floats with negatives and NaNs, sizes off the scan's
-block.  Every comparison is exact."""
+Twins of the sort tests of ``tests/test_radix.py``.  Each case sets the
+reference's ``CYLON_TPU_SORT=radix`` with its digit width
+(``CYLON_TPU_RADIX_BITS``: 1, 2 or 4) and its cumsum
+(``CYLON_TPU_RADIX_SCAN``: the matmul scan or ``xla``); the port reads
+none of them.  The port's permutation and words must equal the
+reference's exactly: the one-word and two-word branches, a key that
+fills all 64 bits, ties, floats with negatives and NaNs, sizes off the
+reference's scan block."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +20,7 @@ from cylon_tpu.config import JoinType as RJoinType
 from cylon_tpu.ops import join as rjoin
 from cylon_tpu.ops import keys as rkeys
 from cylon_tpu_torch.config import JoinType
-from cylon_tpu_torch.ops import join, keys, radix
+from cylon_tpu_torch.ops import join, keys
 
 from .torch_parity import assert_columns_equal, np_of, port_column
 
@@ -33,26 +33,24 @@ def _operands(vals: np.ndarray, count: int, capacity: int):
 
 
 def _ab(ops, capacity, monkeypatch, bits="1", scan=None):
-    """cmp, then radix: the port's permutation and words equal across
-    the two and equal the reference's radix path's.  Returns the
+    """The reference under radix with ``bits``-bit digits and ``scan``;
+    the port's permutation and words equal its.  Returns the port's
     permutation."""
     r_ops, p_ops = ops
-    monkeypatch.delenv("CYLON_TPU_SORT", raising=False)
-    perm_cmp, words_cmp = keys.lexsort_indices(p_ops, capacity)
     monkeypatch.setenv("CYLON_TPU_SORT", "radix")
     monkeypatch.setenv("CYLON_TPU_RADIX_BITS", bits)
-    if scan is not None:
+    if scan is None:
+        monkeypatch.delenv("CYLON_TPU_RADIX_SCAN", raising=False)
+    else:
         monkeypatch.setenv("CYLON_TPU_RADIX_SCAN", scan)
-    perm_rad, words_rad = keys.lexsort_indices(p_ops, capacity)
+    perm, words = keys.lexsort_indices(p_ops, capacity)
     r_perm, r_words = rkeys.lexsort_indices(r_ops, capacity)
-    np.testing.assert_array_equal(np_of(perm_cmp), np_of(perm_rad))
-    np.testing.assert_array_equal(np_of(perm_rad), np.asarray(r_perm))
-    assert perm_rad.dtype == torch.int32
-    assert len(words_cmp) == len(words_rad) == len(r_words)
-    for a, b, r in zip(words_cmp, words_rad, r_words):
-        np.testing.assert_array_equal(np_of(a), np_of(b))
-        np.testing.assert_array_equal(np_of(b), np.asarray(r))
-    return perm_rad
+    assert perm.dtype == torch.int32
+    np.testing.assert_array_equal(np_of(perm), np.asarray(r_perm))
+    assert len(words) == len(r_words)
+    for a, r in zip(words, r_words):
+        np.testing.assert_array_equal(np_of(a), np.asarray(r))
+    return perm
 
 
 @pytest.mark.parametrize("bits", ["1", "2", "4"])
@@ -81,8 +79,8 @@ def test_radix_matches_cmp_32bit_branch(monkeypatch, scan):
 @pytest.mark.parametrize("bits", ["1", "4"])
 def test_radix_key_filling_all_64_bits(monkeypatch, bits):
     """i32 + i16 + i8 fields and 8 index bits: exactly 64 bits, so the
-    cmp path flips the sign bit and the radix path reads bit 63 as an
-    unsigned digit of the signed carrier."""
+    port flips the sign bit where the reference's radix path reads bit 63
+    as an unsigned digit."""
     rng = np.random.default_rng(5)
     cap = 256
     arrays = [rng.integers(-(1 << 31), 1 << 31, cap).astype(np.int32),
@@ -121,55 +119,23 @@ def test_radix_floats_negatives_nans(monkeypatch):
 
 @pytest.mark.parametrize("scan", ["matmul", "xla"])
 def test_radix_nonblock_sizes(monkeypatch, scan):
-    # capacities off the matmul scan's block: the fallback cumsum
+    # capacities off the reference's matmul scan block: its fallback cumsum
     rng = np.random.default_rng(11)
     for cap in (8, 100, 257, 1000, 1280):
         vals = rng.integers(0, 50, cap).astype(np.int32)
         _ab(_operands(vals, cap, cap), cap, monkeypatch,
             scan=(None if scan == "matmul" else "xla"))
-        monkeypatch.delenv("CYLON_TPU_RADIX_SCAN", raising=False)
-
-
-@pytest.mark.parametrize("n", [1 << 14, 1 << 10, 1000])
-def test_cumsum_matmul_matches_torch_cumsum(monkeypatch, n):
-    """The block matmul scan equals ``torch.cumsum`` bit for bit (and so
-    does the ``xla`` arm, ``scan_1d``'s plain version on the CPU)."""
-    rng = np.random.default_rng(12)
-    m = torch.from_numpy(rng.integers(0, 2, n).astype(bool))
-    want = torch.cumsum(m, 0, dtype=torch.int32)
-    monkeypatch.delenv("CYLON_TPU_RADIX_SCAN", raising=False)
-    got = radix._cumsum_i32(m)
-    assert got.dtype == torch.int32 and torch.equal(got, want)
-    monkeypatch.setenv("CYLON_TPU_RADIX_SCAN", "xla")
-    assert torch.equal(radix._cumsum_i32(m), want)
-
-
-def test_split_destinations_are_stable_permutations():
-    rng = np.random.default_rng(14)
-    for width in (1, 2, 3):
-        digit = torch.from_numpy(rng.integers(0, 1 << width, 3000))
-        dest = radix._split_destinations(digit, width)
-        out = torch.empty_like(digit)
-        out[dest.long()] = digit
-        assert sorted(dest.tolist()) == list(range(3000))
-        np.testing.assert_array_equal(
-            np_of(out), np.sort(digit.numpy(), kind="stable"))
-        order = torch.empty_like(dest)
-        order[dest.long()] = torch.arange(3000, dtype=torch.int32)
-        np.testing.assert_array_equal(
-            np_of(order), np.argsort(digit.numpy(), kind="stable"))
 
 
 def test_join_level_radix_agreement(monkeypatch):
-    """Join -> gather under cmp and radix: the same rows, slot for slot,
-    and the reference's under radix."""
+    """Join -> gather: the port's rows equal the reference's slot for
+    slot under each of its sorts, cmp and radix."""
     rng = np.random.default_rng(13)
     cap = 1 << 10
     rl = (rcolmod.from_numpy(rng.integers(0, 300, cap).astype(np.int32)),)
     rr = (rcolmod.from_numpy(rng.integers(0, 300, cap).astype(np.int32)),)
     pl = tuple(port_column(c) for c in rl)
     pr = tuple(port_column(c) for c in rr)
-    results = {}
     for mode in ("cmp", "radix"):
         monkeypatch.setenv("CYLON_TPU_SORT", mode)
         jax.clear_caches()
@@ -184,7 +150,4 @@ def test_join_level_radix_agreement(monkeypatch):
                                        "sort")
         assert int(n) == int(r_n) == m
         assert_columns_equal(out, r_out)
-        results[mode] = [np_of(c.data) for c in out]
     jax.clear_caches()
-    for a, b in zip(results["cmp"], results["radix"]):
-        np.testing.assert_array_equal(a, b)

@@ -52,7 +52,8 @@ def test_run_extents_matches_reference(mode):
 
 @pytest.mark.parametrize("permute", ["scatter", "sort"])
 def test_segment_spans_matches_reference(permute, monkeypatch):
-    # both packages read the knob: each runs the same realization
+    # only the reference reads the knob: the port's one realization
+    # against each of the reference's
     monkeypatch.setenv("CYLON_TPU_PERMUTE", permute)
     rng = np.random.default_rng(37)
     for n in (1, 2, 999):

@@ -11,8 +11,8 @@ shuffle-accounting cases of ``tests/test_obs.py:221-279``:
 - the port's per-buffer, packed and compressed shuffles give bit-identical
   shards (floats compared by their bits), and equal the reference's shards
   slot for slot under murmur3 placement (``torch_parity.murmur3_reference``;
-  both ``CYLON_TPU_PERMUTE`` realizations are run, each package under the
-  same one);
+  the reference under each of its ``CYLON_TPU_PERMUTE`` realizations, the
+  port under its one);
 - collective launches are counted by wrapping ``collectives.all_to_all``
   and ``allgather`` (the reference inspects its jaxpr);
 - ``shuffle.bytes_sent`` is checked against the exact-traffic formula:
@@ -253,8 +253,9 @@ def _assert_tables_bits_equal(a, b, ctx=""):
 
 @contextlib.contextmanager
 def _env(**values):
-    """Set environment variables (both packages read the same knobs) for
-    the block, and restore them after."""
+    """Set environment variables for the block, and restore them after
+    (``config.knob_env`` refuses the reference's ``CYLON_TPU_PERMUTE``,
+    which the port does not register)."""
     saved = {k: os.environ.get(k) for k in values}
     try:
         os.environ.update(values)
@@ -297,8 +298,7 @@ def _reference_shuffle(df, world, keys, pack="1", comp="0",
 def _ab_against_reference(meshes, world, df, keys, arms=ARMS, pack="1",
                           comp="0", permute="scatter"):
     t = Table.from_pandas(df, ctx=meshes[world])
-    with _env(CYLON_TPU_PERMUTE=permute):
-        got = _port_arms(t, keys, arms)
+    got = _port_arms(t, keys, arms)
     rt, want = _reference_shuffle(df, world, keys, pack, comp, permute)
     assert_shards_equal(t, rt)
     assert_shards_equal(got, want)
